@@ -1,0 +1,173 @@
+"""Configuration of the port (counterpart of ``hmmc_tpu/config.py``).
+
+:class:`CrossConfig`, :data:`CLIP_ARCH` and :class:`ClipArch` are copies
+of the JAX package's (field names and defaults match the reference's
+``cross_config.json`` and CLIP model zoo). :class:`TaskConfig` carries only
+the fields the retrieval-eval path reads, plus the attention switch
+``use_fused_attention`` ("on": the hand-written CUDA kernel for every
+unmasked or causal attention; "off": the plain PyTorch attention). The JAX
+package's automatic kernel choice is not carried over: its crossover was
+measured on a TPU, and any such rule for the port is derived from H100
+measurements (PERF.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class CrossConfig:
+    """Architecture + loss-weight config (reference: cross_config.json)."""
+
+    # temporal transformer over the frame axis
+    max_position_embeddings: int = 48
+    temporal_hidden_size: int = 512
+    temporal_attention_heads: int = 8
+    temporal_hidden_layers: int = 4
+    # chinese text tower (roberta-base geometry by default)
+    chinese_hidden_size: int = 768
+    chinese_num_layers: int = 12
+    chinese_num_heads: int = 12
+    chinese_intermediate_size: int = 3072
+    # MLM
+    mlm_probability: float = 0.15
+    # projector / predictor MLPs (MoCo pretrain heads)
+    proj_num_layers: int = 2
+    pred_num_layers: int = 2
+    # pretrain loss weights (modeling.py:424)
+    weight_FAM: float = 0.05
+    weight_VTM: float = 0.45
+    weight_FTM: float = 0.45
+    weight_MLM: float = 0.05
+    # finetune loss weights (modeling.py:703-709)
+    weight_VTM_finetune: float = 0.85
+    weight_FTM_finetune: float = 0.15
+    # retrieval_VT title mixing weight
+    weight_title: float = 0.5
+    # CLIP backbone selection
+    pretrained_clip_name: str = "ViT-B/32"
+    # kept for config-file compat; unused (legacy co-attention model)
+    co_attention_layers: int = 4
+
+
+# Shapes of the supported CLIP towers, keyed like the reference's
+# pretrained_clip_name (module_clip.py:20-29).
+CLIP_ARCH = {
+    "ViT-B/32": dict(
+        embed_dim=512, image_resolution=224, vision_layers=12, vision_width=768,
+        vision_patch_size=32, context_length=77, vocab_size=49408,
+        transformer_width=512, transformer_heads=8, transformer_layers=12,
+    ),
+    "ViT-B/16": dict(
+        embed_dim=512, image_resolution=224, vision_layers=12, vision_width=768,
+        vision_patch_size=16, context_length=77, vocab_size=49408,
+        transformer_width=512, transformer_heads=8, transformer_layers=12,
+    ),
+    "ViT-L/14": dict(
+        embed_dim=768, image_resolution=224, vision_layers=24, vision_width=1024,
+        vision_patch_size=14, context_length=77, vocab_size=49408,
+        transformer_width=768, transformer_heads=12, transformer_layers=12,
+    ),
+    "ViT-L/14@336px": dict(
+        embed_dim=768, image_resolution=336, vision_layers=24, vision_width=1024,
+        vision_patch_size=14, context_length=77, vocab_size=49408,
+        transformer_width=768, transformer_heads=12, transformer_layers=12,
+    ),
+    # ResNet towers: a tuple vision_layers selects the ModifiedResNet
+    "RN50": dict(
+        embed_dim=1024, image_resolution=224, vision_layers=(3, 4, 6, 3),
+        vision_width=64, vision_patch_size=0, context_length=77,
+        vocab_size=49408, transformer_width=512, transformer_heads=8,
+        transformer_layers=12,
+    ),
+    "RN101": dict(
+        embed_dim=512, image_resolution=224, vision_layers=(3, 4, 23, 3),
+        vision_width=64, vision_patch_size=0, context_length=77,
+        vocab_size=49408, transformer_width=512, transformer_heads=8,
+        transformer_layers=12,
+    ),
+    "RN50x4": dict(
+        embed_dim=640, image_resolution=288, vision_layers=(4, 6, 10, 6),
+        vision_width=80, vision_patch_size=0, context_length=77,
+        vocab_size=49408, transformer_width=640, transformer_heads=10,
+        transformer_layers=12,
+    ),
+    "RN50x16": dict(
+        embed_dim=768, image_resolution=384, vision_layers=(6, 8, 18, 8),
+        vision_width=96, vision_patch_size=0, context_length=77,
+        vocab_size=49408, transformer_width=768, transformer_heads=12,
+        transformer_layers=12,
+    ),
+    "RN50x64": dict(
+        embed_dim=1024, image_resolution=448, vision_layers=(3, 15, 36, 10),
+        vision_width=128, vision_patch_size=0, context_length=77,
+        vocab_size=49408, transformer_width=1024, transformer_heads=16,
+        transformer_layers=12,
+    ),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipArch:
+    embed_dim: int
+    image_resolution: int
+    vision_layers: object  # int (ViT depth) | tuple (ResNet stage blocks)
+    vision_width: int
+    vision_patch_size: int
+    context_length: int
+    vocab_size: int
+    transformer_width: int
+    transformer_heads: int
+    transformer_layers: int
+    linear_patch: str = "2d"  # '2d' | '3d' (module_clip.py:291-295)
+
+    @property
+    def is_resnet(self) -> bool:
+        return isinstance(self.vision_layers, (tuple, list))
+
+    @property
+    def vision_heads(self) -> int:
+        if self.is_resnet:
+            return self.vision_width * 32 // 64
+        return self.vision_width // 64
+
+    @property
+    def grid_size(self) -> int:
+        return self.image_resolution // self.vision_patch_size
+
+    @classmethod
+    def by_name(cls, name: str, linear_patch: str = "2d") -> "ClipArch":
+        if name not in CLIP_ARCH:
+            raise ValueError(
+                f"unknown CLIP arch {name!r}; known: {list(CLIP_ARCH)}")
+        return cls(linear_patch=linear_patch, **CLIP_ARCH[name])
+
+
+@dataclasses.dataclass(frozen=True)
+class TaskConfig:
+    """The run flags the retrieval-eval path reads (names as in
+    ``hmmc_tpu.config.TaskConfig``)."""
+
+    language: str = "english"
+    use_temp: bool = True
+    use_frame_fea: bool = True
+    top_frames: int = 3
+    max_words: int = 32
+    max_frames: int = 12
+    seed: int = 42
+    compute_dtype: str = "bfloat16"   # bfloat16 | float32
+    use_fused_attention: str = "on"   # on | off
+
+    def validate(self) -> None:
+        if self.compute_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        if self.use_fused_attention not in ("on", "off"):
+            raise ValueError(
+                f"use_fused_attention must be on/off, got "
+                f"{self.use_fused_attention!r}")
+        if self.language not in ("english", "chinese"):
+            raise ValueError(f"unknown language {self.language!r}")
+
+    def replace(self, **kw) -> "TaskConfig":
+        return dataclasses.replace(self, **kw)

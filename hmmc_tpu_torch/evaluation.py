@@ -1,0 +1,203 @@
+"""Retrieval evaluation (counterpart of ``hmmc_tpu/evaluation.py``;
+reference eval_epoch, main_task_retrieval.py:360-525).
+
+Two phases on one device, under ``torch.inference_mode()``:
+
+1. Feature caching: the text and video encoders run over FIXED-size
+   blocks (only the last partial block is zero-padded, then trimmed);
+   uint8 frames are cast and CLIP-normalized on the device.
+   Multi-sentence datasets encode every sentence but only the videos at
+   the cut-off indices.
+2. Similarity: ``scale * cos(q, v)`` plus, with ``use_frame_fea``, the
+   mean of each query's top-``top_frames`` frame logits, blocked over
+   queries so the [Q, V, F] frame logits never exceed one block; then
+   R@1/5/10, MedR and MeanR (t2v and v2t) by
+   :func:`hmmc_tpu_torch.metrics.logging_rank`.
+
+Not ported yet: dual-softmax reweighting, the retrieval_VT title mix and
+token filtering.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from hmmc_tpu_torch.config import TaskConfig
+from hmmc_tpu_torch.factory import resolve_device
+from hmmc_tpu_torch.metrics import logging_rank
+from hmmc_tpu_torch.ops import image_ops
+
+logger = logging.getLogger(__name__)
+
+
+def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
+    if x.shape[0] == n:
+        return x
+    pad = np.zeros((n - x.shape[0], *x.shape[1:]), x.dtype)
+    return np.concatenate([x, pad], axis=0)
+
+
+def auto_video_block(arch, frames: int, budget_bytes: float = 2.5e9) -> int:
+    """The largest power of two <= 64 whose fp32 attention probabilities
+    [B*F, H, L, L] fit ``budget_bytes`` (copied as it is; the budget was
+    sized for a TPU's memory and is still to be re-derived for the H100,
+    see ROADMAP.md)."""
+    if arch.is_resnet:
+        return 64
+    seq = arch.grid_size ** 2 + 1
+    heads = arch.vision_heads
+    b = 64
+    while b > 1 and b * frames * heads * seq * seq * 4.0 > budget_bytes:
+        b //= 2
+    return b
+
+
+class _BlockedEncoder:
+    """Accumulates host rows and runs an encoder over FIXED-size blocks,
+    padding only the final partial block. Bounds the device footprint of
+    feature caching by the block size, not by the loader's batch size."""
+
+    def __init__(self, fn, block: int):
+        self.fn = fn
+        self.block = block
+        self.bufs = None
+        self.n = 0
+        self.outs = []
+
+    def add(self, *arrays: np.ndarray) -> None:
+        if self.bufs is None:
+            self.bufs = [[] for _ in arrays]
+        for buf, a in zip(self.bufs, arrays):
+            buf.append(np.asarray(a))
+        self.n += arrays[0].shape[0]
+        while self.n >= self.block:
+            self._compact()
+            blk = [c[:self.block] for c in self._cat]
+            self._run(blk, self.block)
+            self._cat = [c[self.block:] for c in self._cat]
+            self.bufs = [[c] for c in self._cat]
+            self.n -= self.block
+
+    def _compact(self) -> None:
+        self._cat = [b[0] if len(b) == 1 else np.concatenate(b, axis=0)
+                     for b in self.bufs]
+
+    def _run(self, blk, n_valid: int) -> None:
+        out = self.fn(*blk)
+        if not isinstance(out, (tuple, list)):
+            out = (out,)
+        self.outs.append(tuple(np.asarray(o)[:n_valid] for o in out))
+
+    def finish(self):
+        """Returns a tuple of concatenated outputs (empty tuple if no rows
+        were added)."""
+        if self.n:
+            self._compact()
+            self._run([_pad_to(c, self.block) for c in self._cat], self.n)
+            self.bufs, self.n = None, 0
+        if not self.outs:
+            return ()
+        width = len(self.outs[0])
+        return tuple(np.concatenate([o[i] for o in self.outs], axis=0)
+                     for i in range(width))
+
+
+class Evaluator:
+    def __init__(self, model, task: TaskConfig, query_block: int = 512,
+                 text_block: int = 512, video_block: Optional[int] = None,
+                 device=None):
+        """``model``: a ``BirdModel`` already on ``device`` (default: the
+        current CUDA device; without a card, pass ``device="cpu"``)."""
+        self.device = resolve_device(device)
+        p = next(model.parameters())
+        if p.device.type != self.device.type or (
+                self.device.index is not None
+                and p.device.index != self.device.index):
+            raise ValueError(f"model is on {p.device}, evaluator on "
+                             f"{self.device}")
+        self.model = model
+        self.task = task
+        self.query_block = query_block
+        self.text_block = text_block
+        if video_block is None:
+            video_block = auto_video_block(model.arch, task.max_frames)
+            logger.info("eval video block auto-sized to %d", video_block)
+        self.video_block = video_block
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _encode_text(self, ids: np.ndarray) -> np.ndarray:
+        return self.model.encode_text(self._to_device(ids).long()).cpu().numpy()
+
+    def _encode_video(self, video_u8: np.ndarray):
+        video = image_ops.normalize(image_ops.to_float(
+            self._to_device(video_u8)))
+        v, f = self.model.encode_video(video)
+        return v.cpu().numpy(), f.cpu().numpy()
+
+    def _block_sims(self, q: torch.Tensor, v: torch.Tensor,
+                    frames: torch.Tensor, scale: float):
+        qn = q / q.norm(dim=-1, keepdim=True)
+        vn = v / v.norm(dim=-1, keepdim=True)
+        sim = scale * qn @ vn.T
+        fn = frames / frames.norm(dim=-1, keepdim=True)
+        # [Q, V, F] frame logits for this query block
+        fl = scale * torch.einsum("qh,vfh->qvf", qn, fn)
+        k = min(self.task.top_frames, fl.shape[-1])
+        sim_frame = fl.topk(k, dim=-1).values.mean(dim=-1)
+        return sim, sim_frame
+
+    @torch.inference_mode()
+    def cache_features(self, loader, dataset=None):
+        """-> (q [Q, D], v [V, D], f [V, F, D], multi, cut_off), numpy."""
+        multi = bool(getattr(dataset, "multi_sentence_per_video", False))
+        cut_off = ([c - 1 for c in dataset.cut_off_points] if multi else [])
+        q_enc = _BlockedEncoder(self._encode_text, self.text_block)
+        v_enc = _BlockedEncoder(self._encode_video, self.video_block)
+        total_video = 0
+        for batch in loader:
+            n = batch["query_ids"].shape[0]
+            q_enc.add(batch["query_ids"])
+            if multi:
+                # encode only the videos at the cut-off indices
+                s_ = total_video
+                keep = [i - s_ for i in cut_off if s_ <= i < s_ + n]
+                if keep:
+                    v_enc.add(batch["video"][keep])
+                total_video += n
+            else:
+                v_enc.add(batch["video"])
+        (q,) = q_enc.finish()
+        v, f = v_enc.finish()
+        return q, v, f, multi, cut_off
+
+    @torch.inference_mode()
+    def similarity(self, q: np.ndarray, v: np.ndarray,
+                   f: np.ndarray) -> np.ndarray:
+        scale = float(self.model.logit_scale())
+        v_dev, f_dev = self._to_device(v), self._to_device(f)
+        blocks, frame_blocks = [], []
+        qb = self.query_block
+        nq = q.shape[0]
+        for s in range(0, nq, qb):
+            sim, sim_frame = self._block_sims(
+                self._to_device(_pad_to(q[s:s + qb], qb)), v_dev, f_dev, scale)
+            n = min(qb, nq - s)
+            blocks.append(sim[:n].cpu().numpy())
+            frame_blocks.append(sim_frame[:n].cpu().numpy())
+        sim = np.concatenate(blocks, axis=0)
+        if self.task.use_frame_fea:
+            sim = sim + np.concatenate(frame_blocks, axis=0)
+        return sim
+
+    def run(self, loader, dataset=None,
+            log: Optional[logging.Logger] = None) -> Dict[str, float]:
+        q, v, f, multi, cut_off = self.cache_features(loader, dataset)
+        logger.info("eval features: %d queries, %d videos", len(q), len(v))
+        sim = self.similarity(q, v, f)
+        return logging_rank(sim, multi, cut_off, log or logger)

@@ -1,0 +1,51 @@
+"""Model construction (counterpart of ``hmmc_tpu/factory.py``).
+
+:func:`build_model` builds the retrieval ``BirdModel`` with seeded random
+weights drawn on the CPU from an explicit ``torch.Generator`` (so a seed
+gives the same weights on every device), then moves it to the device.
+Loading CLIP or HMMC checkpoints is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from hmmc_tpu_torch.config import ClipArch, CrossConfig, TaskConfig
+from hmmc_tpu_torch.models.retrieval import BirdModel
+
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the
+    current CUDA device. Without a card and without ``device`` it raises:
+    the port never drops to the CPU by itself."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the port "
+            "on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def build_model(task: TaskConfig, cross: CrossConfig,
+                arch: Optional[ClipArch] = None, device=None,
+                generator: Optional[torch.Generator] = None) -> BirdModel:
+    """A ``BirdModel`` in eval mode on ``device`` with weights drawn from
+    ``generator`` (a CPU generator; default: seeded with ``task.seed``).
+    ``arch`` defaults to ``cross.pretrained_clip_name``."""
+    task.validate()
+    device = resolve_device(device)
+    if arch is None:
+        arch = ClipArch.by_name(cross.pretrained_clip_name)
+    model = BirdModel(arch, cross, language=task.language,
+                      use_temp=task.use_temp,
+                      dtype=COMPUTE_DTYPES[task.compute_dtype],
+                      use_fused=task.use_fused_attention == "on")
+    if generator is None:
+        generator = torch.Generator().manual_seed(task.seed)
+    model.reset_parameters(generator)
+    return model.to(device).eval()

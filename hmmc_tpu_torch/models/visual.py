@@ -1,0 +1,66 @@
+"""Visual encoder: per-frame CLIP ViT + temporal transformer (counterpart
+of ``hmmc_tpu/models/visual.py``, module_cross.py:152-237).
+
+- every frame goes through the ViT; the per-frame features BEFORE the
+  temporal transformer are returned as ``frame_output``;
+- with ``use_temp``: add the frame position embeddings (sized from the
+  tower's output width), run the temporal transformer, add the residual.
+  The reference's temporal mask is all ones, so no mask is applied;
+- the video feature is the mean over frames of the L2-normalized frame
+  vectors (normalize-then-mean).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+
+from hmmc_tpu_torch.config import ClipArch, CrossConfig
+from hmmc_tpu_torch.models.layers import Transformer, normal_
+from hmmc_tpu_torch.models.vit import VisionTransformer
+
+
+class VisualEncoder(nn.Module):
+    def __init__(self, arch: ClipArch, cross_config: CrossConfig = CrossConfig(),
+                 use_temp: bool = True, dtype: torch.dtype = torch.float32,
+                 use_fused: bool = False):
+        super().__init__()
+        if arch.is_resnet:
+            raise NotImplementedError(
+                "ResNet CLIP towers are not ported yet (ROADMAP.md Queue A, "
+                "'Other towers')")
+        self.use_temp = use_temp
+        self.dtype = dtype
+        self.visual = VisionTransformer(arch, dtype, use_fused)
+        if use_temp:
+            cc = cross_config
+            self.frame_position_embeddings = nn.Embedding(
+                cc.max_position_embeddings, arch.embed_dim,
+                _weight=torch.empty(cc.max_position_embeddings, arch.embed_dim))
+            self.temporal_transformer = Transformer(
+                arch.embed_dim, cc.temporal_hidden_layers,
+                cc.temporal_attention_heads, use_fused=use_fused)
+
+    def reset_parameters(self, generator=None) -> None:
+        self.visual.reset_parameters(generator)
+        if self.use_temp:
+            normal_(self.frame_position_embeddings.weight, 0.02, generator)
+            self.temporal_transformer.reset_parameters(generator)
+
+    def forward(self, video: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """video: [B, F, H, W, 3] normalized floats. Returns
+        (video_feature [B, D] fp32, frame_output [B, F, D] fp32)."""
+        b, f, h, w, c = video.shape
+        per_frame = self.visual(video.reshape(b * f, h, w, c))
+        hidden = per_frame.reshape(b, f, per_frame.shape[-1])
+        frame_output = hidden
+        if self.use_temp:
+            x = hidden + self.frame_position_embeddings.weight[:f].to(
+                hidden.dtype)
+            x = self.temporal_transformer(x.to(self.dtype))
+            hidden = x.float() + hidden
+        normed = hidden / hidden.norm(dim=-1, keepdim=True)
+        return normed.mean(dim=1).float(), frame_output

@@ -1,0 +1,92 @@
+"""The weight bridge: ``hmmc_tpu`` parameters -> the port's ``state_dict``.
+
+:func:`from_jax_params` maps a JAX ``BirdModel`` parameter tree (as numpy)
+to the reference checkpoint's key names, which the port's modules use, so
+``BirdModel.load_state_dict(from_jax_params(params), strict=True)`` loads
+it. The mapping unstacks the scan-stacked ``[layers, ...]`` leaves,
+transposes ``[in, out]`` kernels to ``[out, in]`` (``in_proj_kernel``
+[D, 3D] -> ``in_proj_weight`` [3D, D]), turns the HWIO patch convolution
+into OIHW, and renames LayerNorm ``scale``/``bias`` to ``weight``/``bias``.
+Covers the English ViT ``BirdModel`` this port builds.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(a: Any) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def _kernel(a: Any) -> torch.Tensor:
+    """[in, out] -> [out, in]."""
+    return _t(np.asarray(a).T)
+
+
+def _layer_norm(p: Dict, prefix: str, out: StateDict) -> None:
+    out[f"{prefix}.weight"] = _t(p["scale"])
+    out[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _resblocks(tree: Dict, prefix: str, out: StateDict) -> None:
+    block = tree["resblocks"]["block"]
+    for i in range(np.shape(block["attn"]["in_proj_kernel"])[0]):
+        b = f"{prefix}.resblocks.{i}"
+        attn = block["attn"]
+        out[f"{b}.attn.in_proj_weight"] = _kernel(attn["in_proj_kernel"][i])
+        out[f"{b}.attn.in_proj_bias"] = _t(attn["in_proj_bias"][i])
+        out[f"{b}.attn.out_proj.weight"] = _kernel(attn["out_kernel"][i])
+        out[f"{b}.attn.out_proj.bias"] = _t(attn["out_bias"][i])
+        for ln in ("ln_1", "ln_2"):
+            out[f"{b}.{ln}.weight"] = _t(block[ln]["scale"][i])
+            out[f"{b}.{ln}.bias"] = _t(block[ln]["bias"][i])
+        for fc in ("c_fc", "c_proj"):
+            out[f"{b}.mlp.{fc}.weight"] = _kernel(block[fc]["kernel"][i])
+            out[f"{b}.mlp.{fc}.bias"] = _t(block[fc]["bias"][i])
+
+
+def _text(te: Dict, prefix: str, out: StateDict) -> None:
+    p = te["clip_text"]
+    out[f"{prefix}logit_scale"] = _t(te["logit_scale"]).reshape(())
+    out[f"{prefix}token_embedding.weight"] = _t(p["token_embedding"])
+    out[f"{prefix}positional_embedding"] = _t(p["positional_embedding"])
+    out[f"{prefix}text_projection"] = _t(p["text_projection"])
+    _layer_norm(p["ln_final"], f"{prefix}ln_final", out)
+    _resblocks(p["transformer"], f"{prefix}transformer", out)
+
+
+def _visual(ve: Dict, prefix: str, out: StateDict) -> None:
+    p = ve["visual"]
+    if "conv1" not in p:
+        raise NotImplementedError(
+            "only the 2d-patch ViT tower is bridged (ResNet and 3d towers "
+            "are not ported yet)")
+    v = f"{prefix}visual."
+    out[f"{v}conv1.weight"] = _t(
+        np.asarray(p["conv1"]["kernel"]).transpose(3, 2, 0, 1))   # HWIO->OIHW
+    out[f"{v}class_embedding"] = _t(p["class_embedding"])
+    out[f"{v}positional_embedding"] = _t(p["positional_embedding"])
+    out[f"{v}proj"] = _t(p["proj"])
+    _layer_norm(p["ln_pre"], f"{v}ln_pre", out)
+    _layer_norm(p["ln_post"], f"{v}ln_post", out)
+    _resblocks(p["transformer"], f"{v}transformer", out)
+    if "frame_position_embeddings" in ve:
+        out[f"{prefix}frame_position_embeddings.weight"] = _t(
+            ve["frame_position_embeddings"])
+        _resblocks(ve["temporal_transformer"],
+                   f"{prefix}temporal_transformer", out)
+
+
+def from_jax_params(params: Dict) -> StateDict:
+    """``hmmc_tpu`` ``BirdModel`` params (nested dict of arrays) -> the
+    port's ``BirdModel`` state_dict (fp32 CPU tensors)."""
+    out: StateDict = {}
+    _text(params["text_encoder"], "text_encoder.", out)
+    _visual(params["visual_encoder"], "visual_encoder.", out)
+    return out
