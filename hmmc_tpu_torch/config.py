@@ -3,7 +3,7 @@
 :class:`CrossConfig`, :data:`CLIP_ARCH` and :class:`ClipArch` are copies
 of the JAX package's (field names and defaults match the reference's
 ``cross_config.json`` and CLIP model zoo). :class:`TaskConfig` carries only
-the fields the retrieval-eval path reads, plus the attention switch
+the fields the retrieval eval and fine-tune read, plus the attention switch
 ``use_fused_attention`` ("on": the hand-written CUDA kernel for every
 unmasked or causal attention; "off": the plain PyTorch attention). The JAX
 package's automatic kernel choice is not carried over: its crossover was
@@ -146,8 +146,8 @@ class ClipArch:
 
 @dataclasses.dataclass(frozen=True)
 class TaskConfig:
-    """The run flags the retrieval-eval path reads (names as in
-    ``hmmc_tpu.config.TaskConfig``)."""
+    """The run flags the retrieval eval and fine-tune read (names and
+    defaults as in ``hmmc_tpu.config.TaskConfig``)."""
 
     language: str = "english"
     use_temp: bool = True
@@ -155,11 +155,28 @@ class TaskConfig:
     top_frames: int = 3
     max_words: int = 32
     max_frames: int = 12
+    # optimization
+    lr: float = 1e-4
+    text_lr: float = 1e-5
+    coef_lr: float = 1.0
+    weight_decay: float = 0.2
+    warmup_proportion: float = 0.1
+    epochs: int = 20
+    batch_size: int = 256
+    gradient_accumulation_steps: int = 1
     seed: int = 42
+    n_display: int = 100
     compute_dtype: str = "bfloat16"   # bfloat16 | float32
     use_fused_attention: str = "on"   # on | off
+    # store BertAdam's m/v moments in bf16 (the update computes in fp32)
+    optim_bf16_state: bool = False
+    # the reference's temporal attention mask is all ones even over padded
+    # frames (module_cross.py:201-203); True masks padded frames
+    use_frame_mask: bool = False
 
     def validate(self) -> None:
+        if self.gradient_accumulation_steps < 1:
+            raise ValueError("gradient_accumulation_steps must be >= 1")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
         if self.use_fused_attention not in ("on", "off"):
@@ -168,6 +185,12 @@ class TaskConfig:
                 f"{self.use_fused_attention!r}")
         if self.language not in ("english", "chinese"):
             raise ValueError(f"unknown language {self.language!r}")
+
+    @property
+    def micro_batch_size(self) -> int:
+        # the reference divides the flag batch by the accumulation steps up
+        # front (main_task_retrieval.py:95)
+        return self.batch_size // self.gradient_accumulation_steps
 
     def replace(self, **kw) -> "TaskConfig":
         return dataclasses.replace(self, **kw)

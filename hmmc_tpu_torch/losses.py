@@ -1,0 +1,75 @@
+"""Retrieval fine-tune losses (counterpart of the CrossEn part of
+``hmmc_tpu/losses.py``; reference until_module.py:39-49, 196-217 and
+modeling.py:207-229, 665-722).
+
+- :func:`cross_en`: symmetric InfoNCE's one direction, diagonal positives;
+- :func:`get_dual_matrix` / :func:`dual_cross_en`: the dual-softmax
+  reweighting;
+- :func:`loose_similarity`: scaled cosine logits, 2-D and 3-D (per frame);
+- :func:`finetune_retrieval_loss`: VTM (symmetric CrossEn on the global
+  similarity) plus FTM (the per-frame symmetric CrossEn, meaned).
+
+All math in fp32; inputs may be bf16 (cast up on entry). The MoCo, MIL-NCE
+and max-margin losses come with the pretrain slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+
+def _l2norm(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def cross_en(sim_matrix: torch.Tensor) -> torch.Tensor:
+    """-mean(diag(log_softmax(sim, -1))) over the last two axes; rows are
+    queries. Leading axes are a batch of matrices."""
+    logpt = torch.log_softmax(sim_matrix.float(), dim=-1)
+    return -torch.diagonal(logpt, dim1=-2, dim2=-1).mean(dim=-1)
+
+
+def get_dual_matrix(sim_matrix: torch.Tensor) -> torch.Tensor:
+    """sim * softmax(sim, 0) * softmax(sim, 1) (temperature fixed at 1, as
+    in the reference)."""
+    s = sim_matrix.float()
+    return s * torch.softmax(s, dim=0) * torch.softmax(s, dim=1)
+
+
+def dual_cross_en(sim_matrix: torch.Tensor) -> torch.Tensor:
+    return cross_en(get_dual_matrix(sim_matrix))
+
+
+def loose_similarity(sequence_output: torch.Tensor,
+                     visual_output: torch.Tensor,
+                     logit_scale: torch.Tensor) -> torch.Tensor:
+    """Scaled cosine-similarity logits. sequence_output [Bq, H];
+    visual_output [Bv, H] -> [Bq, Bv], or [Bv, F, H] -> [Bq, Bv, F].
+    ``logit_scale`` is already exp-ed and clamped by the caller."""
+    v = _l2norm(visual_output.float())
+    s = _l2norm(sequence_output.float())
+    if v.dim() == 2:
+        return logit_scale * (s @ v.T)
+    return logit_scale * torch.einsum("vfh,qh->qvf", v, s)
+
+
+def finetune_retrieval_loss(query_output: torch.Tensor,
+                            visual_output: torch.Tensor,
+                            frame_output: Optional[torch.Tensor],
+                            logit_scale: torch.Tensor, weight_vtm: float,
+                            weight_ftm: float) -> Dict[str, torch.Tensor]:
+    """``BirdModel.forward``'s training loss: weight_vtm * (CrossEn(sim) +
+    CrossEn(sim^T)) plus, with frames, weight_ftm * the mean over frames of
+    the same symmetric CrossEn on each frame's similarity matrix."""
+    sim = loose_similarity(query_output, visual_output, logit_scale)
+    sim_loss = cross_en(sim) + cross_en(sim.T)
+    loss = weight_vtm * sim_loss
+    frame_loss = sim_loss.new_zeros(())
+    if frame_output is not None:
+        per = loose_similarity(query_output, frame_output,
+                               logit_scale).permute(2, 0, 1)   # [F, Bq, Bv]
+        frame_loss = (cross_en(per) + cross_en(per.transpose(1, 2))).mean()
+        loss = loss + weight_ftm * frame_loss
+    return {"loss": loss, "sim_loss": sim_loss, "frame_loss": frame_loss}

@@ -39,13 +39,15 @@ class BirdModel(nn.Module):
         """[B, L] token ids -> [B, embed_dim] fp32."""
         return self.text_encoder(input_ids)
 
-    def encode_video(self, video: torch.Tensor
+    def encode_video(self, video: torch.Tensor,
+                     frame_mask: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[B, F, H, W, 3] normalized floats -> (video feature [B, D],
-        frame features [B, F, D]), fp32."""
-        return self.visual_encoder(video)
+        """[B, F, H, W, 3] normalized floats (and an optional [B, F] frame
+        mask, 1 = real frame) -> (video feature [B, D], frame features
+        [B, F, D]), fp32."""
+        return self.visual_encoder(video, frame_mask)
 
     def logit_scale(self) -> torch.Tensor:
-        """exp(logit_scale) clamped to 100, never trained
+        """exp(logit_scale) clamped to 100; no gradient reaches it
         (modeling.py:216-217)."""
         return self.text_encoder.get_logit_scale()

@@ -5,9 +5,12 @@
   argmax of the ids (module_clip.py:470-487, module_cross.py:287-305).
 - :class:`TextEncoder`: the English encoder. Its parameters sit at the top
   level, so keys read ``text_encoder.token_embedding.weight`` as in the
-  reference checkpoint. ``logit_scale`` is a constant ln(100) buffer (the
-  reference never trains it) clamped to 100 at use. The Chinese BERT
-  tower is not ported yet.
+  reference checkpoint. ``logit_scale`` is ln(100), clamped to 100 at use.
+  The reference never trains it; the JAX package keeps it as a parameter
+  whose gradient is stopped, and its BertAdam still decays it. Here it is
+  a parameter with ``requires_grad=False``: no gradient reaches it, but
+  the optimizer holds it (with a zero gradient) and decays it as JAX does.
+  The Chinese BERT tower is not ported yet.
 """
 
 from __future__ import annotations
@@ -74,7 +77,8 @@ class TextEncoder(ClipTextTower):
                 "ported; the Chinese BERT tower is ROADMAP.md Queue A, "
                 "'Chinese branch'")
         super().__init__(arch, dtype, use_fused)
-        self.register_buffer("logit_scale", torch.tensor(math.log(100.0)))
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(100.0)),
+                                        requires_grad=False)
 
     def reset_parameters(self, generator=None) -> None:
         super().reset_parameters(generator)

@@ -5,14 +5,16 @@ of ``hmmc_tpu/models/visual.py``, module_cross.py:152-237).
   temporal transformer are returned as ``frame_output``;
 - with ``use_temp``: add the frame position embeddings (sized from the
   tower's output width), run the temporal transformer, add the residual.
-  The reference's temporal mask is all ones, so no mask is applied;
+  The reference's temporal mask is all ones, so no mask is applied; a
+  ``frame_mask`` [B, F] (1 = real frame) masks padded frames out of the
+  temporal attention instead (an additive mask, so the plain attention);
 - the video feature is the mean over frames of the L2-normalized frame
   vectors (normalize-then-mean).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -49,10 +51,12 @@ class VisualEncoder(nn.Module):
             normal_(self.frame_position_embeddings.weight, 0.02, generator)
             self.temporal_transformer.reset_parameters(generator)
 
-    def forward(self, video: torch.Tensor
+    def forward(self, video: torch.Tensor,
+                frame_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """video: [B, F, H, W, 3] normalized floats. Returns
-        (video_feature [B, D] fp32, frame_output [B, F, D] fp32)."""
+        """video: [B, F, H, W, 3] normalized floats; frame_mask: [B, F] or
+        None. Returns (video_feature [B, D] fp32, frame_output [B, F, D]
+        fp32)."""
         b, f, h, w, c = video.shape
         per_frame = self.visual(video.reshape(b * f, h, w, c))
         hidden = per_frame.reshape(b, f, per_frame.shape[-1])
@@ -60,7 +64,10 @@ class VisualEncoder(nn.Module):
         if self.use_temp:
             x = hidden + self.frame_position_embeddings.weight[:f].to(
                 hidden.dtype)
-            x = self.temporal_transformer(x.to(self.dtype))
+            add_mask = None
+            if frame_mask is not None:
+                add_mask = (1.0 - frame_mask.float())[:, None, None, :] * -1e6
+            x = self.temporal_transformer(x.to(self.dtype), add_mask)
             hidden = x.float() + hidden
         normed = hidden / hidden.norm(dim=-1, keepdim=True)
         return normed.mean(dim=1).float(), frame_output

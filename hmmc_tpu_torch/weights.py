@@ -8,6 +8,11 @@ transposes ``[in, out]`` kernels to ``[out, in]`` (``in_proj_kernel``
 [D, 3D] -> ``in_proj_weight`` [3D, D]), turns the HWIO patch convolution
 into OIHW, and renames LayerNorm ``scale``/``bias`` to ``weight``/``bias``.
 Covers the English ViT ``BirdModel`` this port builds.
+
+The mapping only moves, transposes and renames elements, so it is linear:
+any tree shaped like the parameters maps the same way. A JAX gradient tree,
+or BertAdam's m and v trees, become per-name tensors to hold against the
+port's ``.grad`` and optimizer state (tests/test_torch_train.py does so).
 """
 
 from __future__ import annotations
@@ -84,8 +89,9 @@ def _visual(ve: Dict, prefix: str, out: StateDict) -> None:
 
 
 def from_jax_params(params: Dict) -> StateDict:
-    """``hmmc_tpu`` ``BirdModel`` params (nested dict of arrays) -> the
-    port's ``BirdModel`` state_dict (fp32 CPU tensors)."""
+    """``hmmc_tpu`` ``BirdModel`` params (nested dict of arrays), or any
+    tree of the same structure (gradients, optimizer moments) -> the port's
+    ``BirdModel`` state_dict names (fp32 CPU tensors)."""
     out: StateDict = {}
     _text(params["text_encoder"], "text_encoder.", out)
     _visual(params["visual_encoder"], "visual_encoder.", out)

@@ -1,13 +1,16 @@
 """Port attention (hmmc_tpu_torch.ops) against the JAX package.
 
-On the CPU the port's ``fused_attention`` takes its plain version; the JAX
-``fused_attention`` runs its Pallas kernel in interpret mode, as
-tests/test_pallas_attention.py does. Inputs are made with numpy from a
-seed and handed to both. Tolerance (fp32): atol 2e-5, rtol 1e-4, the JAX
-package's own kernel-vs-XLA tolerance.
+On the CPU the port's ``fused_attention`` takes its plain forward and plain
+backward; the JAX ``fused_attention`` runs its Pallas kernels in interpret
+mode, as tests/test_pallas_attention.py does. Inputs are made with numpy
+from a seed and handed to both. Tolerances (fp32): outputs atol 2e-5, rtol
+1e-4, the JAX package's own kernel-vs-XLA tolerance; gradients atol 5e-5,
+rtol 1e-3, its fused-gradient tolerance (values there reach ~10, the
+products of two unit-variance heads over 64 dims, scaled).
 
-The ``gpu`` tests hold the CUDA kernel against the plain version on the
-card; they skip without one.
+The ``gpu`` tests hold the CUDA kernels against the plain versions on the
+card, and the gradients of an attention block on the card against the CPU;
+they skip without one.
 """
 
 import functools
@@ -19,15 +22,19 @@ import numpy as np
 import pytest
 import torch
 
+from hmmc_tpu_torch.models.layers import ResidualAttentionBlock
 from hmmc_tpu_torch.ops.attention import causal_mask, multi_head_attention
-from hmmc_tpu_torch.ops.fused_attention import (check_kernel_inputs,
-                                                fused_attention,
-                                                fused_attention_reference)
+from hmmc_tpu_torch.ops.fused_attention import (
+    MAX_LEN_BWD, check_kernel_inputs, fused_attention,
+    fused_attention_backward, fused_attention_backward_reference,
+    fused_attention_reference)
 
 ATOL, RTOL = 2e-5, 1e-4
+GRAD_ATOL, GRAD_RTOL = 5e-5, 1e-3
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 try:  # the reference; the card's machine has no JAX and runs the gpu tests
+    import jax
     import jax.numpy as jnp
 
     import hmmc_tpu.ops.pallas_attention as pa
@@ -75,6 +82,73 @@ def test_fused_attention_cpu_counts_no_launch():
     x = torch.zeros(1, 1, 4, 64)
     fused_attention(x, x, x)
     assert fused_attention.launches == before
+
+
+@pytest.mark.parametrize("b,h,l,d,causal", [
+    (1, 2, 33, 16, True),      # tests/test_pallas_attention.py's causal case
+    (2, 3, 50, 32, False),     # ViT-like, unaligned L and head_dim
+    (2, 8, 12, 64, False),     # temporal transformer
+])
+def test_backward_reference_matches_jax_flash_backward(b, h, l, d, causal):
+    """K2's plain version against the JAX K2 (interpret mode)."""
+    rng = np.random.default_rng(100 + l)
+    q, k, v, g = (_normal(rng, b, h, l, d) for _ in range(4))
+    ref = pa._flash_backward(*(jnp.asarray(t) for t in (q, k, v, g)), causal)
+    ours = fused_attention_backward_reference(
+        *(torch.tensor(t) for t in (q, k, v, g)), causal)
+    for name, a, r in zip(("dq", "dk", "dv"), ours, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=GRAD_ATOL,
+                                   rtol=GRAD_RTOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fused_attention_autograd_matches_jax_vjp(causal):
+    """Autograd through the port's Function (CPU: plain forward and plain
+    backward) against ``jax.vjp`` of the JAX ``fused_attention``."""
+    b, h, l, d = 2, 3, 20, 64
+    rng = np.random.default_rng(7 + causal)
+    q, k, v, g = (_normal(rng, b, h, l, d) for _ in range(4))
+    out, vjp = jax.vjp(lambda *a: pa.fused_attention(*a, causal),
+                       *(jnp.asarray(t) for t in (q, k, v)))
+    ref = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.tensor(t, requires_grad=True) for t in (q, k, v))
+    before = (fused_attention.launches, fused_attention_backward.launches)
+    o = fused_attention(tq, tk, tv, causal)
+    assert o.grad_fn is not None
+    o.backward(torch.tensor(g))
+    assert (fused_attention.launches,
+            fused_attention_backward.launches) == before   # CPU: no kernel
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(out),
+                               atol=ATOL, rtol=RTOL)
+    for name, t, r in zip(("dq", "dk", "dv"), (tq, tk, tv), ref):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r),
+                                   atol=GRAD_ATOL, rtol=GRAD_RTOL,
+                                   err_msg=name)
+
+
+def test_backward_through_packed_qkv_views():
+    """Gradients reach the packed qkv projection through the head views and
+    the transposed output gradient, as in ``multi_head_attention``."""
+    b, l, h, d = 2, 9, 2, 64
+    rng = np.random.default_rng(3)
+    x = _normal(rng, b, l, 3 * h * d)
+    w = torch.tensor(_normal(rng, b, l, h * d))
+
+    def qkv_grad(attend):
+        qkv = torch.tensor(x, requires_grad=True)
+        q, k, v = (t.transpose(1, 2) for t in
+                   qkv.view(b, l, 3, h, d).unbind(2))
+        out = attend(q, k, v).transpose(1, 2).reshape(b, l, h * d)
+        (out * w).sum().backward()
+        return qkv.grad.numpy()
+
+    def plain(q, k, v):
+        logits = (q @ k.transpose(-1, -2)) * d ** -0.5 + causal_mask(l)
+        return torch.softmax(logits, -1) @ v
+
+    np.testing.assert_allclose(
+        qkv_grad(lambda q, k, v: fused_attention(q, k, v, True)),
+        qkv_grad(plain), atol=GRAD_ATOL, rtol=GRAD_RTOL)
 
 
 @pytest.mark.parametrize("use_pallas", [True, False])
@@ -130,6 +204,18 @@ def test_kernel_input_checks(shape, match):
     x = torch.zeros(shape)
     with pytest.raises(ValueError, match=match):
         check_kernel_inputs(x, x, x)
+
+
+def test_backward_input_checks():
+    x = torch.zeros(2, 2, MAX_LEN_BWD + 1, 64)
+    check_kernel_inputs(x, x, x)                      # K1 takes it
+    with pytest.raises(ValueError, match="KV-loop"):  # K2 does not
+        check_kernel_inputs(x, x, x, MAX_LEN_BWD)
+    y = torch.zeros(2, 2, 8, 64)
+    with pytest.raises(ValueError, match="g must match"):
+        fused_attention_backward(y, y, y, y[:, :, :4])
+    with pytest.raises(ValueError, match="g must match"):
+        fused_attention_backward(y, y, y, y.bfloat16())
 
 
 def test_kernel_input_checks_stride():
@@ -195,3 +281,70 @@ def test_kernel_matches_plain_on_card(cuda, dtype, b, h, l, causal):
     else:   # both round P to bf16; allow one output ulp
         torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
                                    rtol=2 ** -7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,l,causal", [
+    (768, 12, 50, False),      # ViT-B/32, a 64-clip micro-batch x 12 frames
+    (64, 8, 32, True),         # text, causal
+    (64, 8, 12, False),        # temporal transformer
+    (4, 3, 77, True),
+    (4, 3, MAX_LEN_BWD, False),
+    (3, 2, 1, False),
+])
+def test_backward_kernel_matches_plain_on_card(cuda, dtype, b, h, l, causal):
+    """K2 on the main path's layout (head views of a packed qkv output, the
+    output gradient as the transposed view of a [B, L, H, 64] tensor)."""
+    g = torch.Generator(device=cuda).manual_seed(l)
+    qkv = torch.randn(b, l, 3 * h * 64, device=cuda, generator=g).to(dtype)
+    q, k, v = (t.transpose(1, 2) for t in
+               qkv.view(b, l, 3, h, 64).unbind(2))
+    go = torch.randn(b, l, h, 64, device=cuda, generator=g).to(dtype)
+    go = go.transpose(1, 2)
+    before = fused_attention_backward.launches
+    got = fused_attention_backward(q, k, v, go, causal)
+    torch.cuda.synchronize()
+    assert fused_attention_backward.launches == before + 1
+    ref = fused_attention_backward_reference(q, k, v, go, causal)
+    for a, r in zip(got, ref):
+        assert a.shape == q.shape and a.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, r, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+        else:   # fp32 inside both, one rounding of each output: one ulp
+            torch.testing.assert_close(a.float(), r.float(), atol=1e-2,
+                                       rtol=2 ** -7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_block_gradients_on_card_match_cpu(cuda, causal):
+    """Every parameter of an attention block, and its input, gets on the
+    card the gradient the CPU gives (fp32, TF32 off; sums in another
+    order). The kernel's output must carry the graph: an output written
+    outside autograd leaves the qkv projection and everything below the
+    attention without a gradient."""
+    torch.manual_seed(0)
+    cpu = ResidualAttentionBlock(128, 2, causal=causal, use_fused=True)
+    cpu.reset_parameters(torch.Generator().manual_seed(1))
+    card = ResidualAttentionBlock(128, 2, causal=causal, use_fused=True)
+    card.load_state_dict(cpu.state_dict())
+    card.to(cuda)
+    rng = np.random.default_rng(2)
+    x = _normal(rng, 3, 50, 128)
+    w = _normal(rng, 3, 50, 128)
+    grads, launches = {}, {}
+    for name, block, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        mask = causal_mask(50, device=dev) if causal else None
+        before = fused_attention_backward.launches
+        (block(xt, mask) * torch.tensor(w, device=dev)).sum().backward()
+        launches[name] = fused_attention_backward.launches - before
+        grads[name] = {"x": xt.grad, **{n: p.grad for n, p in
+                                        block.named_parameters()}}
+    assert launches == {"cpu": 0, "card": 1}
+    for n, ref in grads["cpu"].items():
+        got = grads["card"][n]
+        assert got is not None, f"{n}: no gradient on the card"
+        torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4,
+                                   msg=n)
