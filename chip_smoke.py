@@ -14,7 +14,10 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             the fine-tune path's (a 64-clip micro-batch); max abs difference
             within the stated tolerance, kernel / plain / library times from
             CUDA events, the bound from bytes and operations and the share
-            of it achieved;
+            of it achieved, the kernels' and the library call's device time
+            from torch.profiler (no host gaps), the wrappers' host
+            microseconds per call at the text site, two launches bitwise
+            equal;
 4. eval     the full-width ViT-B/32 BirdModel (12 frames at 224 px, 32
             query tokens, temporal transformer, top-3 frame similarity;
             seeded random weights, bf16 compute) evaluated over ``--clips``
@@ -63,9 +66,10 @@ from hmmc_tpu_torch.data.text import encode_text
 from hmmc_tpu_torch.evaluation import Evaluator
 from hmmc_tpu_torch.factory import build_model
 from hmmc_tpu_torch.metrics import logging_rank
+from hmmc_tpu_torch.ops import fused_attention as fa
 from hmmc_tpu_torch.ops import image_ops, kernel_build
 from hmmc_tpu_torch.ops.fused_attention import (
-    MAX_LEN_BWD, fused_attention, fused_attention_backward,
+    MAX_LEN_BWD, MAX_LEN_BWD_FP32, fused_attention, fused_attention_backward,
     fused_attention_backward_reference, fused_attention_reference,
     kernel_bwd_smem_bytes, kernel_smem_bytes)
 from hmmc_tpu_torch.tokenization import ClipTokenizer
@@ -157,6 +161,41 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn, iters: int = 10):
+    """Device ms per call summed over the kernels a call launches
+    (torch.profiler, after a warm call): the time of the work without the
+    host gaps between launches that a host-bound call leaves in a CUDA-event
+    timing. "not measured" where the trace holds no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages()
+             if e.device_type.name == "CUDA"
+             and not getattr(e, "is_user_annotation", False))
+    return us / 1e3 / iters if us > 0 else "not measured"
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host microseconds per call: the wall time of ``calls`` calls issued
+    without synchronising (the device works behind them), after a warm
+    call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host_us
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -180,27 +219,39 @@ def check_attention(site, b, h, l, causal, dtype, gen):
     qkv = torch.randn(b, l, 3 * h * d, device="cuda", generator=gen).to(dtype)
     q, k, v = (t.transpose(1, 2) for t in qkv.view(b, l, 3, h, d).unbind(2))
     out = fused_attention(q, k, v, causal)
+    again = fused_attention(q, k, v, causal)
     torch.cuda.synchronize()
+    bitwise_repeat = bool(torch.equal(out, again))
     ref = fused_attention_reference(q, k, v, causal)
     diff = (out.float() - ref.float()).abs()
     tol = TOLERANCE[dtype]
-    ok = bool((diff <= tol["atol"] + tol["rtol"] * ref.float().abs()).all())
-    smem = kernel_smem_bytes(l)
+    ok = bitwise_repeat and bool(
+        (diff <= tol["atol"] + tol["rtol"] * ref.float().abs()).all())
+    smem = kernel_smem_bytes(l, dtype)
     iters = 50
     ms = cuda_ms(lambda: fused_attention(q, k, v, causal), iters)
+    host_us = host_us_per_call(lambda: fused_attention(q, k, v, causal))
     plain_ms = cuda_ms(lambda: fused_attention_reference(q, k, v, causal), iters)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal), iters)
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    library_ms = cuda_ms(library, iters)
+    kernel_only_ms = kernel_device_ms(lambda: fused_attention(q, k, v, causal))
+    library_kernels_ms = kernel_device_ms(library)
     bound_ms, bound_by, nbytes, flops = attention_bound(b, h, l, d, causal,
                                                         dtype)
     row = dict(phase="kernel", kernel="fused_attention_fwd", site=site,
                shape=[b, h, l, d], causal=causal, dtype=str(dtype),
-               max_abs_err=float(diff.max()), tolerance=tol, ok=ok,
-               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               max_abs_err=float(diff.max()), tolerance=tol,
+               bitwise_repeat=bitwise_repeat, ok=ok,
+               ms=ms, host_us_per_call=host_us, plain_ms=plain_ms,
+               library_ms=library_ms, kernel_device_ms=kernel_only_ms,
+               library_kernels_device_ms=library_kernels_ms,
                library="torch.nn.functional.scaled_dot_product_attention",
                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                flops=flops, share_of_bound=bound_ms / ms,
-               ctas=b * h, dynamic_smem_bytes_per_cta=smem)
+               ctas=math.ceil(b * h / fa.kernel_heads_per_cta(dtype)),
+               dynamic_smem_bytes_per_cta=smem)
     emit(row)
     if not ok:
         raise AssertionError(f"fused attention kernel disagrees with its "
@@ -231,16 +282,20 @@ def check_attention_backward(site, b, h, l, causal, dtype, gen):
     g = torch.randn(b, l, h, d, device="cuda", generator=gen).to(dtype)
     g = g.transpose(1, 2)
     got = fused_attention_backward(q, k, v, g, causal)
+    again = fused_attention_backward(q, k, v, g, causal)
     torch.cuda.synchronize()
+    bitwise_repeat = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
     ref = fused_attention_backward_reference(q, k, v, g, causal)
     tol = BWD_TOLERANCE[dtype]
-    errs, ok = [], True
+    errs, ok = [], bitwise_repeat
     for a, r in zip(got, ref):
         diff = (a.float() - r.float()).abs()
         errs.append(float(diff.max()))
         ok &= bool((diff <= tol["atol"] + tol["rtol"] * r.float().abs()).all())
     iters = 30
     ms = cuda_ms(lambda: fused_attention_backward(q, k, v, g, causal), iters)
+    host_us = host_us_per_call(
+        lambda: fused_attention_backward(q, k, v, g, causal))
     plain_ms = cuda_ms(lambda: fused_attention_backward_reference(
         q, k, v, g, causal), iters)
     # the library yardstick: SDPA's backward alone, after one forward
@@ -248,26 +303,57 @@ def check_attention_backward(site, b, h, l, causal, dtype, gen):
     lq, lk, lv = (t.transpose(1, 2) for t in
                   leaf.view(b, l, 3, h, d).unbind(2))
     out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        out, (lq, lk, lv), g, retain_graph=True), iters)
-    del out, leaf
+    def library():
+        return torch.autograd.grad(out, (lq, lk, lv), g, retain_graph=True)
+
+    library_ms = cuda_ms(library, iters)
+    kernel_only_ms = kernel_device_ms(
+        lambda: fused_attention_backward(q, k, v, g, causal))
+    library_kernels_ms = kernel_device_ms(library)
+    del out, leaf, library
     bound_ms, bound_by, nbytes, flops = attention_bwd_bound(b, h, l, d, causal,
                                                             dtype)
     row = dict(phase="kernel", kernel="fused_attention_bwd", site=site,
                shape=[b, h, l, d], causal=causal, dtype=str(dtype),
                max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
-               tolerance=tol, ok=ok, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms,
+               tolerance=tol, bitwise_repeat=bitwise_repeat, ok=ok, ms=ms,
+               host_us_per_call=host_us, plain_ms=plain_ms,
+               library_ms=library_ms, kernel_device_ms=kernel_only_ms,
+               library_kernels_device_ms=library_kernels_ms,
                library="scaled_dot_product_attention backward "
                        "(torch.autograd.grad after one forward)",
                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-               flops=flops, share_of_bound=bound_ms / ms, ctas=b * h,
-               dynamic_smem_bytes_per_cta=kernel_bwd_smem_bytes(l))
+               flops=flops, share_of_bound=bound_ms / ms,
+               ctas=b * h,
+               dynamic_smem_bytes_per_cta=kernel_bwd_smem_bytes(l, dtype))
     emit(row)
     if not ok:
         raise AssertionError(f"fused attention backward kernel disagrees "
                              f"with its plain version: {row}")
     return row
+
+
+def wrapper_host_cost(gen):
+    """The wrappers' host cost at the text site, bf16 [512, 8, 32] causal:
+    host microseconds per call (calls issued without synchronising) beside
+    the device microseconds per call (CUDA events), for K1 through
+    ``fused_attention`` and its wrapper, and for K2's wrapper."""
+    b, h, l, d = 512, 8, 32, 64
+    qkv = torch.randn(b, l, 3 * h * d, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in qkv.view(b, l, 3, h, d).unbind(2))
+    g = torch.randn(b, l, h, d, device="cuda",
+                    generator=gen).to(torch.bfloat16).transpose(1, 2)
+    calls = {"fused_attention": lambda: fused_attention(q, k, v, True),
+             "fused_attention_forward":
+                 lambda: fa.fused_attention_forward(q, k, v, True),
+             "fused_attention_backward":
+                 lambda: fused_attention_backward(q, k, v, g, True)}
+    row = {name: dict(host_us_per_call=host_us_per_call(fn, 500),
+                      device_us_per_call=cuda_ms(fn, 200) * 1e3)
+           for name, fn in calls.items()}
+    emit(dict(phase="kernel_host_cost", site="text", shape=[b, h, l, d],
+              causal=True, dtype=str(torch.bfloat16), **row))
 
 
 # ---------------------------------------------------------------------------
@@ -350,8 +436,8 @@ def device_throughput(model, task, arch, ev):
                 queries_per_s=ev.text_block / t_ms * 1e3)
 
 
-KERNEL_KINDS = {"K1 fused_attention_fwd": ("attention_fwd_kernel",),
-                "K2 fused_attention_bwd": ("attention_bwd_kernel",),
+KERNEL_KINDS = {"K1 fused_attention_fwd": ("attention_fwd_",),
+                "K2 fused_attention_bwd": ("attention_bwd_",),
                 "conv": ("cudnn", "fprop", "dgrad", "wgrad", "conv"),
                 "gemm": ("gemm", "nvjet", "xmma", "cutlass", "cublas"),
                 "memcpy": ("memcpy", "memset")}
@@ -727,6 +813,9 @@ def main(argv=None) -> int:
                                                  False, dtype, gen))
     check_attention_backward("extra", 8, 12, MAX_LEN_BWD, False,
                              torch.bfloat16, gen)
+    check_attention_backward("extra", 8, 12, MAX_LEN_BWD_FP32, False,
+                             torch.float32, gen)
+    wrapper_host_cost(gen)
 
     # 4. the eval slice
     task = TaskConfig(seed=args.seed)                # bf16, kernel on
@@ -809,7 +898,8 @@ def main(argv=None) -> int:
             bound_by=vit["bound_by"], library_ms=vit["library_ms"],
             timed_at=f"vit site, bf16, {vit['shape']}",
             sites=[{k: r[k] for k in ("site", "shape", "causal", "dtype",
-                                      "max_abs_err", "ms", "plain_ms",
+                                      "max_abs_err", "ms", "host_us_per_call",
+                                      "plain_ms",
                                       "library_ms", "bound_ms", "bound_by")}
                    for r in rows])
 

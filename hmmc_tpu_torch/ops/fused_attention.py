@@ -7,8 +7,10 @@ and ``_flash_backward`` in ``hmmc_tpu/ops/pallas_attention.py``. The kernels
 are ``csrc/fused_attention_fwd.cu`` (K1: fp32 logits and softmax, P rounded
 to v's dtype, fp32 accumulation; L <= 128) and ``csrc/fused_attention_bwd.cu``
 (K2: P recomputed in fp32 and not rounded, dq / dk / dv accumulated in fp32;
-L <= 112). Both take float32 and bfloat16 and head_dim 64, one CTA per
-batch·head with the whole head in shared memory.
+L <= 128 in bf16, 112 in fp32). Both take head_dim 64. In bfloat16 their
+products run on the tensor cores and heads are staged by 16-byte copies, so
+every pointer and batch / head / sequence stride must be 16-byte aligned;
+float32 (the reference checks) keeps a CUDA-core body, one CTA per head.
 
 :func:`fused_attention` is the entry point: its forward is K1 and its
 backward K2, and it saves q, k and v for the backward as the JAX
@@ -21,6 +23,7 @@ kernel launches.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Tuple
@@ -28,9 +31,11 @@ from typing import Tuple
 import torch
 
 HEAD_DIM = 64
-MAX_LEN = 128        # K1
-MAX_LEN_BWD = 112    # K2 (kMaxLen in its source): its fp32 staging of
-                     # q, k, v, g, P and dS fits 227 KB of shared memory
+MAX_LEN = 128            # K1
+MAX_LEN_BWD = 128        # K2 in bf16: q, k, v, g and P / dS (hi and lo)
+                         # staged in bf16 fit 227 KB of shared memory
+MAX_LEN_BWD_FP32 = 112   # K2 in fp32: its fp32 staging fits up to here
+ALIGN = 16               # bytes: the bf16 kernels' copies are 16 bytes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -94,20 +99,53 @@ def _check_common(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"fused_attention runs on cuda or cpu; got {q.device}")
 
 
+def max_len_backward(dtype: torch.dtype) -> int:
+    """The longest sequence K2 takes in this dtype."""
+    return MAX_LEN_BWD_FP32 if dtype == torch.float32 else MAX_LEN_BWD
+
+
+def is_aligned(t: torch.Tensor) -> bool:
+    """Data pointer and every batch / head / sequence stride (of an axis
+    longer than 1) a multiple of :data:`ALIGN` bytes."""
+    elt = t.element_size()
+    return t.data_ptr() % ALIGN == 0 and all(
+        n == 1 or s * elt % ALIGN == 0
+        for n, s in zip(t.shape[:3], t.stride()[:3]))
+
+
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if not is_aligned(t):
+            raise ValueError(
+                f"{name} must be {ALIGN}-byte aligned for the fused "
+                f"attention kernels' {ALIGN}-byte loads: data pointer "
+                f"offset {t.data_ptr() % ALIGN} bytes (storage_offset "
+                f"{t.storage_offset()}), strides {t.stride()} of "
+                f"{t.element_size()}-byte elements")
+
+
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor, max_len: int = MAX_LEN) -> None:
-    """Raise unless the CUDA kernels take these shapes, dtypes and strides
-    (the device is checked by the caller). ``max_len`` is K1's limit, or
-    :data:`MAX_LEN_BWD` where K2 will run too."""
+    """Raise unless the CUDA kernels take these shapes, dtypes, strides and
+    alignments (the device is checked by the caller). ``max_len`` is K1's
+    limit, or :func:`max_len_backward` where K2 will run too."""
     _check_common(q, k, v)
+    _check_kernel(q, k, v, max_len)
+
+
+def _check_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  max_len: int) -> None:
+    """:func:`check_kernel_inputs` after :func:`_check_common` passed."""
     b, h, l, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"the fused attention kernels take head_dim "
                          f"{HEAD_DIM}; got {d}")
     if not 1 <= l <= max_len:
         raise ValueError(
-            f"the fused attention kernels take 1 <= L <= {max_len} (backward: "
-            f"{MAX_LEN_BWD}); got L={l}. Longer sequences (ViT-L/14@336px, "
+            f"the fused attention kernels take 1 <= L <= {max_len} (forward: "
+            f"{MAX_LEN}; backward: {MAX_LEN_BWD} in bfloat16, "
+            f"{MAX_LEN_BWD_FP32} in float32); got L={l}. Longer sequences "
+            "(ViT-B/16, L=197; ViT-L/14@336px, "
             "L=577) need the KV-loop versions of K1 and K2, listed in "
             "ROADMAP.md Queue B")
     if b < 1 or h < 1:
@@ -116,6 +154,7 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have unit stride on its last axis; "
                              f"strides {t.stride()}")
+    _check_aligned(q=q, k=k, v=v)
 
 
 def _load(name: str) -> ctypes.CDLL:
@@ -134,8 +173,10 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
     lib.hmmc_fused_attention_fwd.restype = ctypes.c_int
-    lib.hmmc_fused_attention_smem_bytes.argtypes = [ctypes.c_int]
+    lib.hmmc_fused_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.hmmc_fused_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.hmmc_fused_attention_heads_per_cta.argtypes = [ctypes.c_int]
+    lib.hmmc_fused_attention_heads_per_cta.restype = ctypes.c_int
     return lib
 
 
@@ -146,20 +187,29 @@ def _library_bwd() -> ctypes.CDLL:
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p])
     lib.hmmc_fused_attention_bwd.restype = ctypes.c_int
-    lib.hmmc_fused_attention_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.hmmc_fused_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.hmmc_fused_attention_bwd_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def kernel_smem_bytes(seq_len: int) -> int:
-    """Dynamic shared memory K1 gives one CTA at this length (builds the
-    kernel if needed)."""
-    return int(_library().hmmc_fused_attention_smem_bytes(seq_len))
+def kernel_smem_bytes(seq_len: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory K1 gives one CTA at this length and dtype
+    (builds the kernel if needed)."""
+    return int(_library().hmmc_fused_attention_smem_bytes(
+        seq_len, _DTYPE_CODES[dtype]))
 
 
-def kernel_bwd_smem_bytes(seq_len: int) -> int:
-    """Dynamic shared memory K2 gives one CTA at this length."""
-    return int(_library_bwd().hmmc_fused_attention_bwd_smem_bytes(seq_len))
+def kernel_heads_per_cta(dtype: torch.dtype) -> int:
+    """(batch, head) pairs one K1 CTA takes in turn in this dtype, one
+    head's loads overlapping the other's products."""
+    return int(_library().hmmc_fused_attention_heads_per_cta(
+        _DTYPE_CODES[dtype]))
+
+
+def kernel_bwd_smem_bytes(seq_len: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory K2 gives one CTA at this length and dtype."""
+    return int(_library_bwd().hmmc_fused_attention_bwd_smem_bytes(
+        seq_len, _DTYPE_CODES[dtype]))
 
 
 def _raise_on(err: int, lib: ctypes.CDLL, what: str, q: torch.Tensor) -> None:
@@ -170,29 +220,45 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str, q: torch.Tensor) -> None:
             f"{tuple(q.shape)} {q.dtype}")
 
 
+def _on_device(t: torch.Tensor):
+    """``t``'s device as the current one: a no-op where it already is (the
+    context manager costs more host time than the launch itself)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+@functools.lru_cache(maxsize=256)
+def _stride_array(strides: Tuple[int, ...]) -> ctypes.Array:
+    """K2's 21 strides as a C array, made once per stride pattern."""
+    return (ctypes.c_longlong * len(strides))(*strides)
+
+
 def _head_major(q: torch.Tensor) -> torch.Tensor:
-    """A [B, L, H, D] buffer returned as its [B, H, L, D] view, so merging
-    the heads afterwards is free."""
+    """A [B, L, H, D] buffer as its [B, H, L, D] view, so merging the
+    heads afterwards is free."""
     b, h, l, d = q.shape
-    return torch.empty((b, l, h, d), dtype=q.dtype,
-                       device=q.device).transpose(1, 2)
+    return torch.empty_strided((b, h, l, d), (l * h * d, d, h * d, 1),
+                               dtype=q.dtype, device=q.device)
 
 
 def fused_attention_forward(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor,
-                            causal: bool = False) -> torch.Tensor:
+                            v: torch.Tensor, causal: bool = False,
+                            max_len: int = MAX_LEN) -> torch.Tensor:
     """K1's wrapper, without autograd: q, k, v [B, H, L, D] -> [B, H, L, D]
     in q's dtype. CPU tensors take :func:`fused_attention_reference`; on
     CUDA the inputs may be strided views (head splits of a packed qkv
-    projection: no copy is made)."""
+    projection: no copy is made). ``max_len`` is the longest L accepted:
+    K1's limit, or :func:`max_len_backward` where K2 will run too."""
     _check_common(q, k, v)
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, causal)
-    check_kernel_inputs(q, k, v)
+    _check_kernel(q, k, v, max_len)
     b, h, l, d = q.shape
     o = _head_major(q)
+    _check_aligned(o=o)
     lib = _library()
-    with torch.cuda.device(q.device):
+    with _on_device(q):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.hmmc_fused_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -211,7 +277,8 @@ def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
     the output gradient ``g``, each [B, H, L, D] in q's dtype. CPU tensors
     take :func:`fused_attention_backward_reference`. On CUDA, q, k, v and g
     are read through their strides; a ``g`` whose last axis is not unit
-    stride (an expanded gradient) is copied once to a contiguous tensor."""
+    stride (an expanded gradient) or that is not 16-byte aligned is copied
+    once to a fresh contiguous tensor."""
     _check_common(q, k, v)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(
@@ -219,15 +286,17 @@ def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
             f"{g.dtype} {g.device} vs {tuple(q.shape)} {q.dtype} {q.device}")
     if q.device.type == "cpu":
         return fused_attention_backward_reference(q, k, v, g, causal)
-    check_kernel_inputs(q, k, v, MAX_LEN_BWD)
-    if g.stride(-1) != 1:
-        g = g.contiguous()
+    _check_kernel(q, k, v, max_len_backward(q.dtype))
+    if g.stride(-1) != 1 or not is_aligned(g):
+        g = g.clone(memory_format=torch.contiguous_format)
     b, h, l, d = q.shape
     dq, dk, dv = _head_major(q), _head_major(q), _head_major(q)
-    strides = (ctypes.c_longlong * 21)(*(
-        s for t in (q, k, v, g, dq, dk, dv) for s in t.stride()[:3]))
+    _check_aligned(dq=dq, dk=dk, dv=dv)
+    strides = _stride_array(
+        q.stride()[:3] + k.stride()[:3] + v.stride()[:3] + g.stride()[:3]
+        + dq.stride()[:3] * 3)
     lib = _library_bwd()
-    with torch.cuda.device(q.device):
+    with _on_device(q):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.hmmc_fused_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
@@ -245,12 +314,13 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if q.device.type == "cuda" and any(ctx.needs_input_grad[:3]):
-            # fail here, not in the middle of the backward pass
-            check_kernel_inputs(q, k, v, MAX_LEN_BWD)
+        # K2's limit where a gradient will flow: fail here, not in the
+        # middle of the backward pass
+        max_len = (max_len_backward(q.dtype) if any(ctx.needs_input_grad[:3])
+                   else MAX_LEN)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v)
-        return fused_attention_forward(q, k, v, causal)
+        return fused_attention_forward(q, k, v, causal, max_len)
 
     @staticmethod
     def backward(ctx, g):
@@ -262,7 +332,13 @@ class _FusedAttention(torch.autograd.Function):
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False) -> torch.Tensor:
     """q, k, v: [B, H, L, D] -> [B, H, L, D] in q's dtype, differentiable:
-    K1 forward and K2 backward on CUDA, the plain versions on the CPU."""
+    K1 forward and K2 backward on CUDA, the plain versions on the CPU.
+    Where no gradient can flow (inference, or no input requiring one) the
+    forward is called without the ``autograd.Function``, whose ``apply``
+    costs more host time than the launch."""
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return fused_attention_forward(q, k, v, causal)
     return _FusedAttention.apply(q, k, v, bool(causal))
 
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and becomes
 ``build/lib<name>-<hash>.so`` inside this package (``.gitignore`` lists the
 directory), compiled for Hopper (``sm_90a``) at first use and loaded with
-:mod:`ctypes`. The hash covers the source, the flags and the compiler path,
-so an edited source is rebuilt and an unchanged one is reused. Nothing here
+:mod:`ctypes`. The hash covers the source, the shared headers
+(``csrc/*.cuh``), the flags and the compiler path, so an edited source or
+header is rebuilt and an unchanged one is reused. Nothing here
 runs at import time: the CPU tests import every module on machines without
 ``nvcc``.
 """
@@ -49,10 +50,13 @@ def find_nvcc() -> str:
 
 
 def _target(name: str, nvcc: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(
-        src + "\0".join((nvcc,) + NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    """The library's path, keyed by the source, every header in ``csrc/``
+    (a source may include any of them), the flags and the compiler."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join((nvcc,) + NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: List[str]) -> Dict[str, dict]:

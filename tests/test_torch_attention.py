@@ -24,10 +24,12 @@ import torch
 
 from hmmc_tpu_torch.models.layers import ResidualAttentionBlock
 from hmmc_tpu_torch.ops.attention import causal_mask, multi_head_attention
+from hmmc_tpu_torch.ops import kernel_build
 from hmmc_tpu_torch.ops.fused_attention import (
-    MAX_LEN_BWD, check_kernel_inputs, fused_attention,
-    fused_attention_backward, fused_attention_backward_reference,
-    fused_attention_reference)
+    MAX_LEN, MAX_LEN_BWD, MAX_LEN_BWD_FP32, check_kernel_inputs,
+    fused_attention, fused_attention_backward,
+    fused_attention_backward_reference, fused_attention_reference,
+    kernel_heads_per_cta, max_len_backward)
 
 ATOL, RTOL = 2e-5, 1e-4
 GRAD_ATOL, GRAD_RTOL = 5e-5, 1e-3
@@ -207,10 +209,16 @@ def test_kernel_input_checks(shape, match):
 
 
 def test_backward_input_checks():
-    x = torch.zeros(2, 2, MAX_LEN_BWD + 1, 64)
+    x = torch.zeros(2, 2, MAX_LEN_BWD_FP32 + 1, 64)
     check_kernel_inputs(x, x, x)                      # K1 takes it
-    with pytest.raises(ValueError, match="KV-loop"):  # K2 does not
-        check_kernel_inputs(x, x, x, MAX_LEN_BWD)
+    with pytest.raises(ValueError, match="KV-loop"):  # K2 in fp32 does not
+        check_kernel_inputs(x, x, x, max_len_backward(x.dtype))
+    xb = x.bfloat16()                                 # K2 in bf16 does
+    check_kernel_inputs(xb, xb, xb, max_len_backward(xb.dtype))
+    assert max_len_backward(torch.bfloat16) == MAX_LEN_BWD == MAX_LEN
+    xl = torch.zeros(2, 2, MAX_LEN_BWD + 1, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="KV-loop"):
+        check_kernel_inputs(xl, xl, xl, max_len_backward(xl.dtype))
     y = torch.zeros(2, 2, 8, 64)
     with pytest.raises(ValueError, match="g must match"):
         fused_attention_backward(y, y, y, y[:, :, :4])
@@ -227,6 +235,42 @@ def test_kernel_input_checks_stride():
     q, k, v = (t.transpose(1, 2) for t in
                qkv.view(2, 50, 3, 12, 64).unbind(2))
     check_kernel_inputs(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_input_checks_alignment(dtype):
+    """The kernels' 16-byte loads need 16-byte aligned pointers and
+    strides: a view one element into its storage is refused by name."""
+    flat = torch.zeros(2 * 2 * 8 * 64 + 1, dtype=dtype)
+    odd = flat[1:].view(2, 2, 8, 64)
+    assert odd.storage_offset() == 1
+    ok = torch.zeros(2, 2, 8, 64, dtype=dtype)
+    check_kernel_inputs(ok, ok, ok)
+    with pytest.raises(ValueError, match=r"k must be 16-byte aligned.*"
+                       r"storage_offset 1"):
+        check_kernel_inputs(ok, odd, ok)
+    # a sequence stride of 3 * 64 + 1 elements is not 16-byte aligned
+    wide = torch.zeros(2, 8, 3 * 64 + 1, dtype=dtype)
+    q = wide[..., :64].view(2, 1, 8, 64)
+    with pytest.raises(ValueError, match="q must be 16-byte aligned"):
+        check_kernel_inputs(q, q, q)
+
+
+def test_kernel_build_key_covers_headers(tmp_path, monkeypatch):
+    """An edited shared header changes the library's key, so the kernels
+    that include it are rebuilt; nothing is compiled here."""
+    monkeypatch.setattr(kernel_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "mma.cuh"\n')
+    (tmp_path / "mma.cuh").write_text("// v1\n")
+    fake_nvcc = str(tmp_path / "bin" / "nvcc")
+    first = kernel_build._target("k", fake_nvcc)
+    assert kernel_build._target("k", fake_nvcc) == first
+    (tmp_path / "mma.cuh").write_text("// v2\n")
+    second = kernel_build._target("k", fake_nvcc)
+    assert second != first
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert kernel_build._target("k", fake_nvcc) not in (first, second)
+    assert not (tmp_path / "build").exists()
 
 
 def test_import_needs_neither_nvcc_nor_triton():
@@ -290,7 +334,7 @@ def test_kernel_matches_plain_on_card(cuda, dtype, b, h, l, causal):
     (64, 8, 32, True),         # text, causal
     (64, 8, 12, False),        # temporal transformer
     (4, 3, 77, True),
-    (4, 3, MAX_LEN_BWD, False),
+    (4, 3, MAX_LEN_BWD_FP32, False),
     (3, 2, 1, False),
 ])
 def test_backward_kernel_matches_plain_on_card(cuda, dtype, b, h, l, causal):
@@ -348,3 +392,106 @@ def test_attention_block_gradients_on_card_match_cpu(cuda, causal):
         assert got is not None, f"{n}: no gradient on the card"
         torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4,
                                    msg=n)
+
+
+# every edge of the 16-row / 8-key mma tiles, up to the kernels' limits
+SWEEP_LENGTHS = [1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 49, 50, 63, 64, 65, 77,
+                 96, 112, 128]
+# 3 x 5 = 15 heads: not a multiple of K1's heads per CTA
+SWEEP_B, SWEEP_H = 3, 5
+
+
+def _packed_qkv(device, dtype, b, h, l, seed):
+    """Head views of a packed [B, L, 3·H·64] projection, the main path's
+    layout, and an output gradient that is the transposed view of a
+    [B, L, H, 64] tensor."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(b, l, 3 * h * 64, device=device, generator=g).to(dtype)
+    q, k, v = (t.transpose(1, 2) for t in
+               qkv.view(b, l, 3, h, 64).unbind(2))
+    go = torch.randn(b, l, h, 64, device=device, generator=g).to(dtype)
+    return q, k, v, go.transpose(1, 2)
+
+
+def _assert_close_on_card(got, ref, dtype, grad=False):
+    if dtype == torch.float32:
+        atol, rtol = (GRAD_ATOL, GRAD_RTOL) if grad else (ATOL, RTOL)
+        torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+    else:   # one output ulp: 2^-7 relative
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=2 ** -7)
+
+
+def test_sweep_lengths_reach_the_limits():
+    assert max(SWEEP_LENGTHS) == MAX_LEN == MAX_LEN_BWD
+
+
+@pytest.mark.gpu
+def test_sweep_shapes_cross_heads_per_cta(cuda):
+    """The sweep's last bf16 K1 CTA takes fewer heads than the others."""
+    assert (SWEEP_B * SWEEP_H) % kernel_heads_per_cta(torch.bfloat16) != 0
+    assert kernel_heads_per_cta(torch.float32) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", SWEEP_LENGTHS)
+def test_kernel_length_sweep_on_card(cuda, dtype, causal, l):
+    """K1 at every tile edge, on packed head views, and bitwise equal over
+    two launches."""
+    q, k, v, _ = _packed_qkv(cuda, dtype, SWEEP_B, SWEEP_H, l, l)
+    before = fused_attention.launches
+    out = fused_attention(q, k, v, causal)
+    again = fused_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 2
+    assert torch.equal(out, again)
+    _assert_close_on_card(out, fused_attention_reference(q, k, v, causal),
+                          dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", SWEEP_LENGTHS)
+def test_backward_kernel_length_sweep_on_card(cuda, dtype, causal, l):
+    """K2 at every tile edge up to its limit in the dtype (a longer
+    sequence raises), with the output gradient a transposed view, and
+    bitwise equal over two launches."""
+    q, k, v, go = _packed_qkv(cuda, dtype, SWEEP_B, SWEEP_H, l, 1000 + l)
+    if l > max_len_backward(dtype):
+        with pytest.raises(ValueError, match="KV-loop"):
+            fused_attention_backward(q, k, v, go, causal)
+        return
+    before = fused_attention_backward.launches
+    got = fused_attention_backward(q, k, v, go, causal)
+    again = fused_attention_backward(q, k, v, go, causal)
+    torch.cuda.synchronize()
+    assert fused_attention_backward.launches == before + 2
+    ref = fused_attention_backward_reference(q, k, v, go, causal)
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b)
+        _assert_close_on_card(a, r, dtype, grad=True)
+
+
+@pytest.mark.gpu
+def test_misaligned_inputs_on_card(cuda):
+    """A CUDA q one element into its storage raises rather than launching;
+    a misaligned output gradient is copied once and gives the aligned
+    one's result."""
+    q, k, v, go = _packed_qkv(cuda, torch.bfloat16, 2, 3, 50, 5)
+    flat = torch.empty(q.numel() + 1, device=cuda, dtype=q.dtype)
+    odd = flat[1:].view(q.shape).copy_(q)
+    before = (fused_attention.launches, fused_attention_backward.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_attention(odd, k, v)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_attention_backward(odd, k, v, go)
+    assert (fused_attention.launches,
+            fused_attention_backward.launches) == before
+    flat_g = torch.empty(go.numel() + 1, device=cuda, dtype=go.dtype)
+    odd_g = flat_g[1:].view(go.shape).copy_(go)
+    for a, b in zip(fused_attention_backward(q, k, v, odd_g),
+                    fused_attention_backward(q, k, v, go)):
+        assert torch.equal(a, b)
