@@ -18,6 +18,15 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             from torch.profiler (no host gaps), the wrappers' host
             microseconds per call at the text site, two launches bitwise
             equal;
+   frames   R1 (the PIL-exact resize and crop) against its plain version,
+            bitwise, at the path's 768-frame block (341x256 -> 224) and at
+            320x240, 256x341, 640x360, 1280x720, 224x224 and 160x120, two
+            launches bitwise equal, one launch over mixed sizes and padded
+            slots; its kernel, plain and library times and bound. nvJPEG on
+            the card against the committed fixture's PIL decodes (max and
+            mean abs difference, routes), R1 on PIL's pixels against PIL's
+            crops (bitwise), a batch with padded and corrupt slots, and
+            decode + R1 of one 768-frame block (ms, frames/s);
 4. eval     the full-width ViT-B/32 BirdModel (12 frames at 224 px, 32
             query tokens, temporal transformer, top-3 frame similarity;
             seeded random weights, bf16 compute) evaluated over ``--clips``
@@ -29,7 +38,7 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             splits the eval's device time by kernel and gives the device's
             idle share. A small input runs through the fp32 model on the
             card and on the CPU (plain attention) for a reference check.
-5. train    the same model fine-tuned through runner.run_finetune: batch 256
+5. train    the same model fine-tuned through runner.finetune: batch 256
             in 4 micro-batches of 64, one synthetic 256-clip batch taken for
             6 optimizer steps (t_total 6, the JAX package's default lr,
             text_lr, coef_lr, weight decay and warmup), then the runner's
@@ -41,6 +50,18 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             switch off (no launches, losses within the stated tolerance);
             one fp32 step on 2 clips, kernels on the card against the plain
             attention on the CPU, every gradient compared.
+   cli      the port's CLI in process, runner.main(cli.get_args([...])), over
+            a FramePack of 1000 videos x 30 frames cycled from the fixture:
+            --do_train at full width, bf16, batch 256 in 4 micro-batches, 2
+            steps, the epoch-end eval of 1000 clips and pytorch_model.bin.0;
+            then --do_eval --init_model that file, which must give the same
+            metrics. K1, K2, R1 and decoder launches against their
+            predictions, no decode failure, finite losses that fall along
+            the run's update (fp32), the reload eval profiled (wall, device
+            busy and idle share, decode and R1 per block, H2D bytes), peak
+            memory; the trained model's sims from the card decode against
+            those from the fixture's PIL crops of the same frames (R@1 of
+            both);
 6. result   the nvidia-smi line as it prints it, the kernel table as one
             JSON line, then ``{"ok": true, "device": {...}}`` as the last.
 
@@ -52,6 +73,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -60,11 +82,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hmmc_tpu_torch import runner
-from hmmc_tpu_torch.config import ClipArch, CrossConfig, TaskConfig
+from hmmc_tpu_torch import cli, runner
+from hmmc_tpu_torch.config import (ClipArch, CrossConfig, TaskConfig,
+                                   load_cross_config)
+from hmmc_tpu_torch.data import jpeg
+from hmmc_tpu_torch.data.framepack import FramePackWriter
+from hmmc_tpu_torch.data.registry import get_factory
+from hmmc_tpu_torch.data.sampling import sample_frame_indices
 from hmmc_tpu_torch.data.text import encode_text
 from hmmc_tpu_torch.evaluation import Evaluator
 from hmmc_tpu_torch.factory import build_model
+from hmmc_tpu_torch.losses import finetune_retrieval_loss
 from hmmc_tpu_torch.metrics import logging_rank
 from hmmc_tpu_torch.ops import fused_attention as fa
 from hmmc_tpu_torch.ops import image_ops, kernel_build
@@ -72,13 +100,21 @@ from hmmc_tpu_torch.ops.fused_attention import (
     MAX_LEN_BWD, MAX_LEN_BWD_FP32, fused_attention, fused_attention_backward,
     fused_attention_backward_reference, fused_attention_reference,
     kernel_bwd_smem_bytes, kernel_smem_bytes)
+from hmmc_tpu_torch.ops.resize_crop import (
+    FORMATS, SAMPLING, YccFrame, crop_tables, launch, output_size,
+    plane_batch, resize_crop, resize_crop_reference, ycc_to_rgb_reference)
 from hmmc_tpu_torch.tokenization import ClipTokenizer
 from hmmc_tpu_torch.train.optimization import build_optimizer
-from hmmc_tpu_torch.train.trainer import FinetuneState, make_finetune_step
+from hmmc_tpu_torch.train.trainer import (FinetuneState, make_finetune_step,
+                                          split_microbatches)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# int32 multiply-adds per second: sm_90 runs 64 IMAD per clock per SM
+# against 128 FFMA (CUDA C++ Programming Guide, arithmetic instruction
+# throughput), so half the FFMA rate behind the fp32 peak above
+IMAD_PER_S = PEAK_FLOPS[torch.float32] / 2 / 2
 TOLERANCE = {
     torch.float32: dict(atol=2e-5, rtol=1e-4, reason=(
         "same arithmetic, sums in another order: the JAX package's own "
@@ -133,6 +169,22 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def jpeg_toolkit():
+    """What the JPEG decoder can build on: nvJPEG's header and libraries
+    in the CUDA toolkit beside nvcc, and whether libjpeg's header is
+    installed (the decoder uses nvJPEG; libjpeg would be the host route)."""
+    cuda = os.path.dirname(os.path.dirname(os.path.realpath(
+        kernel_build.find_nvcc())))
+    lib = os.path.join(cuda, "lib64")
+    return dict(cuda_home=cuda,
+                nvjpeg_h=os.path.isfile(os.path.join(cuda, "include",
+                                                     "nvjpeg.h")),
+                libnvjpeg=sorted(n for n in os.listdir(lib)
+                                 if n.startswith("libnvjpeg.so"))
+                if os.path.isdir(lib) else [],
+                jpeglib_h=os.path.isfile("/usr/include/jpeglib.h"))
 
 
 def ptxas_by_function(lines):
@@ -357,6 +409,262 @@ def wrapper_host_cost(gen):
 
 
 # ---------------------------------------------------------------------------
+# phase frames: R1 and the nvJPEG decoder
+# ---------------------------------------------------------------------------
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "hmmc_tpu_torch", "assets", "frames_fixture.npz")
+RES = 224
+BLOCK_FRAMES = 64 * 12          # one 64-clip eval video block, 12 frames
+STORE_SIZE = (341, 256)         # the MSR-VTT store's frames (256 short side)
+R1_SIZES = (STORE_SIZE, (320, 240), (256, 341), (640, 360), (1280, 720),
+            (224, 224), (160, 120))
+DECODE_MAX_ABS = 8
+DECODE_MEAN_ABS = 0.25
+DECODE_REASON = (
+    "chroma upsampling and colour conversion are libjpeg's own (R1), but "
+    "nvJPEG's IDCT is not libjpeg's integer IDCT: a few pixels differ by a "
+    "few levels (on the H100: at most 3, mean 0.04 at full resolution); "
+    "the limits sit above that")
+
+
+def load_fixture():
+    """The committed frames: JPEG blobs, PIL's RGB decodes and the JAX
+    package's eval crops at 224 (hmmc_tpu_torch/assets/)."""
+    z = np.load(FIXTURE)
+    n = len(z["sizes"])
+    return dict(sizes=[tuple(int(v) for v in s) for s in z["sizes"]],
+                blobs=[z[f"blob_{i}"].tobytes() for i in range(n)],
+                rgb=[z[f"rgb_{i}"] for i in range(n)],
+                crop=[z[f"crop_{i}"] for i in range(n)],
+                sampling=[str(s) for s in z["sampling"]])
+
+
+def resize_bound(n, w, h, res):
+    """Least time for R1 on ``n`` frames of ``w`` x ``h`` 4:2:0 planes:
+    the source bytes the crop needs read once (the luma rows and columns
+    the taps reach, and the chroma samples under them with the one
+    neighbour each side that the fancy upsampling reads) and each output
+    byte written once, against the int32 multiply-adds of the resize taps
+    (3 channels; the colour conversion's and the upsampling's few per
+    pixel, which tables or shifts could replace, are not counted) at
+    :data:`IMAD_PER_S`. Returns (ms, what bounds it, bytes, multiply-adds).
+    """
+    t = crop_tables(w, h, res)
+    xs, xe = t.staged_cols
+    ys, ye = int(t.y_first[0]), int(t.y_first[-1] + t.y_count[-1])
+
+    def chroma(lo, hi, n_luma):          # chroma samples luma [lo, hi) reads
+        last = (n_luma + 1) // 2 - 1
+        return min((hi - 1) // 2 + 1, last) - max(lo // 2 - 1, 0) + 1
+
+    src = (ye - ys) * (xe - xs) + 2 * chroma(ys, ye, h) * chroma(xs, xe, w)
+    nbytes = n * (src + res * res * 3)
+    mads = 3 * n * ((ye - ys) * int(t.x_count.sum())
+                    + res * int(t.y_count.sum()))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = mads / IMAD_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, mads)
+
+
+def random_frames(gen, n, w, h, fmt):
+    """``n`` random frames of one size on the card: RGB [H, W, 3] views of
+    one tensor, or YccFrames (gray, or YCbCr at any sampling R1 takes) of
+    random planes."""
+    def u8(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                             generator=gen)
+
+    if fmt == "rgb":
+        return list(u8(n, h, w, 3).unbind(0))
+    ys = u8(n, h, w)
+    if fmt == "gray":
+        return [YccFrame(y) for y in ys.unbind(0)]
+    hf, vf = SAMPLING[FORMATS[fmt]]
+    cw, ch = -(-w // hf), -(-h // vf)
+    cb, cr = u8(n, ch, cw), u8(n, ch, cw)
+    return [YccFrame(*p) for p in zip(ys.unbind(0), cb.unbind(0),
+                                      cr.unbind(0))]
+
+
+def r1_plain(frames):
+    """R1's plain version over frames of one size."""
+    rgb = torch.stack([ycc_to_rgb_reference(f) if isinstance(f, YccFrame)
+                       else f for f in frames])
+    return resize_crop_reference(rgb, RES)
+
+
+def check_resize_crop(gen):
+    """R1 against its plain version at every size of the sweep (the path's
+    768-frame block of 4:2:0 planes at 341x256, 96 frames elsewhere, RGB
+    and 4:2:0), bitwise, and two launches bitwise equal; one launch over
+    mixed sizes, every other sampling (at an odd 161x121), grayscale and
+    padded slots; at the path's size the kernel, plain and library times
+    and the bound."""
+    rows, timed = [], None
+    mixed, mixed_ref = [], []
+    for w, h in R1_SIZES:
+        for fmt in ("ycc420", "rgb"):
+            path = (w, h) == STORE_SIZE and fmt == "ycc420"
+            n = BLOCK_FRAMES if path else 96
+            frames = random_frames(gen, n, w, h, fmt)
+            out = resize_crop(frames, RES)
+            again = resize_crop(frames, RES)
+            ref = r1_plain(frames)
+            torch.cuda.synchronize()
+            row = dict(phase="frames", check="resize_crop", size=[w, h],
+                       format=fmt, frames=n,
+                       bitwise_equal=bool(torch.equal(out, ref)),
+                       bitwise_repeat=bool(torch.equal(out, again)),
+                       max_abs_err=float((out.int() - ref.int()).abs().max()))
+            mixed += [frames[0], None]
+            mixed_ref += [ref[0], torch.zeros_like(ref[0])]
+            if path:
+                nw, nh = output_size(w, h, RES)
+                left, top = (nw - RES) // 2, (nh - RES) // 2
+                xf = torch.stack([ycc_to_rgb_reference(f) for f in frames]
+                                 ).permute(0, 3, 1, 2).float()
+
+                def library():
+                    return F.interpolate(
+                        xf, size=(nh, nw), mode="bicubic", antialias=True,
+                        align_corners=False)[:, :, top:top + RES,
+                                             left:left + RES]
+
+                batch = plane_batch(frames)
+                dev = torch.device("cuda", torch.cuda.current_device())
+                bound_ms, bound_by, nbytes, ops = resize_bound(n, w, h, RES)
+                ms = cuda_ms(lambda: resize_crop(frames, RES), 20)
+                row.update(
+                    ms=ms, launch_ms=cuda_ms(lambda: launch(batch, RES, dev),
+                                             20),
+                    kernel_device_ms=kernel_device_ms(
+                        lambda: launch(batch, RES, dev)),
+                    plain_ms=cuda_ms(lambda: r1_plain(frames), 3, warmup=1),
+                    library_ms=cuda_ms(library, 10),
+                    library="F.interpolate(bicubic, antialias=True) on the "
+                            "float RGB frames, then the crop",
+                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                    int_multiply_adds=ops)
+                row["share_of_bound"] = bound_ms / (
+                    row["kernel_device_ms"]
+                    if isinstance(row["kernel_device_ms"], float) else ms)
+                del xf
+                timed = row
+            emit(row)
+            rows.append(row)
+            del frames, out, again, ref
+    for fmt in ("ycc444", "ycc422", "ycc440", "ycc411", "ycc410", "gray"):
+        frames = random_frames(gen, 2, 161, 121, fmt)
+        mixed += frames
+        mixed_ref += list(r1_plain(frames).unbind(0))
+    out = resize_crop(mixed, RES)
+    torch.cuda.synchronize()
+    ok_mixed = bool(torch.equal(out, torch.stack(mixed_ref)))
+    emit(dict(phase="frames", check="resize_crop mixed sizes, formats and "
+              "padded slots in one launch", frames=len(mixed),
+              bitwise_equal=ok_mixed))
+    bad = [r for r in rows if not (r["bitwise_equal"] and r["bitwise_repeat"])]
+    if bad or not ok_mixed:
+        raise AssertionError(f"resize_crop disagrees with its plain version: "
+                             f"{bad}, mixed {ok_mixed}")
+    return timed
+
+
+def check_decoder(smi):
+    """nvJPEG on the card against the fixture's PIL decodes: libjpeg's RGB
+    from the decoded planes (R1's plain stage 0) against PIL's, and the
+    eval crops against the JAX package's; R1 on the decoded planes against
+    its plain version and R1 on PIL's pixels against PIL's crops (both
+    bitwise); a batch with padded and corrupt slots; decode + R1 of one
+    768-frame block."""
+    fx = load_fixture()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dec = jpeg._decoder(dev)
+    jpeg.reset_counters()
+    batch, buf = dec.decode_planes(fx["blobs"])
+    frames = jpeg.frame_views(batch, buf)
+    crops = jpeg.decode_frames(fx["blobs"], RES, dev)
+    plain = torch.cat([resize_crop_reference(ycc_to_rgb_reference(f)[None],
+                                             RES) for f in frames])
+    pil_r1 = resize_crop([torch.from_numpy(a).to(dev) for a in fx["rgb"]],
+                         RES)
+    torch.cuda.synchronize()
+    routes = dict(jpeg.decode_frames.routes)
+    formats = dict(jpeg.decode_frames.formats)
+    formats_ok = [f.fmt for f in frames] == [FORMATS[f"ycc{s}"]
+                                             for s in fx["sampling"]]
+    full = [(ycc_to_rgb_reference(f).int().cpu()
+             - torch.from_numpy(a).int()).abs()
+            for f, a in zip(frames, fx["rgb"])]
+    crop = (crops.int().cpu() - torch.from_numpy(np.stack(fx["crop"])).int()
+            ).abs()
+    r1_equal = bool(torch.equal(pil_r1.cpu(),
+                                torch.from_numpy(np.stack(fx["crop"]))))
+    r1_planes_equal = bool(torch.equal(crops, plain))
+    # a batch with padded slots and a corrupt blob: zeros there, the rest
+    # as in the dense decode
+    blobs = [fx["blobs"][0], None, fx["blobs"][1], b"not a jpeg", None]
+    fails_before = jpeg.decode_frames.decode_failures
+    padded = jpeg.decode_frames(blobs, RES, dev)
+    torch.cuda.synchronize()
+    padded_ok = (bool(torch.equal(padded[0], crops[0]))
+                 and bool(torch.equal(padded[2], crops[1]))
+                 and int(padded[[1, 3, 4]].abs().sum()) == 0
+                 and jpeg.decode_frames.decode_failures == fails_before + 1)
+    # one eval block: 768 frames cycled from the fixture's 341x256 frames
+    store = [b for b, s in zip(fx["blobs"], fx["sizes"]) if s == STORE_SIZE]
+    block = [store[i % len(store)] for i in range(BLOCK_FRAMES)]
+
+    def host_ms(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    jpeg.reset_counters()
+    block_ms = host_ms(lambda: jpeg.decode_frames(block, RES, dev))
+    decode_ms = host_ms(lambda: dec.decode_planes(block))
+    block_batch, block_buf = dec.decode_planes(block)
+    r1_ms = cuda_ms(lambda: launch(block_batch, RES, dev), 10)
+    row = dict(phase="frames", check="nvjpeg decoder",
+               hardware_backend=dec.hardware, routes_fixture=routes,
+               formats_fixture=formats, fixture_sampling=fx["sampling"],
+               formats_as_encoded=formats_ok,
+               routes_block_runs=dict(jpeg.decode_frames.routes),
+               full_res_max_abs_diff=max(float(d.max()) for d in full),
+               full_res_mean_abs_diff=float(
+                   sum(float(d.float().sum()) for d in full)
+                   / sum(d.numel() for d in full)),
+               full_res_per_frame_max=[float(d.max()) for d in full],
+               full_res_per_frame_mean=[float(d.float().mean())
+                                        for d in full],
+               crop_max_abs_diff=float(crop.max()),
+               crop_mean_abs_diff=float(crop.float().mean()),
+               max_abs_tolerance=DECODE_MAX_ABS,
+               mean_abs_tolerance=DECODE_MEAN_ABS, reason=DECODE_REASON,
+               r1_on_decoded_planes_bitwise_equal_plain=r1_planes_equal,
+               r1_on_pil_pixels_bitwise_equal_pil=r1_equal,
+               padded_and_corrupt_slots_ok=padded_ok,
+               block_frames=BLOCK_FRAMES, block_decode_r1_ms=block_ms,
+               block_frames_per_s=BLOCK_FRAMES / block_ms * 1e3,
+               block_decode_ms=decode_ms, block_r1_ms=r1_ms,
+               block_compressed_bytes=sum(len(b) for b in block),
+               block_decoded_bytes=BLOCK_FRAMES * RES * RES * 3, card=smi)
+    emit(row)
+    if not (r1_equal and r1_planes_equal and padded_ok and formats_ok
+            and row["full_res_max_abs_diff"] <= DECODE_MAX_ABS
+            and row["full_res_mean_abs_diff"] <= DECODE_MEAN_ABS
+            and row["crop_mean_abs_diff"] <= DECODE_MEAN_ABS):
+        raise AssertionError(f"nvJPEG decode disagrees with PIL: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the eval slice
 # ---------------------------------------------------------------------------
 
@@ -436,7 +744,9 @@ def device_throughput(model, task, arch, ev):
                 queries_per_s=ev.text_block / t_ms * 1e3)
 
 
-KERNEL_KINDS = {"K1 fused_attention_fwd": ("attention_fwd_",),
+KERNEL_KINDS = {"nvjpeg": ("nvjpeg",),
+                "R1 resize_crop": ("resize_crop_kernel",),
+                "K1 fused_attention_fwd": ("attention_fwd_",),
                 "K2 fused_attention_bwd": ("attention_bwd_",),
                 "conv": ("cudnn", "fprop", "dgrad", "wgrad", "conv"),
                 "gemm": ("gemm", "nvjet", "xmma", "cutlass", "cublas"),
@@ -569,7 +879,7 @@ def train_task(seed, switch="on"):
 
 
 def run_train(task, cross, arch, batch, eval_loader):
-    """runner.run_finetune over TRAIN_STEPS copies of ``batch``; counts are
+    """runner.finetune over TRAIN_STEPS copies of ``batch``; counts are
     set to 0 just before and read at the end of the steps and after the
     epoch-end eval."""
     loader = RepeatedBatch(batch, TRAIN_STEPS)
@@ -577,7 +887,7 @@ def run_train(task, cross, arch, batch, eval_loader):
     torch.cuda.reset_peak_memory_stats()
     fused_attention.launches = fused_attention_backward.launches = 0
     t0 = time.perf_counter()
-    run = runner.run_finetune(task, cross, loader, eval_loader, arch=arch)
+    run = runner.finetune(task, cross, loader, eval_loader, arch=arch)
     total_s = time.perf_counter() - t0
     steps = loader.read
     return dict(run=run, steps=steps, total_s=total_s,
@@ -760,49 +1070,324 @@ def train_slice(cross, arch, seed, smi):
                 eval_k1=row["eval_k1_launches"])
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--clips", type=int, default=1000,
-                    help="eval clips (MSR-VTT's 1k-A test split has 1000)")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+# ---------------------------------------------------------------------------
+# phase cli: the port's CLI over a FramePack
+# ---------------------------------------------------------------------------
 
-    # 1. device
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    smi = nvidia_smi_line()
-    kind = torch.cuda.get_device_name(0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    emit(dict(phase="device", nvidia_smi=smi, torch_device=kind,
-              count=torch.cuda.device_count(), torch=torch.__version__,
-              cuda=torch.version.cuda, python=sys.version.split()[0],
-              allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
-              allow_tf32_cudnn=torch.backends.cudnn.allow_tf32))
+CLI_CLIPS = 1000            # MSR-VTT 1k-A test split
+CLI_TRAIN_VIDEOS = 256      # 2 captions each: 512 samples, 2 steps of 256
+CLI_STORED_FRAMES = 30      # tools/video2framepack.py's default
+CLI_STEPS = 2
+# The schedule gives step 0 lr 0 (warmup), so both displayed losses are the
+# initial weights' and the run makes one update: BertAdam's first, about
+# 4 lr per weight (no bias correction), which overshoots on random weights
+# (as the train phase's third loss shows). The loss must fall along it: at
+# a hundredth of the update, below the loss at the start.
+CLI_UPDATE_FRACTIONS = (0.0, 0.01, 1.0)
 
-    # 2. build
+
+def build_cli_layout(root, seed):
+    """A FramePack of CLI_CLIPS videos x CLI_STORED_FRAMES frames cycled
+    from the fixture's 341x256 JPEGs (video i, frame j: fixture frame
+    (i + j) mod 8), and an MSR-VTT layout: a CLI_CLIPS-row JSFUSION test
+    CSV, a CLI_TRAIN_VIDEOS-video train CSV, 2 captions per video."""
+    fx = load_fixture()
+    store = [b for b, s in zip(fx["blobs"], fx["sizes"]) if s == STORE_SIZE]
     t0 = time.perf_counter()
-    info = kernel_build.build(kernel_build.kernel_sources())
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              kernels={n: dict(seconds=i["seconds"], cached=i["cached"],
-                               functions=ptxas_by_function(i["ptxas"]))
-                       for n, i in info.items()}))
+    vids = [f"video{i}" for i in range(CLI_CLIPS)]
+    with FramePackWriter(os.path.join(root, "frames.fpk")) as w:
+        for i, vid in enumerate(vids):
+            w.add_video(vid, [store[(i + j) % len(store)]
+                              for j in range(CLI_STORED_FRAMES)])
+    rng = np.random.default_rng(seed)
 
-    # 3. kernels at the eval path's shapes (64-clip video block, 512-query
-    #    text block)
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    def sentence():
+        return " ".join(rng.choice(WORDS, size=rng.integers(5, 14)))
+
+    m = os.path.join(root, "msrvtt")
+    os.makedirs(m)
+    with open(os.path.join(m, "MSRVTT_JSFUSION_test.1k.csv"), "w") as f:
+        f.write("key,vid_key,video_id,sentence\n")
+        for i, vid in enumerate(vids):
+            f.write(f"ret{i},msr{i},{vid},{sentence()}\n")
+    with open(os.path.join(m, "MSRVTT_train.9k.csv"), "w") as f:
+        f.write("video_id\n" + "\n".join(vids[:CLI_TRAIN_VIDEOS]) + "\n")
+    with open(os.path.join(m, "MSRVTT_data.json"), "w") as f:
+        json.dump({"sentences": [{"video_id": v, "caption": sentence()}
+                                 for v in vids for _ in range(2)]}, f)
+    return dict(store=store, crops=[c for c, s in zip(fx["crop"],
+                                                      fx["sizes"])
+                                    if s == STORE_SIZE],
+                seconds=time.perf_counter() - t0,
+                pack_bytes=os.path.getsize(os.path.join(root, "frames.fpk")))
+
+
+def cli_argv(data_dir, out, extra):
+    return ["--do_train", "--do_eval", "--dataset", "msrvtt",
+            "--language", "english", "--use_temp", "--use_frame_fea",
+            "--data_dir", data_dir, "--output_dir", out,
+            "--batch_size", "256", "--gradient_accumulation_steps", "4",
+            "--batch_size_val", "512", "--epochs", "1", "--n_display", "1",
+            "--num_thread_reader", "4", *extra]
+
+
+def launch_counts():
+    return dict(k1=fused_attention.launches,
+                k2=fused_attention_backward.launches,
+                r1=resize_crop.launches, decoder=jpeg.decode_frames.launches)
+
+
+def reset_launch_counts():
+    fused_attention.launches = fused_attention_backward.launches = 0
+    resize_crop.launches = 0
+    jpeg.reset_counters()
+
+
+class EvalProbe:
+    """Wraps ``Evaluator.run`` over one ``runner.main`` call: the wall time
+    of each eval, the decode counters it moved, and with ``profile`` a
+    torch.profiler breakdown of its device time by kernel name, and the
+    host time of the ``record_function`` ranges of nvJPEG and R1."""
+
+    def __init__(self, profile=False):
+        self.profile, self.calls = profile, []
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.orig = orig = Evaluator.run
+        probe = self
+
+        def run(ev, loader, dataset=None, log=None):
+            torch.cuda.synchronize()
+            before = dict(launch_counts(),
+                          h2d_bytes=jpeg.decode_frames.h2d_bytes)
+            t0 = time.perf_counter()
+            if probe.profile:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = orig(ev, loader, dataset, log)
+                    torch.cuda.synchronize()
+            else:
+                out = orig(ev, loader, dataset, log)
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            after = dict(launch_counts(),
+                         h2d_bytes=jpeg.decode_frames.h2d_bytes)
+            call = dict(wall_ms=wall_ms, metrics=out,
+                        moved={k: after[k] - before[k] for k in after})
+            if probe.profile:
+                call["profile"] = device_time_by_kind(prof, wall_ms)
+                call["host_ms"] = {
+                    r: sum(e.cpu_time_total for e in prof.events()
+                           if e.name == r) / 1e3
+                    for r in ("nvjpeg_decode", "resize_crop")}
+            probe.calls.append(call)
+            return out
+
+        Evaluator.run = run
+        return self
+
+    def __exit__(self, *exc):
+        Evaluator.run = self.orig
+
+
+def fixture_video_loader(eval_loader, dataset, crops):
+    """The eval loader's batches with their ``video_blobs`` replaced by the
+    fixture's PIL crops of the same frames, as host uint8 ``video``."""
+    stored = dataset.source.stored_frames("video0")
+    idx = sample_frame_indices(stored, dataset.max_frames, "uniform")
+
+    class Loader:
+        def __iter__(self):
+            for batch in eval_loader:
+                clips = [int(dataset.data[int(i)]["video_id"][len("video"):])
+                         for i in batch["idx"]]
+                video = np.stack([np.stack([crops[(c + j) % len(crops)]
+                                            for j in idx]) for c in clips])
+                out = {k: v for k, v in batch.items() if k != "video_blobs"}
+                out["video"] = video
+                yield out
+
+    return Loader()
+
+
+def loss_along_update(task, cross, ckpt, tok, arch):
+    """The mean fine-tune loss over the run's train batches (epoch 0's, as
+    the run drew them; fp32, TF32 off) at w0 + t (w1 - w0) for t in
+    CLI_UPDATE_FRACTIONS: w0 the seeded initial weights, w1 the saved
+    ``pytorch_model.bin.0``."""
+    task32 = task.replace(compute_dtype="float32")
+    w0 = build_model(task32, cross).state_dict()
+    model = build_model(task32, cross, init_model_path=ckpt)
+    w1 = {k: v.clone() for k, v in model.state_dict().items()}
+    train_loader, _ = get_factory("msrvtt", "train")(task, tok)
+    train_loader.set_epoch(0)
+    batches = [runner.prepare_finetune_batch(b, "cuda", arch.image_resolution)
+               for b in train_loader]
+    out = {}
+    with torch.no_grad():
+        for t in CLI_UPDATE_FRACTIONS:
+            model.load_state_dict({k: w0[k] + t * (w1[k] - w0[k])
+                                   for k in w1})
+            parts = []
+            for batch in batches:
+                for mb in split_microbatches(
+                        batch, task.gradient_accumulation_steps):
+                    q = model.encode_text(mb["query_ids"])
+                    v, f = model.encode_video(mb["video"])
+                    parts.append(float(finetune_retrieval_loss(
+                        q, v, f, model.logit_scale(),
+                        cross.weight_VTM_finetune,
+                        cross.weight_FTM_finetune)["loss"]))
+            out[t] = sum(parts) / len(parts)
+    return out
+
+
+def cli_phase(seed, smi, cross_model="cross-base"):
+    """Phase cli: ``runner.main(cli.get_args([...]))`` fine-tunes the
+    full-width ViT-B/32 from a FramePack (2 steps of 256 in 4 micro-batches,
+    then the epoch-end eval on 1000 clips, ``pytorch_model.bin.0``); then
+    ``--do_eval --init_model`` that file, which must give the same
+    metrics. Launches of K1, K2, R1 and the decoder are counted over each
+    run against the predictions; the reload eval is profiled; the trained
+    model's sims from the card decode are held against those from the
+    fixture's PIL crops of the same frames."""
+    import tempfile
+
+    cross = load_cross_config(cross_model)
+    arch = ClipArch.by_name(cross.pretrained_clip_name)
+    with tempfile.TemporaryDirectory(prefix="hmmc_cli_") as root:
+        layout = build_cli_layout(root, seed)
+        out = os.path.join(root, "out")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with EvalProbe() as train_probe:
+            run = runner.main(cli.get_args(argv=cli_argv(
+                root, out, ["--seed", str(seed),
+                            "--cross_model", cross_model])))
+        train_s = time.perf_counter() - t0
+        train_counts = launch_counts()
+        train_peak = torch.cuda.max_memory_allocated()
+        train_failures = jpeg.decode_frames.decode_failures
+        ckpt = os.path.join(out, "pytorch_model.bin.0")
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with EvalProbe(profile=True) as eval_probe:
+            metrics = runner.main(cli.get_args(argv=cli_argv(
+                root, os.path.join(root, "out_eval"),
+                ["--seed", str(seed), "--cross_model", cross_model,
+                 "--init_model", ckpt])[1:]))
+        eval_s = time.perf_counter() - t0
+        eval_counts = launch_counts()
+        eval_peak = torch.cuda.max_memory_allocated()
+        eval_failures = jpeg.decode_frames.decode_failures
+
+        # the same clips through the card decode and through PIL's crops
+        task = cli.to_task_config(cli.get_args(argv=cli_argv(
+            root, out, ["--cross_model", cross_model])))
+        task = task.replace(image_resolution=arch.image_resolution)
+        tok = ClipTokenizer()
+        model = build_model(task, cross, init_model_path=ckpt)
+        ev = Evaluator(model, task)
+        loader, dataset = get_factory("msrvtt", "test")(task, tok)
+        sims = {}
+        for name, ld in (("card_decode", loader), ("pil_crops",
+                         fixture_video_loader(loader, dataset,
+                                              layout["crops"]))):
+            q, v, f, _, _ = ev.cache_features(ld)
+            sims[name] = ev.similarity(q, v, f)
+        sim_diff = float(np.abs(sims["card_decode"] - sims["pil_crops"]).max())
+        r1 = {k: logging_rank(s, False, [])["R1"] for k, s in sims.items()}
+        del model, ev, loader
+        torch.cuda.empty_cache()
+        along = loss_along_update(task, cross, ckpt, tok, arch)
+        torch.cuda.empty_cache()
+
+    layers_step = (arch.vision_layers + arch.transformer_layers
+                   + cross.temporal_hidden_layers) * 4
+    eval_k1 = ((arch.vision_layers + cross.temporal_hidden_layers)
+               * math.ceil(CLI_CLIPS / 64)
+               + arch.transformer_layers * math.ceil(CLI_CLIPS / 512))
+    eval_decodes = math.ceil(CLI_CLIPS / 512)
+    expected_train = dict(k1=layers_step * CLI_STEPS + eval_k1,
+                          k2=layers_step * CLI_STEPS,
+                          r1=CLI_STEPS + eval_decodes,
+                          decoder=CLI_STEPS + eval_decodes)
+    expected_eval = dict(k1=eval_k1, k2=0, r1=eval_decodes,
+                         decoder=eval_decodes)
+    losses = [r["loss"] for r in run.displayed]
+    finite = all(math.isfinite(x) for x in losses + list(along.values())) \
+        and all(math.isfinite(x) for x in metrics.values())
+    start, small = along[0.0], along[CLI_UPDATE_FRACTIONS[1]]
+    ev_call = eval_probe.calls[0]
+    blocks = math.ceil(CLI_CLIPS / 64)
+    kinds = ev_call["profile"]["device_ms_by_kind"]
+
+    def per_block(ms):
+        return ms / blocks if isinstance(ms, float) else "not measured"
+
+    row = dict(
+        phase="cli", model="ViT-B/32 BirdModel", clips=CLI_CLIPS,
+        train_videos=CLI_TRAIN_VIDEOS, steps=CLI_STEPS,
+        layout_s=layout["seconds"], pack_bytes=layout["pack_bytes"],
+        train_run_s=train_s, eval_run_s=eval_s,
+        losses=losses,
+        fp32_loss_along_update={str(t): x for t, x in along.items()},
+        falling=small < start, finite=finite,
+        step_s=[r["step_s"] for r in run.displayed],
+        data_s=[r["data_s"] for r in run.displayed],
+        epoch_metrics=run.best_metrics, reload_metrics=metrics,
+        reload_equal=metrics == run.best_metrics,
+        train_launches=train_counts, expected_train_launches=expected_train,
+        eval_launches=eval_counts, expected_eval_launches=expected_eval,
+        decode_failures=train_failures + eval_failures,
+        routes=dict(jpeg.decode_frames.routes),
+        epoch_eval_wall_ms=train_probe.calls[0]["wall_ms"],
+        eval_wall_ms=ev_call["wall_ms"],
+        eval_device_busy_ms=ev_call["profile"]["device_busy_ms"],
+        eval_device_idle_share=ev_call["profile"]["device_idle_share"],
+        eval_device_ms_by_kind=kinds,
+        eval_top_kernels=ev_call["profile"]["top_kernels"],
+        per_block=dict(
+            blocks=blocks,
+            decode_device_ms=per_block(kinds["nvjpeg"]),
+            r1_device_ms=per_block(kinds["R1 resize_crop"]),
+            decode_host_ms=ev_call["host_ms"]["nvjpeg_decode"] / blocks,
+            r1_host_ms=ev_call["host_ms"]["resize_crop"] / blocks,
+            h2d_compressed_bytes=ev_call["moved"]["h2d_bytes"] / blocks,
+            h2d_bytes_if_decoded_on_host=64 * 12 * RES * RES * 3),
+        max_memory_allocated=dict(train=train_peak, eval=eval_peak),
+        sims_card_vs_pil_max_abs_diff=sim_diff, atol=SIM_ON_OFF_ATOL,
+        r1_card_decode=r1["card_decode"], r1_pil_crops=r1["pil_crops"],
+        card=smi)
+    emit(row)
+    ok = (finite and row["falling"] and row["reload_equal"]
+          and train_counts == expected_train and eval_counts == expected_eval
+          and row["decode_failures"] == 0 and sim_diff <= SIM_ON_OFF_ATOL)
+    if not ok:
+        raise AssertionError(f"cli phase failed: {row}")
+    return dict(k1=train_counts["k1"] + eval_counts["k1"],
+                k2=train_counts["k2"] + eval_counts["k2"],
+                r1=train_counts["r1"] + eval_counts["r1"])
+
+
+def kernels_phase(gen):
+    """Phase 3: K1 at the eval path's shapes (64-clip video block,
+    512-query text block), K2 at the fine-tune path's (a 64-clip
+    micro-batch), each also at the longest sequence it takes."""
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(check_attention("vit", 64 * 12, 12, 50, False, dtype, gen))
         rows.append(check_attention("text", 512, 8, 32, True, dtype, gen))
         rows.append(check_attention("temporal", 64, 8, 12, False, dtype, gen))
-    # lengths the kernel also takes, beyond the main path
     for dtype in (torch.bfloat16, torch.float32):
         for b, h, l, causal in ((8, 8, 77, True), (8, 12, 128, False)):
             check_attention("extra", b, h, l, causal, dtype, gen)
-    # K2 at the fine-tune path's shapes (a 64-clip micro-batch), and at the
-    # longest sequence it takes
     bwd_rows = []
     for dtype in (torch.bfloat16, torch.float32):
         bwd_rows.append(check_attention_backward("vit", 64 * 12, 12, 50,
@@ -816,8 +1401,11 @@ def main(argv=None) -> int:
     check_attention_backward("extra", 8, 12, MAX_LEN_BWD_FP32, False,
                              torch.float32, gen)
     wrapper_host_cost(gen)
+    return rows, bwd_rows
 
-    # 4. the eval slice
+
+def eval_phase(args, smi):
+    """Phase 4; returns K1's launches over the eval."""
     task = TaskConfig(seed=args.seed)                # bf16, kernel on
     cross = CrossConfig()                            # ViT-B/32, temporal 4x8
     arch = ClipArch.by_name(cross.pretrained_clip_name)
@@ -881,11 +1469,49 @@ def main(argv=None) -> int:
     del off_model, off
     reference_check(task, cross, arch, args.seed)
     torch.cuda.empty_cache()
+    return on["launches"]
 
-    # 5. the fine-tune slice
-    train = train_slice(cross, arch, args.seed, smi)
 
-    # 6. result
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--clips", type=int, default=1000,
+                    help="eval clips (MSR-VTT's 1k-A test split has 1000)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    # 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit(dict(phase="device", nvidia_smi=smi, torch_device=kind,
+              count=torch.cuda.device_count(), torch=torch.__version__,
+              cuda=torch.version.cuda, python=sys.version.split()[0],
+              allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+              allow_tf32_cudnn=torch.backends.cudnn.allow_tf32,
+              jpeg=jpeg_toolkit()))
+
+    # 2. build
+    t0 = time.perf_counter()
+    info = kernel_build.build(kernel_build.kernel_sources())
+    emit(dict(phase="build", seconds=time.perf_counter() - t0,
+              kernels={n: dict(seconds=i["seconds"], cached=i["cached"],
+                               functions=ptxas_by_function(i["ptxas"]))
+                       for n, i in info.items()}))
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    rows, bwd_rows = kernels_phase(gen)
+    r1_row = check_resize_crop(gen)
+    check_decoder(smi)
+    eval_k1 = eval_phase(args, smi)
+    train = train_slice(CrossConfig(), ClipArch.by_name("ViT-B/32"),
+                        args.seed, smi)
+    cli_counts = cli_phase(args.seed, smi)
+
+    # result
     def kernel_row(name, replaces, rows, launches, by_path):
         vit = next(r for r in rows if r["site"] == "vit"
                    and r["dtype"] == str(torch.bfloat16))
@@ -903,15 +1529,33 @@ def main(argv=None) -> int:
                                       "library_ms", "bound_ms", "bound_by")}
                    for r in rows])
 
-    k1_paths = {"eval": on["launches"], "finetune_steps": train["k1"],
-                "finetune_epoch_eval": train["eval_k1"]}
+    k1_paths = {"eval": eval_k1, "finetune_steps": train["k1"],
+                "finetune_epoch_eval": train["eval_k1"],
+                "cli_finetune_and_evals": cli_counts["k1"]}
+    k2_paths = {"finetune_steps": train["k2"],
+                "cli_finetune": cli_counts["k2"]}
     print(smi, flush=True)
     emit({"kernels": [
         kernel_row("fused_attention_fwd", "hmmc_tpu/ops/pallas_attention.py:48",
                    rows, sum(k1_paths.values()), k1_paths),
         kernel_row("fused_attention_bwd",
                    "hmmc_tpu/ops/pallas_attention.py:130", bwd_rows,
-                   train["k2"], {"finetune_steps": train["k2"]})]})
+                   sum(k2_paths.values()), k2_paths),
+        dict(name="resize_crop", route="cuda",
+             source="hmmc_tpu_torch/csrc/resize_crop.cu",
+             replaces="hmmc_tpu/data/datasets.py:36 (_decode_eval's PIL "
+                      "bicubic resize and centre crop: a host PIL step, "
+                      "not a Pallas kernel)",
+             launches=cli_counts["r1"],
+             launches_by_path={"cli_finetune_and_evals": cli_counts["r1"]},
+             max_abs_err=r1_row["max_abs_err"], ms=r1_row["launch_ms"],
+             kernel_device_ms=r1_row["kernel_device_ms"],
+             wrapper_from_frame_list_ms=r1_row["ms"],
+             plain_ms=r1_row["plain_ms"], bound_ms=r1_row["bound_ms"],
+             bound_by=r1_row["bound_by"], library_ms=r1_row["library_ms"],
+             timed_at=f"{BLOCK_FRAMES} frames {STORE_SIZE[0]}x"
+                      f"{STORE_SIZE[1]} -> {RES}, 4:2:0 planes, one launch "
+                      f"as the decode path makes it")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -3,8 +3,8 @@
 :class:`CrossConfig`, :data:`CLIP_ARCH` and :class:`ClipArch` are copies
 of the JAX package's (field names and defaults match the reference's
 ``cross_config.json`` and CLIP model zoo). :class:`TaskConfig` carries only
-the fields the retrieval eval and fine-tune read, plus the attention switch
-``use_fused_attention`` ("on": the hand-written CUDA kernel for every
+the fields the retrieval eval, the fine-tune and the CLI read, plus the
+attention switch ``use_fused_attention`` ("on": the hand-written CUDA kernel for every
 unmasked or causal attention; "off": the plain PyTorch attention). The JAX
 package's automatic kernel choice is not carried over: its crossover was
 measured on a TPU, and any such rule for the port is derived from H100
@@ -14,6 +14,9 @@ measurements (PERF.md).
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +52,13 @@ class CrossConfig:
     pretrained_clip_name: str = "ViT-B/32"
     # kept for config-file compat; unused (legacy co-attention model)
     co_attention_layers: int = 4
+
+    @classmethod
+    def from_json(cls, path: str) -> "CrossConfig":
+        with open(path, "r", encoding="utf-8") as f:
+            raw = json.load(f)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in raw.items() if k in known})
 
 
 # Shapes of the supported CLIP towers, keyed like the reference's
@@ -146,15 +156,29 @@ class ClipArch:
 
 @dataclasses.dataclass(frozen=True)
 class TaskConfig:
-    """The run flags the retrieval eval and fine-tune read (names and
-    defaults as in ``hmmc_tpu.config.TaskConfig``)."""
+    """The run flags the retrieval eval, the fine-tune and the CLI read
+    (names and defaults as in ``hmmc_tpu.config.TaskConfig``)."""
 
+    # mode
+    do_train: bool = False
+    do_eval: bool = False
+    task: str = "retrieval"          # retrieval (retrieval_VT not ported)
+    dataset: str = "msrvtt"
     language: str = "english"
     use_temp: bool = True
     use_frame_fea: bool = True
     top_frames: int = 3
+    cross_model: str = "cross-base"
+    init_model: Optional[str] = None
+    # data
+    data_dir: Optional[str] = None
+    # input resolution; 0 = derive from the CLIP arch (224 for ViT-B)
+    image_resolution: int = 0
+    num_thread_reader: int = 1
     max_words: int = 32
     max_frames: int = 12
+    frame_sample: str = "uniform"    # uniform | random | uniform_random
+    frame_sample_len: str = "fix"    # fix (dynamic: bird datasets only)
     # optimization
     lr: float = 1e-4
     text_lr: float = 1e-5
@@ -163,9 +187,12 @@ class TaskConfig:
     warmup_proportion: float = 0.1
     epochs: int = 20
     batch_size: int = 256
+    batch_size_val: int = 3500
     gradient_accumulation_steps: int = 1
     seed: int = 42
     n_display: int = 100
+    output_dir: Optional[str] = None
+    logdir: Optional[str] = None
     compute_dtype: str = "bfloat16"   # bfloat16 | float32
     use_fused_attention: str = "on"   # on | off
     # store BertAdam's m/v moments in bf16 (the update computes in fp32)
@@ -185,6 +212,13 @@ class TaskConfig:
                 f"{self.use_fused_attention!r}")
         if self.language not in ("english", "chinese"):
             raise ValueError(f"unknown language {self.language!r}")
+        if self.task not in ("retrieval", "retrieval_VT"):
+            raise ValueError(f"unknown task {self.task!r}")
+        if self.frame_sample not in ("uniform", "random", "uniform_random"):
+            raise ValueError(f"unknown frame_sample {self.frame_sample!r}")
+        if self.frame_sample_len not in ("fix", "dynamic"):
+            raise ValueError(
+                f"unknown frame_sample_len {self.frame_sample_len!r}")
 
     @property
     def micro_batch_size(self) -> int:
@@ -194,3 +228,16 @@ class TaskConfig:
 
     def replace(self, **kw) -> "TaskConfig":
         return dataclasses.replace(self, **kw)
+
+
+def load_cross_config(name_or_path: str = "cross-base") -> CrossConfig:
+    """A cross-model config by name or JSON path (``hmmc_tpu.config.
+    load_cross_config``): a file path is read; "cross-base" is the
+    defaults. The JAX package's other sources (bundled assets, URLs) are
+    not carried over: it bundles none, and the card's machine has no
+    network."""
+    if os.path.isfile(name_or_path):
+        return CrossConfig.from_json(name_or_path)
+    if name_or_path == "cross-base":
+        return CrossConfig()
+    raise FileNotFoundError(f"cross config {name_or_path!r} not found")

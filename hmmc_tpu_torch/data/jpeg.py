@@ -1,0 +1,280 @@
+"""JPEG frames -> uint8 ``[N, res, res, 3]`` at the eval geometry: decode,
+then R1 (``ops/resize_crop.py``: the short-side bicubic resize and centre
+crop, bit for bit as PIL).
+
+Counterpart of ``_decode_eval`` in ``hmmc_tpu/data/datasets.py:36-61``, which
+decodes on the host with PIL. Here the host only hands compressed blobs
+over:
+
+- On a CUDA device, nvJPEG decodes the batch on the card
+  (``csrc/jpeg_decode.cu``, C interface, loaded with ctypes): the H100's
+  JPEG engines (``NVJPEG_BACKEND_HARDWARE``) take every frame they support
+  in one batched call, and any other frame goes through nvJPEG's
+  ``GPU_HYBRID`` decoder, still on the card. Each frame's components land
+  as encoded (Y, and Cb and Cr at their subsampled size) in one device
+  buffer the wrapper allocates, on PyTorch's current stream, and R1 does
+  libjpeg's upsampling and colour conversion, resizes and crops them in one
+  launch. A frame whose layout R1 does not take (not grayscale, not YCbCr
+  at a sampling of ``resize_crop.SAMPLING``) raises. There is no CPU
+  decoder on this route: without nvJPEG it raises.
+- On the CPU (``device="cpu"``: the tests, small runs), PIL decodes each
+  blob (imported here, as ``_decode_eval`` does; without PIL it raises) and
+  R1's plain version resizes and crops, so the frames equal the JAX
+  package's bit for bit.
+
+``None`` in a batch is a padded slot and comes out zero. A blob that does
+not decode is zero-filled with a warning and counted in
+``decode_frames.decode_failures``, as the JAX package zero-fills corrupt
+frames. ``decode_frames.launches`` counts calls that decoded on the card,
+``decode_frames.routes`` their frames by route, ``decode_frames.h2d_bytes``
+the compressed bytes handed to nvJPEG. The two steps run inside
+``record_function`` ranges ("nvjpeg_decode", "resize_crop") so a profile
+can split their device time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import io
+import logging
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from hmmc_tpu_torch.ops.resize_crop import (FORMATS, PADDED, SAMPLING,
+                                            Frame, PlaneBatch, YccFrame,
+                                            chroma_format, launch,
+                                            resize_crop)
+
+logger = logging.getLogger(__name__)
+
+PITCH_ALIGN = 256        # bytes: each decoded frame's start and row pitch
+ROUTES = ("hardware", "hybrid", "single", "failed")
+SAMPLING_NAMES = [n for n, c in FORMATS.items() if c in SAMPLING]
+
+
+def _pil_rgb(blob) -> Optional[np.ndarray]:
+    from PIL import Image
+
+    try:
+        return np.array(Image.open(io.BytesIO(bytes(blob))).convert("RGB"),
+                        np.uint8)
+    except (OSError, SyntaxError, ValueError):   # PIL's decode failures
+        return None
+
+
+def _count_failure() -> None:
+    logger.warning("corrupt JPEG frame (zero-filled)")
+    decode_frames.decode_failures += 1
+
+
+def _decode_cpu(blobs: Sequence[Optional[bytes]], res: int) -> torch.Tensor:
+    frames: List[Optional[torch.Tensor]] = []
+    for b in blobs:
+        rgb = None if b is None else _pil_rgb(b)
+        if b is not None and rgb is None:
+            _count_failure()
+        frames.append(None if rgb is None else torch.from_numpy(rgb))
+    return resize_crop(frames, res, device="cpu")
+
+
+class _NvJpeg:
+    """One nvJPEG context per device (``hmmc_jpeg_*`` in
+    ``csrc/jpeg_decode.cu``): the hybrid handle, the hardware handle where
+    the card exposes its JPEG engines, their batched states."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.lib = _library()
+        ctx = ctypes.c_void_p()
+        hw = ctypes.c_int()
+        with torch.cuda.device(device):
+            self._check(self.lib.hmmc_jpeg_create(ctypes.byref(ctx),
+                                                  ctypes.byref(hw)),
+                        "create")
+        self.ctx = ctx
+        self.hardware = bool(hw.value)
+
+    def _check(self, status: int, what: str) -> None:
+        if status != 0:
+            raise RuntimeError(
+                f"nvJPEG {what} failed: "
+                f"{self.lib.hmmc_jpeg_status_string(status).decode()} "
+                f"(status {status})")
+
+    def decode_planes(self, blobs: Sequence[Optional[bytes]]
+                      ) -> Tuple[PlaneBatch, torch.Tensor]:
+        """Decode on the card into one buffer: per slot its planes as R1
+        takes them (:class:`PlaneBatch`; ``PADDED`` for a padded slot or a
+        blob that failed), and the buffer."""
+        n = len(blobs)
+        idx = [i for i, b in enumerate(blobs) if b is not None]
+        m = len(idx)
+        planes = {k: np.zeros(n, np.int64) for k in (
+            "p0", "pitch0", "p1", "p2", "pitch1", "w", "h")}
+        fmt = np.full(n, PADDED, np.int64)
+        if not m:
+            return PlaneBatch(fmt=fmt, keep=[], **planes), None
+        data = [bytes(blobs[i]) for i in idx]
+        ptrs = (ctypes.c_char_p * m)(*data)
+        lens = np.array([len(d) for d in data], np.uint64)
+        info = np.zeros((6, m), np.int32)     # w, h, cw, ch, ncomp, route
+        self._check(self.lib.hmmc_jpeg_probe(
+            self.ctx, ptrs, lens.ctypes.data, m,
+            *(info[k].ctypes.data for k in range(6))), "probe")
+        w, h, cw, ch, ncomp, route = (info[k].astype(np.int64)
+                                      for k in range(6))
+        ok = route >= 0
+        form = np.full(m, FORMATS["gray"], np.int64)
+        for j in np.flatnonzero(ok & (ncomp != 1)):
+            code = (chroma_format(w[j], h[j], cw[j], ch[j])
+                    if ncomp[j] == 3 else None)
+            if code is None:
+                raise RuntimeError(
+                    f"JPEG frame {idx[j]}: {ncomp[j]} components, chroma "
+                    f"{cw[j]}x{ch[j]} (-1: Cb and Cr differ) for "
+                    f"{w[j]}x{h[j]}; R1 takes grayscale and YCbCr at "
+                    f"{', '.join(sorted(SAMPLING_NAMES))}")
+            form[j] = code
+        pitch0 = _align(w) * ok
+        pitch1 = _align(cw) * (ok & (ncomp == 3))
+        size0 = h * pitch0
+        size1 = ch * pitch1
+        sizes = np.stack([size0, size1, size1], 1).ravel()
+        offsets = np.concatenate([[0], np.cumsum(sizes)])
+        buf = torch.empty(max(int(offsets[-1]), 1), dtype=torch.uint8,
+                          device=self.device)
+        base = buf.data_ptr()
+        d0, d1, d2 = (base + offsets[j:-1:3] for j in range(3))
+        # the C call reads and writes these: each held by a name
+        route32, nc32 = route.astype(np.int32), ncomp.astype(np.int32)
+        p0_32, p1_32 = pitch0.astype(np.int32), pitch1.astype(np.int32)
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            self._check(self.lib.hmmc_jpeg_decode(
+                self.ctx, ptrs, lens.ctypes.data, m, route32.ctypes.data,
+                nc32.ctypes.data, d0.ctypes.data, d1.ctypes.data,
+                d2.ctypes.data, p0_32.ctypes.data, p1_32.ctypes.data,
+                stream), "decode")
+        decode_frames.launches += 1
+        # nvJPEG has staged the blobs when it returns; they are kept until
+        # the next call all the same
+        self._inputs = data
+        route = route32.astype(np.int64)
+        decode_frames.h2d_bytes += int(lens.sum())
+        for r, name in ((0, "hardware"), (1, "hybrid"), (2, "single")):
+            decode_frames.routes[name] += int((route == r).sum())
+        failed = int((route < 0).sum())
+        decode_frames.routes["failed"] += failed
+        for _ in range(failed):
+            _count_failure()
+        for name, code in FORMATS.items():
+            decode_frames.formats[name] += int(((form == code)
+                                                & (route >= 0)).sum())
+        sel = np.asarray(idx)
+        good = route >= 0
+        fmt[sel] = np.where(good, form, PADDED)
+        for key, val in (("p0", d0), ("pitch0", pitch0), ("p1", d1),
+                         ("p2", d2), ("pitch1", pitch1), ("w", w),
+                         ("h", h)):
+            planes[key][sel] = val
+        return PlaneBatch(fmt=fmt, keep=[buf], **planes), buf
+
+
+def _align(nbytes: np.ndarray) -> np.ndarray:
+    return -(-nbytes // PITCH_ALIGN) * PITCH_ALIGN
+
+
+def frame_views(batch: PlaneBatch, buf: torch.Tensor) -> List[Frame]:
+    """A decoded batch's slots as R1's frames (views into ``buf``):
+    :class:`YccFrame`s, or ``None``."""
+    base = buf.data_ptr() if buf is not None else 0
+    out: List[Frame] = []
+    for i, f in enumerate(batch.fmt):
+        if f == PADDED:
+            out.append(None)
+            continue
+        w, h = int(batch.w[i]), int(batch.h[i])
+
+        def plane(ptr, pitch, rows, cols):
+            o = int(ptr) - base
+            return buf[o:o + rows * int(pitch)].view(rows, int(pitch))[
+                :, :cols]
+
+        y = plane(batch.p0[i], batch.pitch0[i], h, w)
+        if f == FORMATS["gray"]:
+            out.append(YccFrame(y))
+            continue
+        hf, vf = SAMPLING[int(f)]
+        cw, ch = -(-w // hf), -(-h // vf)
+        out.append(YccFrame(y, plane(batch.p1[i], batch.pitch1[i], ch, cw),
+                            plane(batch.p2[i], batch.pitch1[i], ch, cw)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    from hmmc_tpu_torch.ops import kernel_build
+
+    lib = kernel_build.load("jpeg_decode")
+    lib.hmmc_jpeg_status_string.argtypes = [ctypes.c_int]
+    lib.hmmc_jpeg_status_string.restype = ctypes.c_char_p
+    lib.hmmc_jpeg_create.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                     ctypes.POINTER(ctypes.c_int)]
+    lib.hmmc_jpeg_probe.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        *[ctypes.c_void_p] * 6]
+    lib.hmmc_jpeg_decode.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        *[ctypes.c_void_p] * 8]
+    for fn in (lib.hmmc_jpeg_create, lib.hmmc_jpeg_probe,
+               lib.hmmc_jpeg_decode):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _decoder(device: torch.device) -> _NvJpeg:
+    return _NvJpeg(device)
+
+
+def decode_frames(blobs: Sequence[Optional[bytes]], res: int,
+                  device) -> torch.Tensor:
+    """JPEG blobs (``None`` = padded slot) -> uint8 ``[N, res, res, 3]`` on
+    ``device``: nvJPEG + R1 on a CUDA device, PIL + R1's plain version on
+    the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return _decode_cpu(blobs, res)
+    if device.type != "cuda":
+        raise ValueError(f"decode_frames runs on cuda or cpu; got {device}")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with record_function("nvjpeg_decode"):
+        batch, _ = _decoder(device).decode_planes(blobs)
+    with record_function("resize_crop"):
+        return launch(batch, res, device)
+
+
+def decode_video_blobs(video_blobs: Sequence[Sequence[Optional[bytes]]],
+                       res: int, device) -> torch.Tensor:
+    """A loader batch's ``video_blobs`` (B lists of F blobs) -> uint8
+    ``[B, F, res, res, 3]`` on ``device``."""
+    b = len(video_blobs)
+    f = len(video_blobs[0]) if b else 0
+    flat = [blob for clip in video_blobs for blob in clip]
+    return decode_frames(flat, res, device).view(b, f, res, res, 3)
+
+
+def reset_counters() -> None:
+    decode_frames.launches = 0
+    decode_frames.decode_failures = 0
+    decode_frames.h2d_bytes = 0
+    decode_frames.routes = {r: 0 for r in ROUTES}
+    decode_frames.formats = {f: 0 for f in FORMATS}
+
+
+reset_counters()

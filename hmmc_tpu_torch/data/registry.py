@@ -1,0 +1,105 @@
+"""Dataset registry (counterpart of ``hmmc_tpu/data/registry.py``;
+reference: DATALOADER_DICT, dataloaders/dataloader.py:172-177).
+
+Factories take (task: TaskConfig, tokenizer) and return (BatchLoader,
+dataset). Data roots are resolved from ``task.data_dir`` with the
+reference's file layout:
+
+    {data_dir}/
+      frames.fpk                     — frame store (or msrvtt/frames.fpk)
+      msrvtt/MSRVTT_JSFUSION_test.1k.csv
+      msrvtt/MSRVTT_train.9k.csv
+      msrvtt/MSRVTT_data.json
+
+Only MSR-VTT is ported; the other datasets wait in ROADMAP.md Queue A.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Dict
+
+from hmmc_tpu_torch.config import TaskConfig
+from hmmc_tpu_torch.data.datasets import (FrameSource, MsrvttEvalDataset,
+                                          MsrvttTrainDataset)
+from hmmc_tpu_torch.data.loader import BatchLoader
+
+
+def _store_path(task: TaskConfig, sub: str) -> str:
+    base = task.data_dir or "."
+    for cand in (os.path.join(base, sub, "frames.fpk"),
+                 os.path.join(base, "frames.fpk"),
+                 os.path.join(base, sub, "lmdb"),
+                 os.path.join(base, "lmdb")):
+        if os.path.exists(cand):
+            return cand
+    raise FileNotFoundError(
+        f"no frame store under {base!r} (looked for frames.fpk / lmdb)")
+
+
+def _source(task: TaskConfig, sub: str) -> FrameSource:
+    """The eval-mode frame source (both MSR-VTT splits decode so)."""
+    return FrameSource(_store_path(task, sub),
+                       resolution=task.image_resolution or 224)
+
+
+def process_index_count():
+    """(rank, world size) from ``torch.distributed`` when it is
+    initialised, else (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _loader(dataset, task: TaskConfig, train: bool) -> BatchLoader:
+    # Train loaders shard each global batch across processes; eval stays
+    # global per process (the evaluator needs every feature anyway).
+    pi, pc = process_index_count() if train else (0, 1)
+    # The eval batch only sets the host feed's granularity (the Evaluator
+    # re-blocks on the device), so it is capped: the reference default
+    # --batch_size_val 3500 would stack ~6 GB of frames.
+    bs = task.batch_size if train else min(task.batch_size_val, 512)
+    return BatchLoader(
+        dataset, batch_size=bs, shuffle=train, drop_last=train,
+        num_workers=max(1, task.num_thread_reader), seed=task.seed,
+        process_index=pi, process_count=pc)
+
+
+def msrvtt_train(task: TaskConfig, tokenizer):
+    base = os.path.join(task.data_dir or ".", "msrvtt")
+    ds = MsrvttTrainDataset(
+        _source(task, "msrvtt"),
+        csv_path=os.path.join(base, "MSRVTT_train.9k.csv"),
+        json_path=os.path.join(base, "MSRVTT_data.json"),
+        tokenizer=tokenizer, max_words=task.max_words,
+        max_frames=task.max_frames, frame_sample=task.frame_sample,
+        language=task.language)
+    return _loader(ds, task, train=True), ds
+
+
+def msrvtt_test(task: TaskConfig, tokenizer):
+    base = os.path.join(task.data_dir or ".", "msrvtt")
+    ds = MsrvttEvalDataset(
+        _source(task, "msrvtt"),
+        csv_path=os.path.join(base, "MSRVTT_JSFUSION_test.1k.csv"),
+        tokenizer=tokenizer, max_words=task.max_words,
+        max_frames=task.max_frames, frame_sample="uniform",
+        language=task.language)
+    return _loader(ds, task, train=False), ds
+
+
+DATALOADER_DICT: Dict[str, Dict[str, Callable]] = {
+    "msrvtt": {"train": msrvtt_train, "test": msrvtt_test},
+}
+
+
+def get_factory(dataset: str, split: str) -> Callable:
+    """The loader factory of ``dataset`` / ``split``; datasets not ported
+    raise."""
+    if dataset not in DATALOADER_DICT:
+        raise NotImplementedError(
+            f"dataset {dataset!r} is not ported yet: only "
+            f"{sorted(DATALOADER_DICT)} (ROADMAP.md Queue A)")
+    return DATALOADER_DICT[dataset][split]

@@ -5,7 +5,11 @@ Two phases on one device, under ``torch.inference_mode()``:
 
 1. Feature caching: the text and video encoders run over FIXED-size
    blocks (only the last partial block is zero-padded, then trimmed);
-   uint8 frames are cast and CLIP-normalized on the device.
+   uint8 frames are cast and CLIP-normalized on the device. A loader
+   batch that carries compressed frames (``video_blobs``, the frame-store
+   datasets') is decoded on the evaluator's device first
+   (:func:`hmmc_tpu_torch.data.jpeg.decode_video_blobs`: nvJPEG and R1 on
+   the card); one that carries host uint8 ``video`` is copied over.
    Multi-sentence datasets encode every sentence but only the videos at
    the cut-off indices.
 2. Similarity: ``scale * cos(q, v)`` plus, with ``use_frame_fea``, the
@@ -21,12 +25,13 @@ token filtering.
 from __future__ import annotations
 
 import logging
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from hmmc_tpu_torch.config import TaskConfig
+from hmmc_tpu_torch.data.jpeg import decode_video_blobs
 from hmmc_tpu_torch.factory import resolve_device
 from hmmc_tpu_torch.metrics import logging_rank
 from hmmc_tpu_torch.ops import image_ops
@@ -34,11 +39,25 @@ from hmmc_tpu_torch.ops import image_ops
 logger = logging.getLogger(__name__)
 
 
-def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
+Rows = Union[np.ndarray, torch.Tensor]
+
+
+def _concat(parts) -> Rows:
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=0)
+    return np.concatenate(parts, axis=0)
+
+
+def _pad_to(x: Rows, n: int) -> Rows:
     if x.shape[0] == n:
         return x
-    pad = np.zeros((n - x.shape[0], *x.shape[1:]), x.dtype)
-    return np.concatenate([x, pad], axis=0)
+    if isinstance(x, torch.Tensor):
+        pad = x.new_zeros((n - x.shape[0], *x.shape[1:]))
+    else:
+        pad = np.zeros((n - x.shape[0], *x.shape[1:]), x.dtype)
+    return _concat([x, pad])
 
 
 def auto_video_block(arch, frames: int, budget_bytes: float = 2.5e9) -> int:
@@ -57,9 +76,10 @@ def auto_video_block(arch, frames: int, budget_bytes: float = 2.5e9) -> int:
 
 
 class _BlockedEncoder:
-    """Accumulates host rows and runs an encoder over FIXED-size blocks,
-    padding only the final partial block. Bounds the device footprint of
-    feature caching by the block size, not by the loader's batch size."""
+    """Accumulates rows (host numpy arrays, or tensors already on the
+    device) and runs an encoder over FIXED-size blocks, padding only the
+    final partial block. Bounds the encoder's footprint by the block size,
+    not by the loader's batch size."""
 
     def __init__(self, fn, block: int):
         self.fn = fn
@@ -68,11 +88,11 @@ class _BlockedEncoder:
         self.n = 0
         self.outs = []
 
-    def add(self, *arrays: np.ndarray) -> None:
+    def add(self, *arrays: Rows) -> None:
         if self.bufs is None:
             self.bufs = [[] for _ in arrays]
         for buf, a in zip(self.bufs, arrays):
-            buf.append(np.asarray(a))
+            buf.append(a if isinstance(a, torch.Tensor) else np.asarray(a))
         self.n += arrays[0].shape[0]
         while self.n >= self.block:
             self._compact()
@@ -83,8 +103,7 @@ class _BlockedEncoder:
             self.n -= self.block
 
     def _compact(self) -> None:
-        self._cat = [b[0] if len(b) == 1 else np.concatenate(b, axis=0)
-                     for b in self.bufs]
+        self._cat = [_concat(b) for b in self.bufs]
 
     def _run(self, blk, n_valid: int) -> None:
         out = self.fn(*blk)
@@ -134,9 +153,25 @@ class Evaluator:
     def _encode_text(self, ids: np.ndarray) -> np.ndarray:
         return self.model.encode_text(self._to_device(ids).long()).cpu().numpy()
 
-    def _encode_video(self, video_u8: np.ndarray):
-        video = image_ops.normalize(image_ops.to_float(
-            self._to_device(video_u8)))
+    @property
+    def resolution(self) -> int:
+        return self.task.image_resolution or self.model.arch.image_resolution
+
+    def frames(self, batch, keep=None) -> Rows:
+        """A loader batch's uint8 frames [B, F, S, S, 3] (only the clips in
+        ``keep``, if given): its ``video_blobs`` decoded on this device, or
+        its host ``video``."""
+        if "video_blobs" in batch:
+            blobs = batch["video_blobs"]
+            if keep is not None:
+                blobs = [blobs[i] for i in keep]
+            return decode_video_blobs(blobs, self.resolution, self.device)
+        return batch["video"] if keep is None else batch["video"][keep]
+
+    def _encode_video(self, video_u8: Rows):
+        if not isinstance(video_u8, torch.Tensor):
+            video_u8 = self._to_device(video_u8)
+        video = image_ops.normalize(image_ops.to_float(video_u8))
         v, f = self.model.encode_video(video)
         return v.cpu().numpy(), f.cpu().numpy()
 
@@ -168,10 +203,10 @@ class Evaluator:
                 s_ = total_video
                 keep = [i - s_ for i in cut_off if s_ <= i < s_ + n]
                 if keep:
-                    v_enc.add(batch["video"][keep])
+                    v_enc.add(self.frames(batch, keep))
                 total_video += n
             else:
-                v_enc.add(batch["video"])
+                v_enc.add(self.frames(batch))
         (q,) = q_enc.finish()
         v, f = v_enc.finish()
         return q, v, f, multi, cut_off

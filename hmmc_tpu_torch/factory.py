@@ -2,18 +2,25 @@
 
 :func:`build_model` builds the retrieval ``BirdModel`` with seeded random
 weights drawn on the CPU from an explicit ``torch.Generator`` (so a seed
-gives the same weights on every device), then moves it to the device.
-Loading CLIP or HMMC checkpoints is not ported yet.
+gives the same weights on every device), overlays an HMMC checkpoint
+(``pytorch_model.bin.N``, ``--init_model``) where one is given, then moves
+it to the device. OpenAI CLIP ``.pt`` archives (``--clip_model``) and Orbax
+directories are not read yet.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import Optional
 
 import torch
 
 from hmmc_tpu_torch.config import ClipArch, CrossConfig, TaskConfig
 from hmmc_tpu_torch.models.retrieval import BirdModel
+from hmmc_tpu_torch.train import checkpoint
+
+logger = logging.getLogger(__name__)
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -33,10 +40,14 @@ def resolve_device(device=None) -> torch.device:
 
 def build_model(task: TaskConfig, cross: CrossConfig,
                 arch: Optional[ClipArch] = None, device=None,
-                generator: Optional[torch.Generator] = None) -> BirdModel:
+                generator: Optional[torch.Generator] = None,
+                init_model_path: Optional[str] = None) -> BirdModel:
     """A ``BirdModel`` in eval mode on ``device`` with weights drawn from
-    ``generator`` (a CPU generator; default: seeded with ``task.seed``).
-    ``arch`` defaults to ``cross.pretrained_clip_name``."""
+    ``generator`` (a CPU generator; default: seeded with ``task.seed``),
+    then overlaid by the checkpoint at ``init_model_path`` with the JAX
+    factory's semantics (gamma/beta remapped; keys the file lacks keep
+    their init and are logged). ``arch`` defaults to
+    ``cross.pretrained_clip_name``."""
     task.validate()
     device = resolve_device(device)
     if arch is None:
@@ -48,4 +59,12 @@ def build_model(task: TaskConfig, cross: CrossConfig,
     if generator is None:
         generator = torch.Generator().manual_seed(task.seed)
     model.reset_parameters(generator)
+    if init_model_path:
+        if os.path.isdir(init_model_path):
+            raise NotImplementedError(
+                f"{init_model_path} is a directory: Orbax checkpoints are "
+                "not read by the port; pass a pytorch_model.bin.N file")
+        checkpoint.merge_into(model, checkpoint.remap_gamma_beta(
+            checkpoint.load_torch_state_dict(init_model_path)), logger)
+        logger.info("loaded checkpoint %s", init_model_path)
     return model.to(device).eval()

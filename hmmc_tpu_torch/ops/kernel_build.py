@@ -26,6 +26,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+# libraries a source links against, from the CUDA toolkit beside nvcc
+LINK_LIBS = {"jpeg_decode": ("nvjpeg",)}
 
 
 def find_nvcc() -> str:
@@ -49,13 +51,25 @@ def find_nvcc() -> str:
         "CUDA kernels are built from hmmc_tpu_torch/csrc at first use")
 
 
+def _flags(name: str, nvcc: str) -> List[str]:
+    """nvcc's flags for ``name``: the common ones, then its libraries with
+    the toolkit's library directory as their run path."""
+    libs = LINK_LIBS.get(name, ())
+    if not libs:
+        return list(NVCC_FLAGS)
+    lib_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.realpath(nvcc))), "lib64")
+    return [*NVCC_FLAGS, f"-L{lib_dir}", f"-Xlinker=-rpath={lib_dir}",
+            *(f"-l{lib}" for lib in libs)]
+
+
 def _target(name: str, nvcc: str) -> Path:
     """The library's path, keyed by the source, every header in ``csrc/``
     (a source may include any of them), the flags and the compiler."""
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
-    h.update("\0".join((nvcc,) + NVCC_FLAGS).encode())
+    h.update("\0".join([nvcc] + _flags(name, nvcc)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -76,7 +90,8 @@ def build(names: List[str]) -> Dict[str, dict]:
                           "cached": True, "ptxas": []}
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name, nvcc), "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, target, time.perf_counter())

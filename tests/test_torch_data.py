@@ -1,0 +1,686 @@
+"""Port frame-store data path and CLI (hmmc_tpu_torch.data, runner, cli)
+against the JAX package, on the CPU.
+
+Inputs are made with numpy from a seed (frames encoded to JPEG by PIL, or
+the committed fixture's cv2 JPEGs). What is held to what:
+- FramePack files written by either package read in the other, byte for
+  byte; the port's reader survives 8 threads reading a cold reader at once;
+- ``sample_frame_indices``, the MSR-VTT datasets' items (ids, masks,
+  nframes, idx, and the frames once decoded), the CSV rows and
+  ``BatchLoader``'s order, shards and skips are equal to the JAX
+  package's;
+- R1's plain version (``resize_crop_reference``) is bitwise equal to PIL's
+  bicubic resize and crop; the port's CPU decode (PIL, then R1's plain
+  version) gives the JAX ``FrameSource``'s frames bit for bit;
+- the CLI fine-tune from a checkpoint that the JAX package wrote: the
+  displayed losses (printed to 4 decimals) within 1e-4 of the JAX run's
+  (fp32, the same weights and batches; the train step's own parity is
+  1e-4, tests/test_torch_train.py), and the epoch-end rank metrics equal;
+  the port's ``pytorch_model.bin.0`` reloads to the same metrics and loads
+  in the JAX package with the same keys.
+
+The ``gpu`` tests hold R1's kernel to its plain version bitwise and the
+nvJPEG decode to the fixture's PIL decodes on the card; they import no JAX
+and no PIL (run them with ``pytest --noconftest -m gpu``).
+"""
+
+import io
+import json
+import logging
+import os
+import re
+import threading
+import zipfile
+
+import numpy as np
+import pytest
+import torch
+
+from hmmc_tpu_torch import cli as pcli
+from hmmc_tpu_torch import config as pconfig
+from hmmc_tpu_torch import runner as prunner
+from hmmc_tpu_torch.data import datasets as pds
+from hmmc_tpu_torch.data import framepack as pfp
+from hmmc_tpu_torch.data import jpeg
+from hmmc_tpu_torch.data.loader import BatchLoader
+from hmmc_tpu_torch.data.sampling import sample_frame_indices
+from hmmc_tpu_torch.ops.resize_crop import (FORMATS, SAMPLING, YccFrame,
+                                            output_size, resize_crop,
+                                            resize_crop_reference,
+                                            ycc_to_rgb_reference)
+from hmmc_tpu_torch.train import checkpoint as pckpt
+
+try:  # the reference; the card's machine has no JAX and runs the gpu tests
+    import hmmc_tpu.config as jconfig
+    from hmmc_tpu.data import datasets as jds
+    from hmmc_tpu.data import framepack as jfp
+    from hmmc_tpu.data import loader as jloader
+    from hmmc_tpu.data import sampling as jsampling
+except ImportError:
+    jconfig = None
+
+FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "hmmc_tpu_torch", "assets",
+    "frames_fixture.npz")
+# nvJPEG's planes through R1's libjpeg upsampling and colour conversion
+# against PIL (libjpeg) on the fixture: only the IDCTs differ, measured on
+# the H100 at most 3 levels, mean 0.04; the limits sit above that
+DECODE_MAX_ABS, DECODE_MEAN_ABS = 8, 0.25
+
+
+@pytest.fixture
+def reference(request):
+    if jconfig is None:
+        pytest.skip("needs hmmc_tpu (the reference)")
+
+
+def _jpeg(arr, quality=90):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="JPEG", quality=quality)
+    return buf.getvalue()
+
+
+def _image(rng, w, h):
+    """Smooth gradient + a hard-edged block + noise: image-like."""
+    y, x = np.mgrid[0:h, 0:w]
+    img = np.stack([x * 255 // max(w - 1, 1), y * 255 // max(h - 1, 1),
+                    (x + y) * 127 // max(w + h - 2, 1)], -1).astype(np.int32)
+    img[h // 4:h // 2, w // 3:2 * w // 3] = rng.integers(0, 256, 3)
+    img += rng.integers(-4, 5, size=img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _pil_crop(arr, res):
+    from PIL import Image
+
+    img = Image.fromarray(arr)
+    nw, nh = output_size(img.size[0], img.size[1], res)
+    img = img.resize((nw, nh), Image.BICUBIC)
+    left, top = (nw - res) // 2, (nh - res) // 2
+    return np.asarray(img.crop((left, top, left + res, top + res)))
+
+
+def _fixture():
+    z = np.load(FIXTURE)
+    n = len(z["sizes"])
+    return ([z[f"blob_{i}"].tobytes() for i in range(n)],
+            [z[f"rgb_{i}"] for i in range(n)],
+            [z[f"crop_{i}"] for i in range(n)])
+
+
+# ---------------------------------------------------------------------------
+# R1's plain version against PIL; the fixture
+# ---------------------------------------------------------------------------
+
+R1_SWEEP = [(341, 256), (256, 341), (320, 240), (640, 360), (1280, 720),
+            (224, 224), (160, 120), (33, 57), (57, 33), (31, 31), (300, 17),
+            (17, 300), (225, 224), (224, 500), (35, 1)]
+
+
+@pytest.mark.parametrize("res", [32, 224])
+def test_resize_crop_reference_equals_pil(res):
+    rng = np.random.default_rng(res)
+    for w, h in R1_SWEEP:
+        arr = _image(rng, w, h)
+        got = resize_crop_reference(torch.from_numpy(arr)[None], res)[0]
+        np.testing.assert_array_equal(got.numpy(), _pil_crop(arr, res),
+                                      err_msg=f"{w}x{h} -> {res}")
+
+
+@pytest.mark.parametrize("w,h,sampling", [
+    (64, 48, "420"), (61, 45, "420"), (77, 39, "420"), (341, 256, "420"),
+    (255, 171, "420"), (4, 24, "420"), (64, 48, "444"), (37, 29, "444"),
+    (64, 48, "422"), (61, 45, "422"), (325, 243, "422"), (4, 24, "422"),
+    (64, 48, "440"), (61, 45, "440"), (243, 325, "440"), (64, 48, "411"),
+    (77, 39, "411")])
+def test_ycc_to_rgb_reference_equals_libjpeg(w, h, sampling):
+    """R1's stage 0 against PIL's libjpeg, at every sampling libjpeg
+    upsamples its own way (fancy h2v2, h2v1, h1v2; replication for 4:4:4,
+    4:1:1 and chroma 2 samples wide). The JPEG (cv2, quality 100) holds
+    32x32 blocks of one colour, so every 8x8 block of every component
+    decodes flat and the components can be read back exactly: Y from a
+    YCbCr decode, each chroma sample at its colour block's centre.
+    libjpeg's fancy upsampling still blends at the block edges."""
+    import cv2
+    from PIL import Image
+
+    rng = np.random.default_rng(w * h)
+    cols = rng.integers(0, 256, size=(-(-h // 32), -(-w // 32), 3),
+                        dtype=np.uint8)
+    rgb = np.repeat(np.repeat(cols, 32, 0), 32, 1)[:h, :w]
+    factor = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")
+    ok, enc = cv2.imencode(".jpg", rgb[..., ::-1], [
+        cv2.IMWRITE_JPEG_QUALITY, 100, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+        factor])
+    assert ok
+    blob = enc.tobytes()
+    ref = np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))
+    im = Image.open(io.BytesIO(blob))
+    im.draft("YCbCr", im.size)
+    ycc = np.asarray(im)
+    assert im.mode == "YCbCr"
+    hf, vf = {"420": (2, 2), "444": (1, 1), "422": (2, 1), "440": (1, 2),
+              "411": (4, 1)}[sampling]
+    ry = np.minimum(np.arange(-(-h // vf)) * vf // 32 * 32 + 16, h - 1)
+    rx = np.minimum(np.arange(-(-w // hf)) * hf // 32 * 32 + 16, w - 1)
+    chroma = ycc[ry][:, rx]
+    frame = YccFrame(*(torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        ycc[..., 0], chroma[..., 1], chroma[..., 2])))
+    assert frame.fmt == FORMATS[f"ycc{sampling}"]
+    np.testing.assert_array_equal(ycc_to_rgb_reference(frame).numpy(), ref)
+    gray = YccFrame(torch.from_numpy(np.ascontiguousarray(ycc[..., 0])))
+    np.testing.assert_array_equal(
+        ycc_to_rgb_reference(gray).numpy(), np.repeat(ycc[..., :1], 3, -1))
+    # through R1 (the plain route on the CPU): the same crops as on RGB
+    np.testing.assert_array_equal(
+        resize_crop([frame], 32)[0].numpy(), _pil_crop(ref, 32))
+
+
+def test_resize_crop_batches_sizes_and_padded_slots():
+    rng = np.random.default_rng(1)
+    arrs = [_image(rng, w, h) for w, h in ((40, 30), (30, 40), (64, 64))]
+    frames = [torch.from_numpy(a) for a in arrs]
+    out = resize_crop([frames[0], None, frames[1], frames[2], None], 32)
+    assert out.shape == (5, 32, 32, 3) and out.dtype == torch.uint8
+    for i, a in zip((0, 2, 3), arrs):
+        np.testing.assert_array_equal(out[i].numpy(), _pil_crop(a, 32))
+    assert int(out[[1, 4]].sum()) == 0
+    with pytest.raises(TypeError, match="uint8"):
+        resize_crop([frames[0].float()], 32)
+
+
+def test_fixture_holds_pil_decodes_and_jax_crops(reference):
+    from PIL import Image
+
+    blobs, rgb, crops = _fixture()
+    assert os.path.getsize(FIXTURE) <= 4 * 2 ** 20 and len(blobs) == 14
+    for b, r, c in zip(blobs, rgb, crops):
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(io.BytesIO(b)).convert("RGB")), r)
+        np.testing.assert_array_equal(jds._decode_eval(b, 224), c)
+    np.testing.assert_array_equal(
+        jpeg.decode_frames(blobs, 224, "cpu").numpy(), np.stack(crops))
+
+
+def test_corrupt_blob_zero_filled_with_warning_in_both(reference, caplog):
+    good = _fixture()[0][0]
+    before = jpeg.decode_frames.decode_failures
+    with caplog.at_level(logging.WARNING):
+        out = jpeg.decode_frames([good, b"\xff\xd8 not a jpeg"], 32, "cpu")
+        ref = jds._decode_eval(b"\xff\xd8 not a jpeg", 32)
+    assert int(out[1].sum()) == 0 and int(np.abs(ref).sum()) == 0
+    np.testing.assert_array_equal(out[0].numpy(), jds._decode_eval(good, 32))
+    assert jpeg.decode_frames.decode_failures == before + 1
+    assert caplog.text.count("corrupt JPEG frame (zero-filled)") == 2
+
+
+# ---------------------------------------------------------------------------
+# FramePack and sampling
+# ---------------------------------------------------------------------------
+
+def _blob_videos(rng, n_videos=5, frames=4):
+    return {f"video{i}": [rng.bytes(int(rng.integers(1, 300)))
+                          for _ in range(frames)] for i in range(n_videos)}
+
+
+def test_framepack_files_cross_read(reference, tmp_path):
+    rng = np.random.default_rng(2)
+    videos = _blob_videos(rng)
+    for writer, reader in ((pfp.FramePackWriter, jfp.FramePackReader),
+                           (jfp.FramePackWriter, pfp.FramePackReader)):
+        path = str(tmp_path / f"{writer.__module__}.fpk")
+        with writer(path) as w:
+            for vid, blobs in videos.items():
+                w.add_video(vid, blobs)
+            w.set_metadata(num_frames=4, source="test")
+        r = reader(path)
+        assert sorted(r.video_ids()) == sorted(videos)
+        assert r.metadata == {"num_frames": 4, "source": "test"}
+        for vid, blobs in videos.items():
+            assert r.num_frames(vid) == len(blobs)
+            assert [bytes(b) for b in r.get_frames(vid, [3, 0, 2])] == \
+                [blobs[3], blobs[0], blobs[2]]
+            assert bytes(r.get_frame(vid, 1)) == blobs[1]
+        r.close()
+    a, b = (open(str(tmp_path / f"{w.__module__}.fpk"), "rb").read()
+            for w in (pfp.FramePackWriter, jfp.FramePackWriter))
+    assert a == b
+
+
+def test_framepack_cold_reads_from_8_threads(tmp_path):
+    """The first map of a reader, raced by 8 threads, 50 times over (with
+    a short switch interval, so the threads interleave inside it)."""
+    import sys
+
+    rng = np.random.default_rng(3)
+    videos = _blob_videos(rng, n_videos=16, frames=6)
+    path = str(tmp_path / "f.fpk")
+    with pfp.FramePackWriter(path) as w:
+        for vid, blobs in videos.items():
+            w.add_video(vid, blobs)
+    errors, done = [], []
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for _ in range(50):
+            reader = pfp.FramePackReader(path)
+            start = threading.Barrier(8)
+
+            def read():
+                try:
+                    start.wait(timeout=30)
+                    for vid, blobs in videos.items():
+                        got = [bytes(b)
+                               for b in reader.get_frames(vid, range(6))]
+                        assert got == blobs
+                    done.append(1)
+                except Exception as e:       # collected, raised below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=read) for _ in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+                assert not t.is_alive()
+            reader.close()
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors, errors[:3]
+    assert len(done) == 50 * 8
+
+
+def test_open_frame_store_refuses_other_stores(tmp_path):
+    path = tmp_path / "lmdb"
+    path.mkdir()
+    with pytest.raises(ValueError, match="LMDB"):
+        pfp.open_frame_store(str(path))
+
+
+@pytest.mark.parametrize("strategy", ["uniform", "random", "uniform_random"])
+def test_sample_frame_indices_equal(reference, strategy):
+    for stored in (1, 3, 12, 30, 48):
+        for want in (1, 5, 12, 40):
+            for seed in (0, 7):
+                got = sample_frame_indices(stored, want, strategy,
+                                           np.random.default_rng(seed))
+                ref = jsampling.sample_frame_indices(
+                    stored, want, strategy, np.random.default_rng(seed))
+                np.testing.assert_array_equal(got, ref)
+                assert got.dtype == ref.dtype
+
+
+# ---------------------------------------------------------------------------
+# FrameSource, datasets, CSV, loader
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def msrvtt_root(tmp_path_factory):
+    """Six videos of 5 stored fixture JPEGs (varied sizes), a 6-row test
+    CSV with awkward sentences, a 4-video train CSV, 2 captions each."""
+    root = tmp_path_factory.mktemp("msrvtt_data")
+    blobs = _fixture()[0]
+    vids = [f"video{7010 + i}" for i in range(6)]
+    with pfp.FramePackWriter(str(root / "frames.fpk")) as w:
+        for i, vid in enumerate(vids):
+            w.add_video(vid, [blobs[(i + j) % len(blobs)] for j in range(5)])
+    m = root / "msrvtt"
+    m.mkdir()
+    sentences = ['a man, "quoted", sings', "123", "ünïcödé café",
+                 "two  spaces", "1.5e3", "a dog runs"]
+    with open(m / "MSRVTT_JSFUSION_test.1k.csv", "w", newline="") as f:
+        import csv
+
+        wr = csv.writer(f)
+        wr.writerow(["key", "vid_key", "video_id", "sentence"])
+        for i, (vid, s) in enumerate(zip(vids, sentences)):
+            wr.writerow([f"ret{i}", f"msr{7010 + i}", vid, s])
+    (m / "MSRVTT_train.9k.csv").write_text(
+        "video_id\n" + "\n".join(vids[:4]) + "\n")
+    (m / "MSRVTT_data.json").write_text(json.dumps({"sentences": [
+        {"video_id": v, "caption": f"clip {v} caption {j}"}
+        for v in vids for j in range(2)]}))
+    return str(root)
+
+
+def test_csv_rows_match_pandas(reference, msrvtt_root):
+    import pandas as pd
+
+    path = os.path.join(msrvtt_root, "msrvtt", "MSRVTT_JSFUSION_test.1k.csv")
+    rows, df = pds.read_csv(path), pd.read_csv(path)
+    assert list(rows[0]) == list(df.columns)
+    for col in df.columns:       # pandas keeps these columns as strings
+        assert all(isinstance(v, str) for v in df[col])
+        assert [r[col] for r in rows] == list(df[col])
+
+
+@pytest.mark.parametrize("res", [32, 224])
+def test_frame_source_frames_equal_jax(reference, msrvtt_root, res):
+    store = os.path.join(msrvtt_root, "frames.fpk")
+    src = pds.FrameSource(store, resolution=res)
+    ref = jds.FrameSource(store, mode="eval", resolution=res,
+                          use_native=False)
+    for vid in ("video7010", "video7013"):
+        assert src.stored_frames(vid) == ref.stored_frames(vid) == 5
+        np.testing.assert_array_equal(src.load(vid, [4, 0, 2]),
+                                      ref.load(vid, [4, 0, 2]))
+    blobs, nframes = pds._get_video(src, "video7012", 3, 5, "uniform", None)
+    frames, jn = jds._get_video(ref, "video7012", 3, 5, "uniform", None)
+    assert nframes == jn == 3 and blobs[3:] == [None, None]
+    np.testing.assert_array_equal(
+        jpeg.decode_frames(blobs, res, "cpu").numpy(), frames)
+
+
+def _tokenizers():
+    from hmmc_tpu.tokenization import ClipTokenizer as JaxTok
+
+    from hmmc_tpu_torch.tokenization import ClipTokenizer
+
+    return ClipTokenizer(), JaxTok()
+
+
+def _assert_items_equal(item, ref, res):
+    for k in ("query_ids", "query_mask", "nframes", "idx"):
+        np.testing.assert_array_equal(item[k], ref[k])
+        assert np.asarray(item[k]).dtype == np.asarray(ref[k]).dtype
+    np.testing.assert_array_equal(
+        jpeg.decode_frames(item["video_blobs"], res, "cpu").numpy(),
+        ref["video"])
+
+
+def test_msrvtt_datasets_items_equal_jax(reference, msrvtt_root):
+    tok, jtok = _tokenizers()
+    store = os.path.join(msrvtt_root, "frames.fpk")
+    base = os.path.join(msrvtt_root, "msrvtt")
+    res, kw = 32, dict(max_words=16, max_frames=6)
+    ev = pds.MsrvttEvalDataset(
+        pds.FrameSource(store, resolution=res),
+        os.path.join(base, "MSRVTT_JSFUSION_test.1k.csv"), tok, **kw)
+    jev = jds.MsrvttEvalDataset(
+        jds.FrameSource(store, resolution=res, use_native=False),
+        os.path.join(base, "MSRVTT_JSFUSION_test.1k.csv"), jtok, **kw)
+    assert len(ev) == len(jev) == 6
+    for i in range(6):
+        _assert_items_equal(ev[i], jev[i], res)
+    args = (os.path.join(base, "MSRVTT_train.9k.csv"),
+            os.path.join(base, "MSRVTT_data.json"))
+    tr = pds.MsrvttTrainDataset(pds.FrameSource(store, resolution=res),
+                                *args, tok, **kw, frame_sample="random")
+    jtr = jds.MsrvttTrainDataset(
+        jds.FrameSource(store, resolution=res, use_native=False), *args,
+        jtok, **kw, frame_sample="random")
+    assert tr.samples == jtr.samples and len(tr) == 8
+    for seed, epoch in ((42, 0), (42, 1), (3, 2)):
+        tr.set_epoch(epoch, seed=seed)
+        jtr.set_epoch(epoch, seed=seed)
+        for i in (0, 5, 7):
+            _assert_items_equal(tr[i], jtr[i], res)
+
+
+class _Indexed:
+    """Samples that only say which index they are."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return {"idx": np.int32(i), "video_blobs": [b"%d" % i, None]}
+
+
+@pytest.mark.parametrize("shuffle,drop_last,count", [
+    (False, False, 1), (True, True, 1), (True, False, 2), (True, True, 2)])
+def test_batch_loader_order_shards_and_skips_equal(reference, shuffle,
+                                                   drop_last, count):
+    for index in range(count):
+        for epoch in (0, 3):
+            for skip in (0, 1):
+                loaders = []
+                for cls in (BatchLoader, jloader.BatchLoader):
+                    ld = cls(_Indexed(23), batch_size=6, shuffle=shuffle,
+                             drop_last=drop_last, num_workers=3, seed=5,
+                             process_index=index, process_count=count)
+                    ld.set_epoch(epoch)
+                    ld.skip_batches(skip)
+                    loaders.append(ld)
+                got = [b["idx"].tolist() for b in loaders[0]]
+                ref = [b["idx"].tolist() for b in loaders[1]]
+                assert got == ref and len(loaders[0]) == len(loaders[1])
+    batch = next(iter(BatchLoader(_Indexed(4), batch_size=3)))
+    assert batch["video_blobs"] == [[b"0", None], [b"1", None], [b"2", None]]
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and the CLI
+# ---------------------------------------------------------------------------
+
+TINY_NAME = "ViT-Test/16"
+TINY_ARCH = dict(
+    embed_dim=32, image_resolution=32, vision_layers=2, vision_width=64,
+    vision_patch_size=16, context_length=64, vocab_size=49408,
+    transformer_width=32, transformer_heads=2, transformer_layers=2)
+N_VIDEOS, FRAMES_STORED = 12, 4
+
+
+@pytest.fixture(scope="module")
+def tiny_arch():
+    pconfig.CLIP_ARCH[TINY_NAME] = TINY_ARCH
+    if jconfig is not None:
+        jconfig.CLIP_ARCH[TINY_NAME] = TINY_ARCH
+    yield
+    pconfig.CLIP_ARCH.pop(TINY_NAME, None)
+    if jconfig is not None:
+        jconfig.CLIP_ARCH.pop(TINY_NAME, None)
+
+
+@pytest.fixture(scope="module")
+def cli_layout(tmp_path_factory):
+    """The MSR-VTT layout of tests/test_cli_smoke.py: 12 videos of 4
+    random 40x40 JPEGs, one test sentence and two train captions each; and
+    the tiny cross config."""
+    root = tmp_path_factory.mktemp("cli_data")
+    rng = np.random.default_rng(0)
+    with pfp.FramePackWriter(str(root / "frames.fpk")) as w:
+        for i in range(N_VIDEOS):
+            w.add_video(f"video{i}", [_jpeg(rng.integers(
+                0, 255, size=(40, 40, 3), dtype=np.uint8), quality=75)
+                for _ in range(FRAMES_STORED)])
+    m = root / "msrvtt"
+    m.mkdir()
+    vids = [f"video{i}" for i in range(N_VIDEOS)]
+    (m / "MSRVTT_JSFUSION_test.1k.csv").write_text(
+        "video_id,sentence\n" + "".join(
+            f"{v},test sentence {i}\n" for i, v in enumerate(vids)))
+    (m / "MSRVTT_train.9k.csv").write_text("video_id\n" + "\n".join(vids))
+    (m / "MSRVTT_data.json").write_text(json.dumps({
+        "sentences": [{"video_id": v, "caption": f"a clip about {v} "
+                       f"number {j}"} for v in vids for j in range(2)]}))
+    cross = root / "cross-tiny.json"
+    cross.write_text(json.dumps({
+        "pretrained_clip_name": TINY_NAME, "temporal_hidden_size": 32,
+        "temporal_attention_heads": 2, "temporal_hidden_layers": 2,
+        "max_position_embeddings": 8}))
+    return str(root), str(cross)
+
+
+def _argv(data_dir, cross, out, extra=()):
+    return ["--output_dir", out, "--data_dir", data_dir,
+            "--cross_model", cross, "--dataset", "msrvtt",
+            "--language", "english", "--use_temp", "--use_frame_fea",
+            "--max_words", "16", "--max_frames", "4", "--batch_size", "8",
+            "--batch_size_val", "8", "--epochs", "1",
+            "--num_thread_reader", "1", "--n_display", "1",
+            "--compute_dtype", "float32", *extra]
+
+
+LOSS_LINE = re.compile(r"epoch (\d+) step (\d+) lr \S+ loss ([0-9.]+)")
+
+
+def _losses(out_dir):
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        return [(int(e), int(s), float(v))
+                for e, s, v in LOSS_LINE.findall(f.read())]
+
+
+def test_cli_finetune_matches_jax_and_reloads(reference, tiny_arch,
+                                              cli_layout, tmp_path):
+    import jax
+
+    from hmmc_tpu import factory as jfactory
+    from hmmc_tpu.cli import get_args as jax_args
+    from hmmc_tpu.runner import run_finetune as jax_run_finetune
+    from hmmc_tpu.train.checkpoint import load_torch_state_dict
+    from hmmc_tpu.train.orbax_io import save_reference_checkpoint
+
+    data_dir, cross = cli_layout
+    # one starting point for both: a checkpoint the JAX package writes
+    jtask = jconfig.TaskConfig(do_train=True, max_frames=4, max_words=16,
+                               compute_dtype="float32")
+    _, variables = jfactory.build_model(jtask,
+                                        jconfig.load_cross_config(cross))
+    init = str(tmp_path / "init.bin")
+    save_reference_checkpoint(init, variables["params"])
+    extra = ("--do_train", "--init_model", init)
+
+    jax_out = str(tmp_path / "jax")
+    jax_metrics = jax_run_finetune(jax_args(argv=_argv(data_dir, cross,
+                                                       jax_out, extra)))
+    out = str(tmp_path / "port")
+    run = prunner.run_finetune(pcli.get_args(argv=_argv(data_dir, cross, out,
+                                                        extra)), device="cpu")
+    assert jax.default_backend() == "cpu"
+    got, ref = _losses(out), _losses(jax_out)
+    assert [r[:2] for r in got] == [r[:2] for r in ref] == \
+        [(0, 1), (0, 2), (0, 3)]
+    assert max(abs(a[2] - b[2]) for a, b in zip(got, ref)) <= 1e-4 + 1e-9
+    assert run.best_metrics == jax_metrics and len(run.epoch_metrics) == 1
+
+    saved = os.path.join(out, "pytorch_model.bin.0")
+    again = prunner.main(pcli.get_args(argv=_argv(
+        data_dir, cross, str(tmp_path / "eval"),
+        ("--do_eval", "--init_model", saved))), device="cpu")
+    assert again == run.best_metrics
+    assert set(load_torch_state_dict(saved)) == set(
+        run.state.model.state_dict()) == set(load_torch_state_dict(init))
+
+
+def test_checkpoint_refuses_torchscript_and_merges_by_name(tmp_path):
+    scripted = torch.jit.script(torch.nn.Linear(2, 2))
+    path = str(tmp_path / "clip.pt")
+    scripted.save(path)
+    assert zipfile.is_zipfile(path)
+    with pytest.raises(NotImplementedError, match="--clip_model"):
+        pckpt.load_torch_state_dict(path)
+    model = torch.nn.Linear(2, 3)
+    sd = pckpt.remap_gamma_beta({"gamma": torch.ones(3, 2),
+                                 "extra": torch.zeros(1)})
+    pckpt.merge_into(model, sd)
+    assert torch.equal(model.weight, torch.ones(3, 2))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        pckpt.merge_into(model, {"bias": torch.zeros(4)})
+
+
+def test_cli_flags(tmp_path):
+    def task(*extra):
+        return pcli.to_task_config(pcli.get_args(argv=[
+            "--output_dir", str(tmp_path), "--do_eval",
+            "--language", "english", *extra]))
+
+    assert task().use_fused_attention == "on"
+    assert task("--use_pallas_attention").use_fused_attention == "on"
+    assert task("--use_pallas_attention", "off").use_fused_attention == "off"
+    assert task("--n_gpu", "4", "--local_rank", "1").dataset == "bird"
+    for flag in (["--dp_size", "2"], ["--zero_opt"], ["--multihost"],
+                 ["--sp_size", "2"], ["--fused_ema"]):
+        with pytest.raises(ValueError, match=flag[0]):
+            task(*flag)
+    with pytest.raises(NotImplementedError, match="--clip_model"):
+        task("--clip_model", "x.pt")
+    with pytest.raises(NotImplementedError, match="Queue A"):
+        pcli.make_tokenizer(pconfig.TaskConfig(language="chinese"))
+    from hmmc_tpu_torch.data.registry import get_factory
+
+    with pytest.raises(NotImplementedError, match="Queue A"):
+        get_factory("vatex", "test")
+
+
+# ---------------------------------------------------------------------------
+# on the card: R1's kernel and the nvJPEG decoder
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("res", [32, 224])
+def test_resize_crop_kernel_equals_plain_on_card(cuda, res):
+    gen = torch.Generator(device=cuda).manual_seed(res)
+
+    def u8(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda,
+                             generator=gen)
+
+    for w, h in R1_SWEEP:
+        src = u8(3, h, w, 3)
+        ycc = [YccFrame(u8(h, w), u8(-(-h // vf), -(-w // hf)),
+                        u8(-(-h // vf), -(-w // hf)))
+               for hf, vf in SAMPLING.values()]
+        ycc.append(YccFrame(u8(h, w)))                       # grayscale
+        frames = [src[0], None, src[1], *ycc, src[2]]
+        before = resize_crop.launches
+        out = resize_crop(frames, res)
+        again = resize_crop(frames, res)
+        assert resize_crop.launches == before + 2
+        assert torch.equal(out, again)
+        ref = torch.cat([resize_crop_reference(src, res)] + [
+            resize_crop_reference(ycc_to_rgb_reference(f)[None], res)
+            for f in ycc])
+        got = torch.cat([out[[0, 2, len(frames) - 1]], out[3:-1]])
+        assert torch.equal(got, ref), f"{w}x{h} -> {res}"
+        assert int(out[1].sum()) == 0
+
+
+@pytest.mark.gpu
+def test_nvjpeg_decode_matches_fixture_on_card(cuda):
+    blobs, rgb, crops = _fixture()
+    batch, buf = jpeg._decoder(cuda).decode_planes(blobs)
+    frames = jpeg.frame_views(batch, buf)
+    assert [f.fmt for f in frames] == [
+        FORMATS[f"ycc{s}"] for s in np.load(FIXTURE)["sampling"]]
+    diffs = [(ycc_to_rgb_reference(f).int().cpu()
+              - torch.from_numpy(r).int()).abs() for f, r in zip(frames, rgb)]
+    assert max(int(d.max()) for d in diffs) <= DECODE_MAX_ABS
+    assert (sum(float(d.float().sum()) for d in diffs)
+            / sum(d.numel() for d in diffs)) <= DECODE_MEAN_ABS
+    # R1 on the decoded planes against its plain version, and R1 on PIL's
+    # own pixels against PIL's crops: both exact
+    out = resize_crop(frames, 224)
+    assert torch.equal(out, torch.cat([resize_crop_reference(
+        ycc_to_rgb_reference(f)[None], 224) for f in frames]))
+    pil = resize_crop([torch.from_numpy(r).to(cuda) for r in rgb], 224)
+    assert torch.equal(pil.cpu(), torch.from_numpy(np.stack(crops)))
+
+
+@pytest.mark.gpu
+def test_decode_batch_with_padded_slots_on_card(cuda):
+    blobs = _fixture()[0]
+    dense = jpeg.decode_frames(blobs[:3], 224, cuda)
+    failures = jpeg.decode_frames.decode_failures
+    out = jpeg.decode_video_blobs([[blobs[0], None, blobs[1]],
+                                   [b"not a jpeg", blobs[2], None]],
+                                  224, cuda)
+    assert out.shape == (2, 3, 224, 224, 3) and out.device.type == "cuda"
+    assert torch.equal(out[0, 0], dense[0]) and torch.equal(out[0, 2],
+                                                            dense[1])
+    assert torch.equal(out[1, 1], dense[2])
+    assert int(out[0, 1].sum()) == int(out[1, 0].sum()) == \
+        int(out[1, 2].sum()) == 0
+    assert jpeg.decode_frames.decode_failures == failures + 1

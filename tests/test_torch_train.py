@@ -44,7 +44,7 @@ from hmmc_tpu_torch.models.retrieval import BirdModel
 from hmmc_tpu_torch.ops import image_ops
 from hmmc_tpu_torch.ops.fused_attention import (fused_attention,
                                                 fused_attention_backward)
-from hmmc_tpu_torch.runner import prepare_finetune_batch, run_finetune
+from hmmc_tpu_torch.runner import finetune, prepare_finetune_batch
 from hmmc_tpu_torch.train import optimization as opt
 from hmmc_tpu_torch.train.trainer import (FinetuneState, make_finetune_step,
                                           split_microbatches)
@@ -424,8 +424,8 @@ def test_run_finetune_on_cpu(caplog):
     evals = [_u8_batch(B, 4), _u8_batch(B, 5)]
     launches = (fused_attention.launches, fused_attention_backward.launches)
     with caplog.at_level(logging.INFO, logger="hmmc_tpu_torch.runner"):
-        run = run_finetune(task, CrossConfig(**CROSS_KW), train, evals,
-                           arch=ClipArch(**ARCH_KW), device="cpu")
+        run = finetune(task, CrossConfig(**CROSS_KW), train, evals,
+                       arch=ClipArch(**ARCH_KW), device="cpu")
     assert run.state.step == 2
     assert [r["step"] for r in run.displayed] == [1, 2]
     assert all(np.isfinite([r["loss"], r["grad_norm"]]).all()
@@ -450,8 +450,8 @@ def test_run_finetune_on_cpu(caplog):
 def test_run_finetune_needs_a_card_or_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        run_finetune(TaskConfig(), CrossConfig(**CROSS_KW), [], [],
-                     arch=ClipArch(**ARCH_KW))
+        finetune(TaskConfig(), CrossConfig(**CROSS_KW), [], [],
+                 arch=ClipArch(**ARCH_KW))
 
 
 # ---------------------------------------------------------------------------
