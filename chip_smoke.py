@@ -17,14 +17,16 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             of it achieved, the kernels' and the library call's device time
             from torch.profiler (no host gaps), the wrappers' host
             microseconds per call at the text site, two launches bitwise
-            equal;
+            equal; K1 also at one served query's text site (batch 1);
    frames   R1 (the PIL-exact resize and crop) against its plain version,
             bitwise, at the path's 768-frame block (341x256 -> 224) and at
             320x240, 256x341, 640x360, 1280x720, 224x224 and 160x120, two
             launches bitwise equal, one launch over mixed sizes and padded
-            slots; its kernel, plain and library times and bound. nvJPEG on
-            the card against the committed fixture's PIL decodes (max and
-            mean abs difference, routes), R1 on PIL's pixels against PIL's
+            slots, RGB-coded, CMYK and YCCK planes; its kernel, plain and
+            library times and bound. nvJPEG on the card against the
+            committed fixture's PIL decodes (max and mean abs difference,
+            routes; a row for each RGB-coded, CMYK and YCCK frame), R1 on
+            PIL's pixels against PIL's
             crops (bitwise), a batch with padded and corrupt slots, and
             decode + R1 of one 768-frame block (ms, frames/s);
 4. eval     the full-width ViT-B/32 BirdModel (12 frames at 224 px, 32
@@ -62,6 +64,19 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             memory; the trained model's sims from the card decode against
             those from the fixture's PIL crops of the same frames (R@1 of
             both);
+   serve    over cli's FramePack and pytorch_model.bin.0: a seeded
+            full-width ViT-B/32 CLIP archive (fp16, TorchScript, as OpenAI
+            ships it) through --do_params --clip_model (the arch from its
+            shapes, every overlaid weight against the file); --do_extract
+            over the 1000 clips, float and --quantize_bank int8 (wall,
+            clips/s, device busy and idle share; the bank's metrics against
+            cli's --do_eval); the RetrievalService answering 200 test
+            captions with host ranking and with --device_rank (p50 / p99
+            latency, K1 launches against the prediction, top-5 against
+            similarity_from_bank, device top-1 agreement, where a query's
+            time goes), one POST /search
+            round trip; --device_rank over a synthetic 1,000,000-video bank
+            against the same ranking in fp32 with torch.matmul;
 6. result   the nvidia-smi line as it prints it, the kernel table as one
             JSON line, then ``{"ok": true, "device": {...}}`` as the last.
 
@@ -76,6 +91,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,7 +111,7 @@ from hmmc_tpu_torch.factory import build_model
 from hmmc_tpu_torch.losses import finetune_retrieval_loss
 from hmmc_tpu_torch.metrics import logging_rank
 from hmmc_tpu_torch.ops import fused_attention as fa
-from hmmc_tpu_torch.ops import image_ops, kernel_build
+from hmmc_tpu_torch.ops import image_ops, kernel_build, quant
 from hmmc_tpu_torch.ops.fused_attention import (
     MAX_LEN_BWD, MAX_LEN_BWD_FP32, fused_attention, fused_attention_backward,
     fused_attention_backward_reference, fused_attention_reference,
@@ -437,7 +453,8 @@ def load_fixture():
                 blobs=[z[f"blob_{i}"].tobytes() for i in range(n)],
                 rgb=[z[f"rgb_{i}"] for i in range(n)],
                 crop=[z[f"crop_{i}"] for i in range(n)],
-                sampling=[str(s) for s in z["sampling"]])
+                sampling=[str(s) for s in z["sampling"]],
+                color=[str(c) for c in z["color"]])
 
 
 def resize_bound(n, w, h, res):
@@ -468,10 +485,11 @@ def resize_bound(n, w, h, res):
             nbytes, mads)
 
 
-def random_frames(gen, n, w, h, fmt):
+def random_frames(gen, n, w, h, fmt, color="ycc"):
     """``n`` random frames of one size on the card: RGB [H, W, 3] views of
-    one tensor, or YccFrames (gray, or YCbCr at any sampling R1 takes) of
-    random planes."""
+    one tensor, or YccFrames of random planes (gray, or three planes at any
+    sampling R1 takes holding ``color``: YCbCr, RGB as coded, or with a
+    fourth plane CMYK or YCCK)."""
     def u8(*shape):
         return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
                              generator=gen)
@@ -484,8 +502,9 @@ def random_frames(gen, n, w, h, fmt):
     hf, vf = SAMPLING[FORMATS[fmt]]
     cw, ch = -(-w // hf), -(-h // vf)
     cb, cr = u8(n, ch, cw), u8(n, ch, cw)
-    return [YccFrame(*p) for p in zip(ys.unbind(0), cb.unbind(0),
-                                      cr.unbind(0))]
+    ks = u8(n, h, w).unbind(0) if color in ("cmyk", "ycck") else [None] * n
+    return [YccFrame(*p, k, color) for p, k in zip(
+        zip(ys.unbind(0), cb.unbind(0), cr.unbind(0)), ks)]
 
 
 def r1_plain(frames):
@@ -559,6 +578,11 @@ def check_resize_crop(gen):
         frames = random_frames(gen, 2, 161, 121, fmt)
         mixed += frames
         mixed_ref += list(r1_plain(frames).unbind(0))
+    for color in ("rgb", "cmyk", "ycck"):      # planes that are not YCbCr
+        for fmt in ("ycc444", "ycc420"):
+            frames = random_frames(gen, 2, 161, 121, fmt, color)
+            mixed += frames
+            mixed_ref += list(r1_plain(frames).unbind(0))
     out = resize_crop(mixed, RES)
     torch.cuda.synchronize()
     ok_mixed = bool(torch.equal(out, torch.stack(mixed_ref)))
@@ -587,19 +611,47 @@ def check_decoder(smi):
     frames = jpeg.frame_views(batch, buf)
     crops = jpeg.decode_frames(fx["blobs"], RES, dev)
     plain = torch.cat([resize_crop_reference(ycc_to_rgb_reference(f)[None],
-                                             RES) for f in frames])
+                                             RES) if f is not None
+                       else torch.zeros((1, RES, RES, 3), dtype=torch.uint8,
+                                        device=dev) for f in frames])
     pil_r1 = resize_crop([torch.from_numpy(a).to(dev) for a in fx["rgb"]],
                          RES)
     torch.cuda.synchronize()
     routes = dict(jpeg.decode_frames.routes)
     formats = dict(jpeg.decode_frames.formats)
-    formats_ok = [f.fmt for f in frames] == [FORMATS[f"ycc{s}"]
-                                             for s in fx["sampling"]]
+    colors = dict(jpeg.decode_frames.colors)
+    formats_ok = ([f.fmt for f in frames] == [FORMATS[f"ycc{s}"]
+                                              for s in fx["sampling"]]
+                  and [getattr(f, "color", None) for f in frames]
+                  == fx["color"])
+    # a frame nvJPEG failed on is a padded slot: 255 levels off everywhere
     full = [(ycc_to_rgb_reference(f).int().cpu()
-             - torch.from_numpy(a).int()).abs()
+             - torch.from_numpy(a).int()).abs() if f is not None
+            else torch.full(a.shape, 255, dtype=torch.int32)
             for f, a in zip(frames, fx["rgb"])]
     crop = (crops.int().cpu() - torch.from_numpy(np.stack(fx["crop"])).int()
             ).abs()
+    # the frames whose planes are not YCbCr (RGB-coded, CMYK, YCCK), each
+    # against PIL within the fixture's tolerance, and the routes of a
+    # batch of four YCbCr frames and that one
+    for i, color in enumerate(fx["color"]):
+        if color == "ycc":
+            continue
+        jpeg.reset_counters()
+        dec.decode_planes(fx["blobs"][:4] + [fx["blobs"][i]])
+        emit(dict(phase="frames", check=f"nvjpeg decoder, {color} JPEG",
+                  routes_in_a_batch_of_ycc=dict(jpeg.decode_frames.routes),
+                  size=list(fx["sizes"][i]), sampling=fx["sampling"][i],
+                  color_as_coded=getattr(frames[i], "color", None),
+                  full_res_max_abs_diff=float(full[i].max()),
+                  full_res_mean_abs_diff=float(full[i].float().mean()),
+                  crop_max_abs_diff=float(crop[i].max()),
+                  crop_mean_abs_diff=float(crop[i].float().mean()),
+                  max_abs_tolerance=DECODE_MAX_ABS,
+                  mean_abs_tolerance=DECODE_MEAN_ABS,
+                  ok=bool(float(full[i].max()) <= DECODE_MAX_ABS
+                          and float(full[i].float().mean())
+                          <= DECODE_MEAN_ABS), card=smi))
     r1_equal = bool(torch.equal(pil_r1.cpu(),
                                 torch.from_numpy(np.stack(fx["crop"]))))
     r1_planes_equal = bool(torch.equal(crops, plain))
@@ -633,7 +685,8 @@ def check_decoder(smi):
     r1_ms = cuda_ms(lambda: launch(block_batch, RES, dev), 10)
     row = dict(phase="frames", check="nvjpeg decoder",
                hardware_backend=dec.hardware, routes_fixture=routes,
-               formats_fixture=formats, fixture_sampling=fx["sampling"],
+               formats_fixture=formats, colors_fixture=colors,
+               fixture_sampling=fx["sampling"], fixture_color=fx["color"],
                formats_as_encoded=formats_ok,
                routes_block_runs=dict(jpeg.decode_frames.routes),
                full_res_max_abs_diff=max(float(d.max()) for d in full),
@@ -1244,7 +1297,7 @@ def loss_along_update(task, cross, ckpt, tok, arch):
     return out
 
 
-def cli_phase(seed, smi, cross_model="cross-base"):
+def cli_phase(root, seed, smi, cross_model="cross-base"):
     """Phase cli: ``runner.main(cli.get_args([...]))`` fine-tunes the
     full-width ViT-B/32 from a FramePack (2 steps of 256 in 4 micro-batches,
     then the epoch-end eval on 1000 clips, ``pytorch_model.bin.0``); then
@@ -1252,61 +1305,59 @@ def cli_phase(seed, smi, cross_model="cross-base"):
     metrics. Launches of K1, K2, R1 and the decoder are counted over each
     run against the predictions; the reload eval is profiled; the trained
     model's sims from the card decode are held against those from the
-    fixture's PIL crops of the same frames."""
-    import tempfile
-
+    fixture's PIL crops of the same frames. The FramePack, the layout and
+    ``pytorch_model.bin.0`` stay under ``root`` for the serve phase."""
     cross = load_cross_config(cross_model)
     arch = ClipArch.by_name(cross.pretrained_clip_name)
-    with tempfile.TemporaryDirectory(prefix="hmmc_cli_") as root:
-        layout = build_cli_layout(root, seed)
-        out = os.path.join(root, "out")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        with EvalProbe() as train_probe:
-            run = runner.main(cli.get_args(argv=cli_argv(
-                root, out, ["--seed", str(seed),
-                            "--cross_model", cross_model])))
-        train_s = time.perf_counter() - t0
-        train_counts = launch_counts()
-        train_peak = torch.cuda.max_memory_allocated()
-        train_failures = jpeg.decode_frames.decode_failures
-        ckpt = os.path.join(out, "pytorch_model.bin.0")
+    layout = build_cli_layout(root, seed)
+    out = os.path.join(root, "out")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with EvalProbe() as train_probe:
+        run = runner.main(cli.get_args(argv=cli_argv(
+            root, out, ["--seed", str(seed),
+                        "--cross_model", cross_model])))
+    train_s = time.perf_counter() - t0
+    train_counts = launch_counts()
+    train_peak = torch.cuda.max_memory_allocated()
+    train_failures = jpeg.decode_frames.decode_failures
+    ckpt = os.path.join(out, "pytorch_model.bin.0")
 
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        with EvalProbe(profile=True) as eval_probe:
-            metrics = runner.main(cli.get_args(argv=cli_argv(
-                root, os.path.join(root, "out_eval"),
-                ["--seed", str(seed), "--cross_model", cross_model,
-                 "--init_model", ckpt])[1:]))
-        eval_s = time.perf_counter() - t0
-        eval_counts = launch_counts()
-        eval_peak = torch.cuda.max_memory_allocated()
-        eval_failures = jpeg.decode_frames.decode_failures
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with EvalProbe(profile=True) as eval_probe:
+        metrics = runner.main(cli.get_args(argv=cli_argv(
+            root, os.path.join(root, "out_eval"),
+            ["--seed", str(seed), "--cross_model", cross_model,
+             "--init_model", ckpt])[1:]))
+    eval_s = time.perf_counter() - t0
+    eval_counts = launch_counts()
+    eval_peak = torch.cuda.max_memory_allocated()
+    eval_failures = jpeg.decode_frames.decode_failures
 
-        # the same clips through the card decode and through PIL's crops
-        task = cli.to_task_config(cli.get_args(argv=cli_argv(
-            root, out, ["--cross_model", cross_model])))
-        task = task.replace(image_resolution=arch.image_resolution)
-        tok = ClipTokenizer()
-        model = build_model(task, cross, init_model_path=ckpt)
-        ev = Evaluator(model, task)
-        loader, dataset = get_factory("msrvtt", "test")(task, tok)
-        sims = {}
-        for name, ld in (("card_decode", loader), ("pil_crops",
-                         fixture_video_loader(loader, dataset,
-                                              layout["crops"]))):
-            q, v, f, _, _ = ev.cache_features(ld)
-            sims[name] = ev.similarity(q, v, f)
-        sim_diff = float(np.abs(sims["card_decode"] - sims["pil_crops"]).max())
-        r1 = {k: logging_rank(s, False, [])["R1"] for k, s in sims.items()}
-        del model, ev, loader
-        torch.cuda.empty_cache()
-        along = loss_along_update(task, cross, ckpt, tok, arch)
-        torch.cuda.empty_cache()
+    # the same clips through the card decode and through PIL's crops
+    task = cli.to_task_config(cli.get_args(argv=cli_argv(
+        root, out, ["--cross_model", cross_model])))
+    task = task.replace(image_resolution=arch.image_resolution)
+    tok = ClipTokenizer()
+    model = build_model(task, cross, init_model_path=ckpt)
+    ev = Evaluator(model, task)
+    loader, dataset = get_factory("msrvtt", "test")(task, tok)
+    sims = {}
+    for name, ld in (("card_decode", loader), ("pil_crops",
+                     fixture_video_loader(loader, dataset,
+                                          layout["crops"]))):
+        q, v, f, _, _ = ev.cache_features(ld)
+        sims[name] = ev.similarity(q, v, f)
+    sim_diff = float(np.abs(sims["card_decode"] - sims["pil_crops"]).max())
+    r1 = {k: logging_rank(s, False, [])["R1"] for k, s in sims.items()}
+    del model, ev, loader
+    torch.cuda.empty_cache()
+    along = loss_along_update(task, cross, ckpt, tok, arch)
+    torch.cuda.empty_cache()
 
     layers_step = (arch.vision_layers + arch.transformer_layers
                    + cross.temporal_hidden_layers) * 4
@@ -1373,18 +1424,530 @@ def cli_phase(seed, smi, cross_model="cross-base"):
         raise AssertionError(f"cli phase failed: {row}")
     return dict(k1=train_counts["k1"] + eval_counts["k1"],
                 k2=train_counts["k2"] + eval_counts["k2"],
-                r1=train_counts["r1"] + eval_counts["r1"])
+                r1=train_counts["r1"] + eval_counts["r1"],
+                ckpt=ckpt, eval_metrics=metrics)
+
+
+# ---------------------------------------------------------------------------
+# phase serve: CLIP archive, feature banks, the retrieval service
+# ---------------------------------------------------------------------------
+
+SERVE_QUERIES = 200
+INDEX_VIDEOS = 1_000_000
+INDEX_QUERIES = 50
+INDEX_CHUNK = 50_000
+# the bank's features are the eval's, so the card's similarity over them
+# gives the --do_eval metrics exactly; numpy's (retrieve.similarity_from_
+# bank) sums in another order, and the cycled fixture (8 distinct videos)
+# and random weights leave exact and near ties: one query of 1000 may move
+# (t2v and v2t alike)
+EXTRACT_NUMPY_METRIC_ATOL = {"R1": 0.1, "R5": 0.1, "R10": 0.1, "MR": 0.5,
+                             "MeanR": 0.05}
+# int8 logits carry ~1e-2 x the logit scale of error (two absmax-127
+# roundings) against near ties: 1 point is 10 queries of 1000
+INT8_METRIC_ATOL = {"R1": 1.0, "R5": 1.0, "R10": 1.0, "MR": 2.0,
+                    "MeanR": 5.0}
+# --device_rank ranks int8 values: its reference is the same composition
+# in fp32 over the dequantized bank and query, which the s8 x s8 -> s32
+# product computes exactly (summed here in another order). Against the
+# fp32 bank its top-1 also moves where two videos are nearer than the
+# int8 rounding: that agreement is reported, and each returned score is
+# held within the JAX package's own int8 bound of its fp32 score
+# (tests/test_cli_smoke.py:690-697)
+DEVICE_TOP1_AGREEMENT = 0.99
+SCORE_ATOL = 1e-4     # host ranking against similarity_from_bank, fp32
+
+
+def clip_archive(path, seed):
+    """A seeded full-width ViT-B/32 CLIP state dict under OpenAI's names,
+    written as OpenAI ships it: fp16 weights in a TorchScript archive
+    (``torch.jit.save`` of a scripted module whose parameters carry the
+    names), with its three integer entries. Returns the fp16 state dict."""
+    arch = ClipArch.by_name("ViT-B/32")
+    donor = build_model(TaskConfig(compute_dtype="float32"), CrossConfig(),
+                        arch=arch, device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
+    sd = {}
+    for k, v in donor.state_dict().items():
+        for prefix in ("visual_encoder.", "text_encoder."):
+            if k.startswith(prefix) and not k.startswith(
+                    "visual_encoder.temporal") and not k.startswith(
+                    "visual_encoder.frame_position"):
+                sd[k[len(prefix):]] = v.half()
+    root = torch.nn.Module()
+    for k, v in sd.items():
+        *parts, name = k.split(".")
+        m = root
+        for part in parts:
+            if not hasattr(m, part):
+                m.add_module(part, torch.nn.Module())
+            m = getattr(m, part)
+        m.register_parameter(name, torch.nn.Parameter(v, requires_grad=False))
+    for name, value in (("input_resolution", arch.image_resolution),
+                        ("context_length", arch.context_length),
+                        ("vocab_size", arch.vocab_size)):
+        root.register_buffer(name, torch.tensor(value))
+    torch.jit.save(torch.jit.script(root), path)
+    return sd
+
+
+class Capture:
+    """Records the models ``runner.build_model`` returns in one run, and
+    the seconds each build took."""
+
+    def __enter__(self):
+        self.orig, self.models, self.seconds = runner.build_model, [], []
+
+        def build(*a, **kw):
+            t0 = time.perf_counter()
+            self.models.append(self.orig(*a, **kw))
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return self.models[-1]
+
+        runner.build_model = build
+        return self
+
+    def __exit__(self, *exc):
+        runner.build_model = self.orig
+
+
+class CacheProbe:
+    """Times ``Evaluator.cache_features`` (the extract's body); with
+    ``profile`` also its device busy time and idle share (torch.profiler,
+    whose teardown then adds seconds to the run around it)."""
+
+    def __init__(self, profile):
+        self.profile = profile
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.orig = orig = Evaluator.cache_features
+        probe = self
+        self.calls = []
+
+        def cache(ev, loader, dataset=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if not probe.profile:
+                out = orig(ev, loader, dataset)
+                torch.cuda.synchronize()
+                probe.calls.append(dict(
+                    wall_ms=(time.perf_counter() - t0) * 1e3))
+                return out
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = orig(ev, loader, dataset)
+                torch.cuda.synchronize()
+            probe.calls.append(device_time_by_kind(
+                prof, (time.perf_counter() - t0) * 1e3))
+            return out
+
+        Evaluator.cache_features = cache
+        return self
+
+    def __exit__(self, *exc):
+        Evaluator.cache_features = self.orig
+
+
+def percentiles(ms):
+    return dict(p50_ms=float(np.percentile(ms, 50)),
+                p99_ms=float(np.percentile(ms, 99)),
+                mean_ms=float(np.mean(ms)), n=len(ms))
+
+
+def query_breakdown(svc, texts, n=50):
+    """Where a served query's time goes: per query the host tokenizer, the
+    text tower at batch 1 (synchronized) and the ranking, on the service's
+    own objects; and one search under torch.profiler (device busy and idle
+    share, by kind)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    parts = {"tokenize": [], "text_tower": [], "rank": []}
+    with torch.inference_mode():
+        for text in texts[:n]:
+            t0 = time.perf_counter()
+            ids, _ = encode_text(svc.tokenizer, text, svc.task.max_words)
+            t1 = time.perf_counter()
+            q = svc.model.encode_text(torch.from_numpy(ids[None]).long()
+                                      .cuda())
+            q = q / q.norm(dim=-1, keepdim=True)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if svc._bank_dev is not None:
+                svc.rank_on_device(q, 5)
+            else:
+                sim = svc.score(q[0].cpu().numpy())
+                np.argsort(-sim)[:5]
+            t3 = time.perf_counter()
+            for k, a, b in (("tokenize", t0, t1), ("text_tower", t1, t2),
+                            ("rank", t2, t3)):
+                parts[k].append((b - a) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.search(texts[0])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_row = device_time_by_kind(prof, wall_ms)
+    return dict({k: percentiles(v) for k, v in parts.items()},
+                one_search_profiled={k: prof_row[k] for k in (
+                    "wall_ms", "device_busy_ms", "device_idle_share",
+                    "device_ms_by_kind")})
+
+
+def metric_diff(a, b):
+    return {k: abs(float(a[k]) - float(b[k])) for k in a}
+
+
+def index_scale(dsvc, texts, gen, smi):
+    """--device_rank at index scale: a synthetic normalized bank of
+    INDEX_VIDEOS x 12 frames x 512 on the card, int8 (with per-row scales)
+    and fp32; per-query latency of the service's search over the int8
+    bank, and of its ranking alone against the same composition in fp32
+    with torch.matmul."""
+    d, frames_n = dsvc.video.shape[1], dsvc.task.max_frames
+    v, chunk = INDEX_VIDEOS, INDEX_CHUNK
+    t0 = time.perf_counter()
+    vq = torch.empty((v, d), dtype=torch.int8, device="cuda")
+    fq = torch.empty((v, frames_n, d), dtype=torch.int8, device="cuda")
+    vs = torch.empty(v, device="cuda")
+    fs = torch.empty((v, frames_n), device="cuda")
+    v32 = torch.empty((v, d), device="cuda")
+    f32 = torch.empty((v, frames_n, d), device="cuda")
+    for s0 in range(0, v, chunk):
+        x = torch.randn((min(chunk, v - s0), frames_n + 1, d), device="cuda",
+                        generator=gen)
+        x = x / x.norm(dim=-1, keepdim=True)
+        e = s0 + x.shape[0]
+        v32[s0:e], f32[s0:e] = x[:, 0], x[:, 1:]
+        vq[s0:e], vs[s0:e] = quant.quantize_rows(x[:, 0])
+        fq[s0:e], fs[s0:e] = quant.quantize_rows(x[:, 1:])
+        del x
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    small = (dsvc._bank_dev, dsvc.video_ids)
+    # the service ranks whatever bank it holds on the card
+    dsvc._bank_dev = {"video": (vq, vs), "frames": (fq, fs)}
+    dsvc.video_ids = [f"synthetic{i}" for i in range(v)]
+    scale, top = dsvc.scale, dsvc.top_frames
+
+    def fp32_rank(q):
+        sim = scale * (q @ v32.T)
+        fl = scale * (f32.view(-1, d) @ q.T).view(1, v, frames_n)
+        sim = sim + fl.topk(top, dim=-1).values.mean(-1)
+        s_, i_ = torch.topk(sim[0], 5)
+        return s_.cpu().numpy(), i_.cpu().numpy()
+
+    def host_ms(fn, arg):
+        t = time.perf_counter()
+        out = fn(arg)
+        return (time.perf_counter() - t) * 1e3, out
+
+    search_ms, rank_ms, fp32_ms, agree = [], [], [], 0
+    with torch.inference_mode():
+        dsvc.search(texts[0])
+        for text in texts[:INDEX_QUERIES]:
+            search_ms.append(host_ms(lambda t: dsvc.search(t, 5), text)[0])
+            ids, _ = encode_text(dsvc.tokenizer, text, dsvc.task.max_words)
+            q = dsvc.model.encode_text(
+                torch.from_numpy(ids[None]).long().cuda())
+            q = q / q.norm(dim=-1, keepdim=True)
+            torch.cuda.synchronize()
+            ms, (_, i8) = host_ms(lambda x: dsvc.rank_on_device(x, 5), q)
+            rank_ms.append(ms)
+            ms, (_, i32) = host_ms(fp32_rank, q)
+            fp32_ms.append(ms)
+            agree += int(i8[0] == i32[0])
+    dsvc._bank_dev, dsvc.video_ids = small
+    row = dict(phase="serve", check="index scale, --device_rank",
+               videos=v, frames=frames_n, dim=d,
+               int8_bank_bytes=int(vq.numel() + fq.numel()
+                                   + 4 * (vs.numel() + fs.numel())),
+               fp32_bank_bytes=int(4 * (v32.numel() + f32.numel())),
+               bank_build_s=build_s,
+               search_int8=percentiles(search_ms),
+               rank_int8=percentiles(rank_ms),
+               rank_fp32_matmul=percentiles(fp32_ms),
+               top1_int8_equals_fp32=agree / INDEX_QUERIES,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               card=smi)
+    del vq, fq, vs, fs, v32, f32
+    torch.cuda.empty_cache()
+    emit(row)
+    return row
+
+
+def serve_phase(root, ckpt, eval_metrics, seed, smi):
+    """Phase serve, over the cli phase's FramePack and checkpoint:
+    ``--do_params --clip_model`` on a seeded full-width CLIP archive (the
+    arch read from its shapes, every overlaid weight checked); ``--do_extract``
+    over the 1000-clip split, float and ``--quantize_bank int8`` (metrics
+    from the bank against the cli phase's ``--do_eval``); the
+    RetrievalService answering SERVE_QUERIES test captions with host and
+    device ranking (latency, K1 launches, top-5 and top-1 checks), one HTTP
+    round trip; --device_rank at index scale."""
+    import threading
+    import urllib.request
+
+    from hmmc_tpu_torch import retrieve, serve
+    from hmmc_tpu_torch.data.datasets import read_csv
+    from hmmc_tpu_torch.train import checkpoint
+
+    counts = {"k1": 0, "r1": 0, "decoder": 0}
+
+    def add_counts():
+        for k in counts:
+            counts[k] += launch_counts()[k]
+
+    build_dir = os.path.join(kernel_build.BUILD_DIR, "serve")
+    os.makedirs(build_dir, exist_ok=True)
+    clip_path = os.path.join(build_dir, "ViT-B-32-seeded.pt")
+    t0 = time.perf_counter()
+    clip_sd = clip_archive(clip_path, seed + 1000)
+    archive_s = time.perf_counter() - t0
+
+    # 1. --clip_model, through --do_params
+    base = cli_argv(root, os.path.join(root, "out_params"),
+                    ["--seed", str(seed)])[2:]
+    with Capture() as cap:
+        t0 = time.perf_counter()
+        params = runner.main(cli.get_args(argv=["--do_params",
+                                                "--clip_model", clip_path]
+                                          + base))
+        params_s = time.perf_counter() - t0
+    model = cap.models[0]
+    own = model.state_dict()
+    overlay = checkpoint.clip_to_port({k: v.float() for k, v in
+                                       clip_sd.items()}, "english")
+    overlay_equal = all(torch.equal(own[k].cpu(), v.reshape(own[k].shape))
+                        for k, v in overlay.items())
+    arch_ok = model.arch == ClipArch.by_name("ViT-B/32")
+    by_name = sum(p.numel() for p in build_model(
+        TaskConfig(compute_dtype="float32"), CrossConfig(),
+        device="cpu").parameters())
+    row = dict(phase="serve", check="--clip_model (TorchScript, fp16)",
+               archive_bytes=os.path.getsize(clip_path),
+               archive_write_s=archive_s, do_params_s=params_s,
+               arch_equals_vit_b32=arch_ok, overlaid=len(overlay),
+               overlay_equals_file=overlay_equal, params=params["params"],
+               params_by_name=by_name,
+               forward_flops_batch1=params["flops"], card=smi)
+    emit(row)
+    del cap, model, own
+    torch.cuda.empty_cache()
+    if not (arch_ok and overlay_equal and len(overlay) == len(clip_sd)
+            and params["params"] == by_name):
+        raise AssertionError(f"--clip_model check failed: {row}")
+
+    # 2. --do_extract, float (profiled) and int8 (timed bare)
+    banks = {}
+    reset_launch_counts()
+    for name, extra in (("float", []), ("int8", ["--quantize_bank",
+                                                 "int8"])):
+        argv = ["--do_extract"] + cli_argv(
+            root, os.path.join(root, f"out_extract_{name}"),
+            ["--seed", str(seed), "--init_model", ckpt] + extra)[2:]
+        with CacheProbe(profile=name == "float") as probe, Capture() as cap:
+            t0 = time.perf_counter()
+            path = runner.main(cli.get_args(argv=argv))
+            wall = time.perf_counter() - t0
+        banks[name] = dict(path=path, bank=dict(np.load(path)), wall_s=wall,
+                           cache=probe.calls[0], build_s=cap.seconds[0])
+        del cap
+    extract_counts = launch_counts()
+    add_counts()
+    failures = jpeg.decode_frames.decode_failures
+
+    # 3. the service, host and device ranking
+    texts = [r["sentence"] for r in read_csv(os.path.join(
+        root, "msrvtt", "MSRVTT_JSFUSION_test.1k.csv"))][:SERVE_QUERIES]
+    sargs = cli.get_args(argv=cli_argv(
+        root, os.path.join(root, "out_serve"),
+        ["--seed", str(seed), "--init_model", ckpt])[1:])
+    sargs.features = banks["float"]["path"]
+    services, runs = {}, {}
+    for mode in ("host", "device"):
+        sargs.device_rank = mode == "device"
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        svc = serve.RetrievalService(sargs)
+        build_s = time.perf_counter() - t0
+        warm_k1 = launch_counts()["k1"]
+        ms, results = [], []
+        for text in texts:
+            t0 = time.perf_counter()
+            results.append(svc.search(text, topk=5))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[mode] = dict(build_s=build_s, warmup_k1=warm_k1,
+                          k1=launch_counts()["k1"], results=results,
+                          latency=percentiles(ms))
+        runs[mode]["breakdown"] = query_breakdown(svc, texts)
+        add_counts()
+        services[mode] = svc
+    host = services["host"]
+
+    # the bank's features are the eval's: the card's similarity over them
+    # gives --do_eval's metrics; numpy's within the stated tolerance
+    bank = banks["float"]["bank"]
+    ev = Evaluator(host.model, host.task)
+    card_metrics = logging_rank(ev.similarity(bank["query"], bank["video"],
+                                              bank["frames"]), False, [])
+    numpy_metrics = retrieve.bank_metrics(bank)
+    int8_metrics = retrieve.bank_metrics(banks["int8"]["bank"])
+    numpy_diff = metric_diff(numpy_metrics, eval_metrics)
+    int8_diff = metric_diff(int8_metrics, numpy_metrics)
+
+    # each served top-5 against similarity_from_bank for that query (the
+    # service's own batch-1 query vector); tie-aware: the scores at each
+    # rank agree
+    top5_ok, dev_agree, bank_query_agree, q_diff = 0, 0, 0, 0.0
+    dev_agree_fp32, dev_score_err = 0, 0.0
+    bank_q = retrieve._norm(bank["query"])
+    index = {vid: i for i, vid in enumerate(host.video_ids)}
+    deq_video = quant.dequantize_np(*quant.quantize_rows_np(host.video))
+    deq_frames = quant.dequantize_np(*quant.quantize_rows_np(host.frames))
+    int8_bound = (6.0 * host.scale * np.sqrt(host.video.shape[1]) / 254.0)
+
+    def int8_reference(q):
+        qd = quant.dequantize_np(*quant.quantize_rows_np(q))[0]
+        fl = np.sort(host.scale * (deq_frames @ qd), axis=-1)
+        return (host.scale * (deq_video @ qd)
+                + fl[:, -host.top_frames:].mean(axis=-1))
+
+    with torch.inference_mode():
+        for i, text in enumerate(texts):
+            ids, _ = encode_text(host.tokenizer, text, host.task.max_words)
+            q = host.model.encode_text(torch.from_numpy(ids[None]).long()
+                                       .cuda())
+            q = (q / q.norm(dim=-1, keepdim=True)).cpu().numpy()
+            q_diff = max(q_diff, float(np.abs(q[0] - bank_q[i]).max()))
+            # row 0: the served query vector; row 1: the bank's own
+            ref, row_b = retrieve.similarity_from_bank(dict(
+                bank, query=np.concatenate([q, bank["query"][i:i + 1]])))
+            best = np.sort(ref)[::-1][:5]
+            got = [index[r["video_id"]] for r in runs["host"]["results"][i]
+                   ["results"]]
+            top5_ok += int(np.abs(ref[got] - best).max() <= SCORE_ATOL)
+            served = runs["device"]["results"][i]["results"]
+            dev = index[served[0]["video_id"]]
+            ref8 = int8_reference(q)
+            dev_agree += int(ref8[dev] >= ref8.max() - SCORE_ATOL)
+            dev_agree_fp32 += int(ref[dev] >= best[0] - SCORE_ATOL)
+            dev_score_err = max(dev_score_err, max(
+                abs(r["score"] - float(ref[index[r["video_id"]]]))
+                for r in served))
+            bank_query_agree += int(row_b[got[0]] >= row_b.max() - SCORE_ATOL)
+
+    # one POST /search round trip
+    httpd = serve.make_server(host, 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    reset_launch_counts()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/search",
+            data=json.dumps({"text": texts[0], "topk": 5}).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=60) as r:
+            http_out = json.loads(r.read())
+        http_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    http_k1 = launch_counts()["k1"]
+    add_counts()
+    http_ok = ([r["video_id"] for r in http_out["results"]]
+               == [r["video_id"] for r in runs["host"]["results"][0]
+                   ["results"]])
+
+    arch, cross = ClipArch.by_name("ViT-B/32"), CrossConfig()
+    layers = arch.transformer_layers
+    eval_k1 = ((arch.vision_layers + cross.temporal_hidden_layers)
+               * math.ceil(CLI_CLIPS / 64)
+               + layers * math.ceil(CLI_CLIPS / 512))
+    expected = dict(extract_k1=2 * eval_k1,
+                    extract_r1=2 * math.ceil(CLI_CLIPS / 512),
+                    service_k1=layers * (SERVE_QUERIES + 1),
+                    warmup_k1=layers, http_k1=layers)
+    measured = dict(extract_k1=extract_counts["k1"],
+                    extract_r1=extract_counts["r1"],
+                    service_k1=runs["host"]["k1"], warmup_k1=runs["host"]
+                    ["warmup_k1"], http_k1=http_k1)
+    row = dict(
+        phase="serve", model="ViT-B/32 BirdModel", clips=CLI_CLIPS,
+        extract={name: dict(profiled=name == "float", wall_s=b["wall_s"],
+                            clips_per_s=CLI_CLIPS / b["wall_s"],
+                            build_model_s=b["build_s"],
+                            cache_features_wall_ms=b["cache"]["wall_ms"],
+                            cache_features_clips_per_s=CLI_CLIPS
+                            / b["cache"]["wall_ms"] * 1e3,
+                            device_busy_ms=b["cache"].get("device_busy_ms"),
+                            device_idle_share=b["cache"].get(
+                                "device_idle_share"),
+                            device_ms_by_kind=b["cache"].get(
+                                "device_ms_by_kind"),
+                            bank_bytes=os.path.getsize(b["path"]))
+                 for name, b in banks.items()},
+        eval_metrics=eval_metrics, bank_card_metrics=card_metrics,
+        bank_numpy_metrics=numpy_metrics, bank_int8_metrics=int8_metrics,
+        numpy_vs_eval_diff=numpy_diff,
+        numpy_atol=EXTRACT_NUMPY_METRIC_ATOL, int8_vs_float_diff=int8_diff,
+        int8_atol=INT8_METRIC_ATOL, decode_failures=failures,
+        latency={m: r["latency"] for m, r in runs.items()},
+        latency_breakdown={m: r["breakdown"] for m, r in runs.items()},
+        service_build_s={m: r["build_s"] for m, r in runs.items()},
+        host_top5_match=top5_ok / len(texts),
+        device_top1_agreement_int8_reference=dev_agree / len(texts),
+        device_top1_required=DEVICE_TOP1_AGREEMENT,
+        device_top1_agreement_fp32=dev_agree_fp32 / len(texts),
+        device_score_max_abs_diff_vs_fp32=dev_score_err,
+        device_score_bound=int8_bound,
+        batch1_query_max_abs_diff_vs_bank=q_diff,
+        host_top1_agreement_with_bank_query=bank_query_agree / len(texts),
+        http_round_trip_ms=http_ms, http_equal=http_ok,
+        launches=measured, expected_launches=expected, card=smi)
+    emit(row)
+    ok = (card_metrics == eval_metrics
+          and all(numpy_diff[k] <= EXTRACT_NUMPY_METRIC_ATOL[
+              k.removeprefix("v2t_")] for k in numpy_diff)
+          and all(int8_diff[k] <= INT8_METRIC_ATOL[k.removeprefix("v2t_")]
+                  for k in int8_diff)
+          and top5_ok == len(texts)
+          and dev_agree >= DEVICE_TOP1_AGREEMENT * len(texts)
+          and dev_score_err <= int8_bound
+          and http_ok and measured == expected
+          and runs["device"]["k1"] == expected["service_k1"]
+          and failures == 0)
+    if not ok:
+        raise AssertionError(f"serve phase failed: {row}")
+
+    # 4. --device_rank at index scale
+    reset_launch_counts()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    index_scale(services["device"], texts, gen, smi)
+    add_counts()
+    del services, host, ev
+    torch.cuda.empty_cache()
+    return counts
+
 
 
 def kernels_phase(gen):
     """Phase 3: K1 at the eval path's shapes (64-clip video block,
-    512-query text block), K2 at the fine-tune path's (a 64-clip
-    micro-batch), each also at the longest sequence it takes."""
+    512-query text block) and the serve path's (one query), K2 at the
+    fine-tune path's (a 64-clip micro-batch), each also at the longest
+    sequence it takes."""
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(check_attention("vit", 64 * 12, 12, 50, False, dtype, gen))
         rows.append(check_attention("text", 512, 8, 32, True, dtype, gen))
         rows.append(check_attention("temporal", 64, 8, 12, False, dtype, gen))
+    # the serve path: one query's text tower, batch 1
+    rows.append(check_attention("text_query", 1, 8, 32, True,
+                                torch.bfloat16, gen))
     for dtype in (torch.bfloat16, torch.float32):
         for b, h, l, causal in ((8, 8, 77, True), (8, 12, 128, False)):
             check_attention("extra", b, h, l, causal, dtype, gen)
@@ -1509,7 +2072,11 @@ def main(argv=None) -> int:
     eval_k1 = eval_phase(args, smi)
     train = train_slice(CrossConfig(), ClipArch.by_name("ViT-B/32"),
                         args.seed, smi)
-    cli_counts = cli_phase(args.seed, smi)
+    with tempfile.TemporaryDirectory(prefix="hmmc_cli_") as root:
+        cli_counts = cli_phase(root, args.seed, smi)
+        serve_counts = serve_phase(root, cli_counts["ckpt"],
+                                   cli_counts["eval_metrics"], args.seed,
+                                   smi)
 
     # result
     def kernel_row(name, replaces, rows, launches, by_path):
@@ -1531,7 +2098,8 @@ def main(argv=None) -> int:
 
     k1_paths = {"eval": eval_k1, "finetune_steps": train["k1"],
                 "finetune_epoch_eval": train["eval_k1"],
-                "cli_finetune_and_evals": cli_counts["k1"]}
+                "cli_finetune_and_evals": cli_counts["k1"],
+                "serve_extract_and_queries": serve_counts["k1"]}
     k2_paths = {"finetune_steps": train["k2"],
                 "cli_finetune": cli_counts["k2"]}
     print(smi, flush=True)
@@ -1546,8 +2114,9 @@ def main(argv=None) -> int:
              replaces="hmmc_tpu/data/datasets.py:36 (_decode_eval's PIL "
                       "bicubic resize and centre crop: a host PIL step, "
                       "not a Pallas kernel)",
-             launches=cli_counts["r1"],
-             launches_by_path={"cli_finetune_and_evals": cli_counts["r1"]},
+             launches=cli_counts["r1"] + serve_counts["r1"],
+             launches_by_path={"cli_finetune_and_evals": cli_counts["r1"],
+                               "serve_extract": serve_counts["r1"]},
              max_abs_err=r1_row["max_abs_err"], ms=r1_row["launch_ms"],
              kernel_device_ms=r1_row["kernel_device_ms"],
              wrapper_from_frame_list_ms=r1_row["ms"],

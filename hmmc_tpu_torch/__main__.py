@@ -1,6 +1,6 @@
-"""``python -m hmmc_tpu_torch [flags]``: the port's fine-tune / eval CLI
-(flags as ``hmmc_tpu_torch.cli.get_args``); runs on the current CUDA
-device."""
+"""``python -m hmmc_tpu_torch [flags]``: the port's fine-tune / eval /
+extract / params CLI (flags as ``hmmc_tpu_torch.cli.get_args``); runs on
+the current CUDA device."""
 
 from hmmc_tpu_torch import cli, runner
 

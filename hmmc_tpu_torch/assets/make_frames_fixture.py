@@ -10,7 +10,13 @@ each at 256x341, 640x360 and 160x120, all 4:2:0 as ``hmmc_tpu/data/ingest.py``
 stores frames (cv2's default); then one each in the other chroma samplings
 libjpeg upsamples its own way: 4:2:2 at 325x243, 4:4:0 at 243x325 and
 4:1:1 at 320x240. Smooth gradients, filled shapes with hard colour edges,
-and mild noise; encoded with cv2 at JPEG quality 90. Keys:
+and mild noise; encoded with cv2 at JPEG quality 90. Then three frames
+whose planes are not YCbCr, written by Pillow at quality 90, 4:4:4: an
+RGB-coded JPEG (``keep_rgb``: Adobe marker, transform 0) at 300x200, a
+CMYK one (Adobe's inverted ink, with a black plane) at 200x300, and a YCCK
+one at 257x193 (Y, Cb, Cr and a black plane written as CMYK planes, then
+the Adobe transform byte set to 2, which is how libjpeg marks YCCK).
+Keys:
 
 - ``blob_{i}``: the JPEG bytes (uint8);
 - ``rgb_{i}``: PIL's full-resolution RGB decode (``Image.open().convert``);
@@ -18,7 +24,9 @@ and mild noise; encoded with cv2 at JPEG quality 90. Keys:
   PIL bicubic short-side resize, centre crop), written out here so this
   script needs nothing of that package;
 - ``sizes``: [n, 2] (width, height);
-- ``sampling``: [n] the chroma sampling, "420", "422", "440" or "411".
+- ``sampling``: [n] the chroma sampling, "420", "422", "440", "411" or
+  "444";
+- ``color``: [n] what the planes hold, "ycc", "rgb", "cmyk" or "ycck".
 """
 
 from __future__ import annotations
@@ -32,7 +40,43 @@ import numpy as np
 SIZES = ([(341, 256)] * 8 + [(256, 341), (640, 360), (160, 120)]
          + [(325, 243), (243, 325), (320, 240)])
 SAMPLING = ["420"] * 11 + ["422", "440", "411"]
+# Pillow-written frames whose planes are not YCbCr
+OTHER_COLORS = [("rgb", (300, 200)), ("cmyk", (200, 300)),
+                ("ycck", (257, 193))]
 RES = 224
+ADOBE_TRANSFORM_AT = 17     # SOI, APP14 marker and length, "Adobe" + 6
+
+
+def pillow_jpeg(rgb: np.ndarray, color: str) -> bytes:
+    """``rgb`` written as a JPEG whose planes hold ``color``: RGB as coded,
+    CMYK (ink with three quarters of its grey moved to black), or YCCK
+    (PIL's YCbCr of ``rgb`` and a black plane, stored as CMYK planes and
+    marked with Adobe transform 2)."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    if color == "rgb":
+        Image.fromarray(rgb).save(buf, "JPEG", quality=90, keep_rgb=True)
+        return buf.getvalue()
+    h, w, _ = rgb.shape
+    if color == "cmyk":
+        ink = 255 - rgb.astype(np.int32)
+        k = ink.min(-1, keepdims=True) * 3 // 4
+        image = np.concatenate([ink - k, k], -1)
+    else:
+        # Pillow writes a CMYK image inverted (Adobe's convention), so the
+        # stored planes are 255 - image: Y, Cb, Cr, and a black that
+        # darkens the frame by at most 96 levels towards its right edge
+        ycc = np.asarray(Image.fromarray(rgb).convert("YCbCr"), np.int32)
+        black = np.linspace(0, 96, w).astype(np.int32)[None, :, None]
+        image = 255 - np.concatenate([ycc, 255 - black.repeat(h, 0)], -1)
+    Image.fromarray(image.astype(np.uint8), "CMYK").save(buf, "JPEG",
+                                                         quality=90)
+    blob = bytearray(buf.getvalue())
+    assert blob[6:11] == b"Adobe" and blob[ADOBE_TRANSFORM_AT] == 0
+    if color == "ycck":
+        blob[ADOBE_TRANSFORM_AT] = 2
+    return bytes(blob)
 
 
 def synthetic_frame(w: int, h: int, rng: np.random.Generator) -> np.ndarray:
@@ -83,16 +127,23 @@ def main(argv=None) -> None:
         os.path.dirname(os.path.abspath(__file__)), "frames_fixture.npz"))
     args = ap.parse_args(argv)
     rng = np.random.default_rng(args.seed)
-    out = {"sizes": np.asarray(SIZES, np.int32),
-           "sampling": np.asarray(SAMPLING)}
-    for i, ((w, h), sampling) in enumerate(zip(SIZES, SAMPLING)):
+    sizes = SIZES + [s for _, s in OTHER_COLORS]
+    colors = ["ycc"] * len(SIZES) + [c for c, _ in OTHER_COLORS]
+    out = {"sizes": np.asarray(sizes, np.int32),
+           "sampling": np.asarray(SAMPLING + ["444"] * len(OTHER_COLORS)),
+           "color": np.asarray(colors)}
+    for i, ((w, h), color) in enumerate(zip(sizes, colors)):
         rgb = synthetic_frame(w, h, rng)
-        factor = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")
-        ok, enc = cv2.imencode(".jpg", rgb[..., ::-1], [
-            cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-            factor])
-        assert ok
-        blob = enc.tobytes()
+        if color == "ycc":
+            factor = getattr(cv2,
+                             f"IMWRITE_JPEG_SAMPLING_FACTOR_{SAMPLING[i]}")
+            ok, enc = cv2.imencode(".jpg", rgb[..., ::-1], [
+                cv2.IMWRITE_JPEG_QUALITY, 90,
+                cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor])
+            assert ok
+            blob = enc.tobytes()
+        else:
+            blob = pillow_jpeg(rgb, color)
         dec = np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"),
                          np.uint8)
         out[f"blob_{i}"] = np.frombuffer(blob, np.uint8)

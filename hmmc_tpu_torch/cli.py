@@ -13,10 +13,11 @@ does not run is still accepted where its default asks for nothing:
   --dcn_dp_size, --zero_opt, --multihost, --fused_ema) raise with the flag's
   name when set away from their defaults;
 - so do the modes and options not ported yet (ROADMAP.md Queue A):
-  --do_pretrain, --do_params, --do_extract, --clip_model, --resume,
-  --save_steps, --async_save, --profile_dir, --quantize_bank,
+  --do_pretrain, --resume, --save_steps, --async_save, --profile_dir,
   --eval_dual_softmax, --token_filter_keep, --use_randaugment and
   --task retrieval_VT.
+--do_extract (with --quantize_bank), --do_params and --clip_model run as in
+the JAX package; either mode alone is a run.
 --use_pallas_attention maps "auto" and "on" to the CUDA attention kernels
 (``use_fused_attention="on"``) and "off" to the plain attention.
 """
@@ -127,12 +128,10 @@ def get_args(description: str = "HMMC on Retrieval Task (PyTorch port)",
 # flag -> its default; any other value raises
 _TPU_ONLY = {"dp_size": 0, "tp_size": 1, "sp_size": 1, "dcn_dp_size": 1,
              "zero_opt": False, "multihost": False, "fused_ema": False}
-_NOT_PORTED = {"do_pretrain": False, "do_params": False, "do_extract": False,
-               "clip_model": None, "resume": False, "save_steps": 0,
+_NOT_PORTED = {"do_pretrain": False, "resume": False, "save_steps": 0,
                "async_save": False, "profile_dir": None,
-               "quantize_bank": "none", "eval_dual_softmax": False,
-               "token_filter_keep": 0, "use_randaugment": False,
-               "task": "retrieval"}
+               "eval_dual_softmax": False, "token_filter_keep": 0,
+               "use_randaugment": False, "task": "retrieval"}
 
 
 def to_task_config(args: argparse.Namespace) -> TaskConfig:
@@ -146,8 +145,10 @@ def to_task_config(args: argparse.Namespace) -> TaskConfig:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)!r} is not ported yet "
                 "(ROADMAP.md Queue A)")
-    if not (args.do_train or args.do_eval):
-        raise ValueError("At least one of do_train/do_eval must be set")
+    if not (args.do_train or args.do_eval or args.do_params
+            or args.do_extract):
+        raise ValueError("At least one of do_train/do_eval/do_params/"
+                         "do_extract must be set")
     fields = {f.name for f in dataclasses.fields(TaskConfig)}
     kv = {k: v for k, v in vars(args).items() if k in fields}
     kv["use_fused_attention"] = ("off" if args.use_pallas_attention == "off"

@@ -1,9 +1,10 @@
 """Configuration of the port (counterpart of ``hmmc_tpu/config.py``).
 
-:class:`CrossConfig`, :data:`CLIP_ARCH` and :class:`ClipArch` are copies
-of the JAX package's (field names and defaults match the reference's
-``cross_config.json`` and CLIP model zoo). :class:`TaskConfig` carries only
-the fields the retrieval eval, the fine-tune and the CLI read, plus the
+:class:`CrossConfig`, :data:`CLIP_ARCH` and :class:`ClipArch` (with
+``from_state_dict``) are copies of the JAX package's (field names and
+defaults match the reference's ``cross_config.json`` and CLIP model zoo).
+:class:`TaskConfig` carries only the fields the retrieval eval, the
+fine-tune, the extract and the CLI read, plus the
 attention switch ``use_fused_attention`` ("on": the hand-written CUDA kernel for every
 unmasked or causal attention; "off": the plain PyTorch attention). The JAX
 package's automatic kernel choice is not carried over: its crossover was
@@ -153,6 +154,56 @@ class ClipArch:
                 f"unknown CLIP arch {name!r}; known: {list(CLIP_ARCH)}")
         return cls(linear_patch=linear_patch, **CLIP_ARCH[name])
 
+    @classmethod
+    def from_state_dict(cls, sd, linear_patch: str = "2d") -> "ClipArch":
+        """The architecture of an OpenAI CLIP state dict, read from its
+        tensor shapes and key names as the reference's build_model does
+        (module_clip.py:530-579; ``hmmc_tpu.config.ClipArch.
+        from_state_dict``): ``"visual.proj" in sd`` tells a ViT from a
+        ModifiedResNet. ``sd`` maps CLIP names to anything with a
+        ``.shape``."""
+        def shape(k):
+            return tuple(sd[k].shape)
+
+        if "visual.proj" in sd:
+            vision_width = shape("visual.conv1.weight")[0]
+            vision_layers = len([
+                k for k in sd
+                if k.startswith("visual.") and k.endswith(
+                    ".attn.in_proj_weight")])
+            vision_patch_size = shape("visual.conv1.weight")[-1]
+            grid = round((shape("visual.positional_embedding")[0] - 1)
+                         ** 0.5)
+            image_resolution = vision_patch_size * grid
+        else:
+            counts = [len({k.split(".")[2] for k in sd
+                           if k.startswith(f"visual.layer{b}")})
+                      for b in (1, 2, 3, 4)]
+            vision_layers = tuple(counts)
+            vision_width = shape("visual.layer1.0.conv1.weight")[0]
+            tokens = shape("visual.attnpool.positional_embedding")[0]
+            out_width = round((tokens - 1) ** 0.5)
+            if out_width ** 2 + 1 != tokens:
+                raise ValueError(f"attnpool positional embedding of {tokens} "
+                                 "rows is not a square grid plus one")
+            vision_patch_size = 0
+            image_resolution = out_width * 32
+        transformer_width = shape("ln_final.weight")[0]
+        return cls(
+            embed_dim=shape("text_projection")[1],
+            image_resolution=image_resolution,
+            vision_layers=vision_layers,
+            vision_width=vision_width,
+            vision_patch_size=vision_patch_size,
+            context_length=shape("positional_embedding")[0],
+            vocab_size=shape("token_embedding.weight")[0],
+            transformer_width=transformer_width,
+            transformer_heads=transformer_width // 64,
+            transformer_layers=len({
+                k.split(".")[2] for k in sd
+                if k.startswith("transformer.resblocks")}),
+            linear_patch=linear_patch)
+
 
 @dataclasses.dataclass(frozen=True)
 class TaskConfig:
@@ -162,6 +213,8 @@ class TaskConfig:
     # mode
     do_train: bool = False
     do_eval: bool = False
+    do_extract: bool = False
+    do_params: bool = False
     task: str = "retrieval"          # retrieval (retrieval_VT not ported)
     dataset: str = "msrvtt"
     language: str = "english"
@@ -170,6 +223,7 @@ class TaskConfig:
     top_frames: int = 3
     cross_model: str = "cross-base"
     init_model: Optional[str] = None
+    clip_model: Optional[str] = None    # an OpenAI CLIP .pt to start from
     # data
     data_dir: Optional[str] = None
     # input resolution; 0 = derive from the CLIP arch (224 for ViT-B)

@@ -2,10 +2,12 @@
 // (hmmc_tpu_torch/data/jpeg.py). Replaces the host PIL / libjpeg decode of
 // hmmc_tpu/data/datasets.py:36-51 and native/hmmc_jpeg.cpp up to the IDCT:
 // nvJPEG returns each frame's components as encoded
-// (NVJPEG_OUTPUT_UNCHANGED: Y, Cb, Cr planes, chroma at its subsampled
-// size; or Y alone), and R1 (resize_crop.cu) does libjpeg's chroma
-// upsampling and colour conversion before PIL's resize and crop. nvJPEG's
-// own RGB output is not used: its chroma upsampling is not libjpeg's.
+// (NVJPEG_OUTPUT_UNCHANGED: three planes, the second and third at their
+// subsampled size; four, the fourth a CMYK or YCCK frame's K; or Y alone),
+// and R1 (resize_crop.cu) does libjpeg's chroma upsampling and colour
+// conversion before PIL's resize and crop. nvJPEG's own RGB output is not
+// used: its chroma upsampling is not libjpeg's, and it knows neither the
+// Adobe marker's RGB-coded frames nor PIL's CMYK conversion.
 //
 // Routes, all on the card:
 //   0 hardware   NVJPEG_BACKEND_HARDWARE (the JPEG engines), one batched
@@ -62,7 +64,8 @@ int decode_group(Ctx* ctx, int route, const unsigned char* const* data,
                  const size_t* lengths, int n, int* routes,
                  const int* ncomp, unsigned char* const* dst0,
                  unsigned char* const* dst1, unsigned char* const* dst2,
-                 const int* pitch0, const int* pitch1, cudaStream_t stream) {
+                 unsigned char* const* dst3, const int* pitch0,
+                 const int* pitch1, cudaStream_t stream) {
   std::vector<const unsigned char*> d;
   std::vector<size_t> len;
   std::vector<nvjpegImage_t> img;
@@ -72,10 +75,14 @@ int decode_group(Ctx* ctx, int route, const unsigned char* const* data,
     nvjpegImage_t im = {};
     im.channel[0] = dst0[i];
     im.pitch[0] = static_cast<size_t>(pitch0[i]);
-    if (ncomp[i] == 3) {
+    if (ncomp[i] >= 3) {
       im.channel[1] = dst1[i];
       im.channel[2] = dst2[i];
       im.pitch[1] = im.pitch[2] = static_cast<size_t>(pitch1[i]);
+    }
+    if (ncomp[i] == 4) {  // K at full size, Y's pitch
+      im.channel[3] = dst3[i];
+      im.pitch[3] = static_cast<size_t>(pitch0[i]);
     }
     d.push_back(data[i]);
     len.push_back(lengths[i]);
@@ -165,8 +172,8 @@ int hmmc_jpeg_create(void** out, int* hardware) {
   return 0;
 }
 
-// Header parse of n blobs: per frame width, height, chroma width and
-// height (-1 where Cb and Cr differ in size), the number of components and
+// Header parse of n blobs: per frame width, height, the second and third
+// planes' width and height (-1 where they differ in size), the number of components and
 // the route (0 hardware, 1 hybrid, -1 a header that does not parse).
 int hmmc_jpeg_probe(void* vctx, const unsigned char* const* data,
                     const size_t* lengths, int n, int* widths, int* heights,
@@ -186,7 +193,7 @@ int hmmc_jpeg_probe(void* vctx, const unsigned char* const* data,
     }
     widths[i] = w[0];
     heights[i] = h[0];
-    if (nc == 3) {
+    if (nc == 3 || nc == 4) {
       const bool same = w[1] == w[2] && h[1] == h[2];
       cwidths[i] = same ? w[1] : -1;
       cheights[i] = same ? h[1] : -1;
@@ -205,18 +212,20 @@ int hmmc_jpeg_probe(void* vctx, const unsigned char* const* data,
 }
 
 // Decode every frame with routes[i] >= 0 into its planes on `stream`:
-// dst0 (Y) with pitch0, and for 3 components dst1, dst2 (Cb, Cr) with
-// pitch1. Frames decoded alone become 2, frames that fail -1.
+// dst0 (Y) with pitch0, for 3 or 4 components dst1, dst2 (Cb, Cr) with
+// pitch1, and for 4 dst3 (K) with pitch0. Frames decoded alone become 2,
+// frames that fail -1.
 int hmmc_jpeg_decode(void* vctx, const unsigned char* const* data,
                      const size_t* lengths, int n, int* routes,
                      const int* ncomp, unsigned char* const* dst0,
                      unsigned char* const* dst1, unsigned char* const* dst2,
-                     const int* pitch0, const int* pitch1, void* stream) {
+                     unsigned char* const* dst3, const int* pitch0,
+                     const int* pitch1, void* stream) {
   Ctx* ctx = static_cast<Ctx*>(vctx);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int route = ctx->hw != nullptr ? 0 : 1; route < 2; ++route) {
     const int e = decode_group(ctx, route, data, lengths, n, routes, ncomp,
-                               dst0, dst1, dst2, pitch0, pitch1, st);
+                               dst0, dst1, dst2, dst3, pitch0, pitch1, st);
     if (e) return e;
   }
   return 0;

@@ -8,7 +8,9 @@
 // does after its IDCT (jdsample.c's upsampling at any of the samplings
 // ops/resize_crop.py lists: the fancy triangular 3/4-1/4 filter along each
 // halved axis for h2v2, h2v1 and h1v2, edges replicated, replication
-// otherwise; jdcolor.c ycc_rgb_convert: 16-bit fixed point), then
+// otherwise; jdcolor.c ycc_rgb_convert: 16-bit fixed point; no conversion
+// for RGB-coded planes; for CMYK and YCCK planes, libjpeg's YCCK->CMYK and
+// Pillow's CMYK->RGB), then
 // Pillow's two passes with taps
 // from the host (hmmc_tpu_torch/ops/resize_crop.py: pil_coeffs, the same
 // double arithmetic as Pillow's precompute_coeffs, then its 22-bit fixed
@@ -31,12 +33,15 @@
 //
 // Descriptor (int64, on the device): G geometries of 8 words
 //   {tables pointer, kh, kv, w, h, first staged column, end column, 0}
-// then N frames of 8 words
+// then N frames of 10 words
 //   {plane 0, pitch 0, geometry, format, plane 1, plane 2, pitch 1,
-//    hf + 16 * vf}
+//    hf + 16 * vf, colour, plane 3}
 // format: -1 padded slot, 0 interleaved RGB (plane 0), 3 grayscale
-// (plane 0), any other YCbCr (planes 0, 1, 2: Y, Cb, Cr; chroma
-// subsampled by hf horizontally and vf vertically).
+// (plane 0), any other three or four planes (0, 1, 2: Y, Cb, Cr; planes 1
+// and 2 subsampled by hf horizontally and vf vertically). colour says what
+// they hold (libjpeg's jpeg_color_space): 0 YCbCr, 1 RGB as coded (no
+// conversion), 2 CMYK and 3 YCCK (plane 3, K, at full size with pitch 0),
+// which end in Pillow's cmyk2rgb as Image.convert("RGB") does.
 // A geometry's int32 table is
 //   [x_first(res), x_count(res), y_first(res), y_count(res),
 //    x_taps(res * kh), y_taps(res * kv)].
@@ -50,7 +55,7 @@ namespace {
 constexpr int kPrecisionBits = 22;
 constexpr int kThreads = 256;
 constexpr int kGeomWords = 8;
-constexpr int kFrameWords = 8;
+constexpr int kFrameWords = 10;
 
 __device__ __forceinline__ unsigned char clip8(int v) {
   // Pillow's clip8: <= 0 -> 0, >= 256 << 22 -> 255, else v >> 22
@@ -98,6 +103,38 @@ __device__ __forceinline__ void ycc_rgb(int y, int cb, int cr,
   out[0] = range_limit(y + r);
   out[1] = range_limit(y + g);
   out[2] = range_limit(y + b);
+}
+
+// Pillow's cmyk2rgb of one channel: k - MULDIV255(ink, k), k the stored
+// fourth plane (Adobe's inverted K), ink the channel's C, M or Y
+__device__ __forceinline__ unsigned char ink_rgb(int ink, int k) {
+  const int t = ink * k + 128;
+  return range_limit(k - (((t >> 8) + t) >> 8));
+}
+
+// the planes' values at one pixel -> RGB, by colour (see the descriptor)
+__device__ __forceinline__ void to_rgb(int colour, int c0, int c1, int c2,
+                                       int k, unsigned char* out) {
+  if (colour == 1) {
+    out[0] = static_cast<unsigned char>(c0);
+    out[1] = static_cast<unsigned char>(c1);
+    out[2] = static_cast<unsigned char>(c2);
+    return;
+  }
+  if (colour == 2) {
+    out[0] = ink_rgb(255 - c0, k);
+    out[1] = ink_rgb(255 - c1, k);
+    out[2] = ink_rgb(255 - c2, k);
+    return;
+  }
+  ycc_rgb(c0, c1, c2, out);
+  // YCCK: libjpeg's ycck_cmyk_convert stores 255 - rgb, which Pillow reads
+  // inverted, so the ink is the YCbCr conversion's rgb
+  if (colour == 3) {
+    out[0] = ink_rgb(out[0], k);
+    out[1] = ink_rgb(out[1], k);
+    out[2] = ink_rgb(out[2], k);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -152,9 +189,11 @@ resize_crop_kernel(const long long* __restrict__ desc, int n_geom,
   } else {
     const unsigned char* pcb = reinterpret_cast<const unsigned char*>(frame[4]);
     const unsigned char* pcr = reinterpret_cast<const unsigned char*>(frame[5]);
+    const unsigned char* pk = reinterpret_cast<const unsigned char*>(frame[9]);
     const long long pitch1 = frame[6];
     const int hf = static_cast<int>(frame[7] & 15);
     const int vf = static_cast<int>(frame[7] >> 4);
+    const int colour = static_cast<int>(frame[8]);
     const int hs = hf >> 1, vs = vf >> 1;      // log2 of 1, 2, 4
     const int cw = fmt == 3 ? 0 : (w + hf - 1) >> hs;
     const int ch = fmt == 3 ? 0 : (h + vf - 1) >> vs;
@@ -163,13 +202,16 @@ resize_crop_kernel(const long long* __restrict__ desc, int n_geom,
       const int rr = i / n_cols;
       const int y = ys + rr;
       const int x = xs + (i - rr * n_cols);
-      const int luma = p0[static_cast<long long>(y) * pitch0 + x];
+      const long long at = static_cast<long long>(y) * pitch0 + x;
+      const int luma = p0[at];
       unsigned char* o = src + i * 3;
       if (fmt == 3) {
         o[0] = o[1] = o[2] = static_cast<unsigned char>(luma);
       } else {
-        ycc_rgb(luma, upsample(pcb, pitch1, cw, ch, hf, vf, hs, vs, x, y),
-                upsample(pcr, pitch1, cw, ch, hf, vf, hs, vs, x, y), o);
+        to_rgb(colour, luma,
+               upsample(pcb, pitch1, cw, ch, hf, vf, hs, vs, x, y),
+               upsample(pcr, pitch1, cw, ch, hf, vf, hs, vs, x, y),
+               colour >= 2 ? pk[at] : 0, o);
       }
     }
   }

@@ -2,10 +2,12 @@
 
 :func:`build_model` builds the retrieval ``BirdModel`` with seeded random
 weights drawn on the CPU from an explicit ``torch.Generator`` (so a seed
-gives the same weights on every device), overlays an HMMC checkpoint
-(``pytorch_model.bin.N``, ``--init_model``) where one is given, then moves
-it to the device. OpenAI CLIP ``.pt`` archives (``--clip_model``) and Orbax
-directories are not read yet.
+gives the same weights on every device), overlays an OpenAI CLIP file
+(``--clip_model``: its architecture read from its tensor shapes, its
+visual tower, ``logit_scale`` and, in English, its text tower), then an
+HMMC checkpoint (``pytorch_model.bin.N``, ``--init_model``), which wins, as
+in the JAX factory; then it moves the model to the device. Orbax
+directories are not read.
 """
 
 from __future__ import annotations
@@ -41,16 +43,32 @@ def resolve_device(device=None) -> torch.device:
 def build_model(task: TaskConfig, cross: CrossConfig,
                 arch: Optional[ClipArch] = None, device=None,
                 generator: Optional[torch.Generator] = None,
-                init_model_path: Optional[str] = None) -> BirdModel:
+                init_model_path: Optional[str] = None,
+                clip_model_path: Optional[str] = None) -> BirdModel:
     """A ``BirdModel`` in eval mode on ``device`` with weights drawn from
     ``generator`` (a CPU generator; default: seeded with ``task.seed``),
-    then overlaid by the checkpoint at ``init_model_path`` with the JAX
-    factory's semantics (gamma/beta remapped; keys the file lacks keep
-    their init and are logged). ``arch`` defaults to
+    overlaid first by the OpenAI CLIP file at ``clip_model_path`` (whose
+    tensor shapes give the architecture), then by the checkpoint at
+    ``init_model_path``, with the JAX factory's semantics (gamma/beta
+    remapped; keys a file lacks keep what they had and are logged).
+    ``arch`` defaults to the CLIP file's, else to
     ``cross.pretrained_clip_name``."""
     task.validate()
     device = resolve_device(device)
-    if arch is None:
+    clip_sd = None
+    if clip_model_path:
+        clip_sd = checkpoint.load_torch_state_dict(clip_model_path)
+        arch = ClipArch.from_state_dict(clip_sd)
+        logger.info(
+            "CLIP arch from checkpoint shapes: embed_dim=%d res=%d "
+            "vision_layers=%s width=%d patch=%s", arch.embed_dim,
+            arch.image_resolution, arch.vision_layers, arch.vision_width,
+            arch.vision_patch_size or None)
+        if arch.is_resnet or arch.linear_patch != "2d":
+            raise NotImplementedError(
+                f"{clip_model_path} holds a ResNet or 3d-patch CLIP tower, "
+                "not ported yet (ROADMAP.md Queue A 10)")
+    elif arch is None:
         arch = ClipArch.by_name(cross.pretrained_clip_name)
     model = BirdModel(arch, cross, language=task.language,
                       use_temp=task.use_temp,
@@ -59,6 +77,10 @@ def build_model(task: TaskConfig, cross: CrossConfig,
     if generator is None:
         generator = torch.Generator().manual_seed(task.seed)
     model.reset_parameters(generator)
+    if clip_sd is not None:
+        checkpoint.merge_into(model, checkpoint.clip_to_port(
+            clip_sd, task.language), logger)
+        logger.info("loaded CLIP weights from %s", clip_model_path)
     if init_model_path:
         if os.path.isdir(init_model_path):
             raise NotImplementedError(

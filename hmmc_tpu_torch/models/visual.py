@@ -31,8 +31,8 @@ class VisualEncoder(nn.Module):
         super().__init__()
         if arch.is_resnet:
             raise NotImplementedError(
-                "ResNet CLIP towers are not ported yet (ROADMAP.md Queue A, "
-                "'Other towers')")
+                "ResNet CLIP towers are not ported yet (ROADMAP.md Queue A "
+                "10, 'Other towers')")
         self.use_temp = use_temp
         self.dtype = dtype
         self.visual = VisionTransformer(arch, dtype, use_fused)

@@ -25,7 +25,7 @@ class VisionTransformer(nn.Module):
         if arch.linear_patch != "2d":
             raise NotImplementedError(
                 "the 3d tube patch embedding is not ported yet (ROADMAP.md "
-                "Queue A, 'Other towers')")
+                "Queue A 10, 'Other towers')")
         self.arch = arch
         self.dtype = dtype
         width, patch = arch.vision_width, arch.vision_patch_size

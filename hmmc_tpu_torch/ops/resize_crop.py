@@ -11,13 +11,19 @@ JAX package runs this step on the host.
 
 Frames come as interleaved RGB ``[H, W, 3]`` or as a JPEG's components as
 encoded (:class:`YccFrame`: Y, and Cb and Cr at any of the samplings in
-:data:`SAMPLING`, or Y alone). :func:`ycc_to_rgb_reference` does
-libjpeg's part: ``jdsample.c``'s upsampling, "fancy" where libjpeg is
-(h2v2, h2v1 and h1v2: 3/4 of the nearer and 1/4 of the farther chroma
-sample along each halved axis, edges replicated, libjpeg's alternating
+:data:`SAMPLING`, or Y alone; or, by its ``color`` (:data:`COLORS`), the
+three planes of an RGB-coded JPEG or the four of a CMYK or YCCK one, the
+fourth at full size). :func:`ycc_to_rgb_reference` does libjpeg's and
+PIL's part: ``jdsample.c``'s upsampling, "fancy" where libjpeg is (h2v2,
+h2v1 and h1v2: 3/4 of the nearer and 1/4 of the farther chroma sample
+along each halved axis, edges replicated, libjpeg's alternating
 rounding), replication elsewhere (4:4:4, 4:1:1, 4:1:0, and chroma two
-samples wide or less under a halved width), and ``jdcolor.c``'s 16-bit
-fixed-point ``ycc_rgb_convert``. Pillow's 8-bit
+samples wide or less under a halved width), then the colour conversion
+``Image.open().convert("RGB")`` ends with: ``jdcolor.c``'s 16-bit
+fixed-point ``ycc_rgb_convert`` for YCbCr; none for RGB planes; for CMYK
+(Adobe's inverted planes) and YCCK (``ycck_cmyk_convert`` first), Pillow's
+``cmyk2rgb``, ``k - k * c / 255`` rounded as its ``MULDIV255``, where k is
+the stored fourth plane and c the ink. Pillow's 8-bit
 resampler (``libImaging/Resample.c``) is two separable passes, horizontal
 into a uint8 intermediate, then vertical. Each output pixel's taps come
 from a bicubic filter (a = -0.5, support 2, widened by the downscale
@@ -59,6 +65,10 @@ SMEM_LIMIT = 160 * 1024    # staged pixels exceed this many bytes)
 _BICUBIC_SUPPORT = 2.0
 FORMATS = {"rgb": 0, "ycc420": 1, "ycc444": 2, "gray": 3, "ycc422": 4,
            "ycc440": 5, "ycc411": 6, "ycc410": 7}
+# what a three- or four-plane frame's planes hold (libjpeg's
+# jpeg_color_space): YCbCr, RGB as coded (Adobe transform 0), CMYK (Adobe's
+# inverted ink), YCCK (Adobe transform 2)
+COLORS = {"ycc": 0, "rgb": 1, "cmyk": 2, "ycck": 3}
 # chroma subsampling (horizontal, vertical factor) of each YCbCr format
 SAMPLING = {FORMATS["ycc444"]: (1, 1), FORMATS["ycc422"]: (2, 1),
             FORMATS["ycc411"]: (4, 1), FORMATS["ycc440"]: (1, 2),
@@ -191,12 +201,16 @@ def _gather_taps(first: np.ndarray, taps: np.ndarray, limit: int,
 class YccFrame:
     """A JPEG's components as encoded: ``y`` [H, W], ``cb`` and ``cr`` of
     one size, [ceil(H / vf), ceil(W / hf)] for a sampling (hf, vf) of
-    :data:`SAMPLING`, or both ``None`` (grayscale). uint8; rows may be
-    padded to a pitch."""
+    :data:`SAMPLING`, or both ``None`` (grayscale). ``color`` names what
+    the planes hold (:data:`COLORS`): for "rgb" they are R, G and B, for
+    "cmyk" and "ycck" ``k`` is the fourth plane, [H, W] with ``y``'s
+    pitch. uint8; rows may be padded to a pitch."""
 
     y: torch.Tensor
     cb: Optional[torch.Tensor] = None
     cr: Optional[torch.Tensor] = None
+    k: Optional[torch.Tensor] = None
+    color: str = "ycc"
 
     @property
     def fmt(self) -> int:
@@ -240,20 +254,38 @@ def _upsample(c: torch.Tensor, h: int, w: int, hf: int, vf: int
     return (3 * rows[:, cx] + rows[:, ox] + rnd) >> (4 if fancy_v else 2)
 
 
+def _muldiv255(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pillow's MULDIV255: a * b / 255, rounded its way."""
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
 def ycc_to_rgb_reference(f: YccFrame) -> torch.Tensor:
-    """libjpeg's output for decoded components: uint8 [H, W, 3] (plain
-    version of R1's stage 0)."""
+    """libjpeg's and PIL's output for decoded components: uint8 [H, W, 3]
+    (plain version of R1's stage 0)."""
     h, w = f.y.shape
     y = f.y.to(torch.int32)
     if f.fmt == FORMATS["gray"]:
         return f.y.unsqueeze(-1).expand(h, w, 3).contiguous()
     hf, vf = SAMPLING[f.fmt]
     cb, cr = _upsample(f.cb, h, w, hf, vf), _upsample(f.cr, h, w, hf, vf)
-    xb, xr = cb - 128, cr - 128
-    r = y + ((91881 * xr + 32768) >> 16)
-    g = y + ((-22554 * xb + 32768 - 46802 * xr) >> 16)
-    b = y + ((116130 * xb + 32768) >> 16)
-    return torch.stack([r, g, b], -1).clamp_(0, 255).to(torch.uint8)
+    if f.color in ("rgb", "cmyk"):
+        rgb = torch.stack([y, cb, cr], -1)
+        if f.color == "rgb":
+            return rgb.to(torch.uint8)
+        ink = 255 - rgb
+    else:
+        xb, xr = cb - 128, cr - 128
+        r = y + ((91881 * xr + 32768) >> 16)
+        g = y + ((-22554 * xb + 32768 - 46802 * xr) >> 16)
+        b = y + ((116130 * xb + 32768) >> 16)
+        rgb = torch.stack([r, g, b], -1).clamp_(0, 255)
+        if f.color == "ycc":
+            return rgb.to(torch.uint8)
+        # ycck_cmyk_convert gives 255 - rgb, which Pillow reads inverted
+        ink = rgb
+    k = f.k.to(torch.int32).unsqueeze(-1)
+    return (k - _muldiv255(ink, k)).clamp_(0, 255).to(torch.uint8)
 
 
 def resize_crop_reference(frames: torch.Tensor, res: int) -> torch.Tensor:
@@ -309,8 +341,9 @@ def _tables_on(device: torch.device, t: CropTables) -> torch.Tensor:
 class PlaneBatch:
     """A batch of frames for the kernel, one entry per slot: plane
     pointers and pitches, ``fmt`` (:data:`FORMATS`, or :data:`PADDED`),
-    and the frame's width and height. ``keep`` holds the tensors the
-    pointers point into."""
+    the frame's width and height, and what a three- or four-plane slot's
+    planes hold (``color``, :data:`COLORS`). ``keep`` holds the tensors
+    the pointers point into."""
 
     p0: np.ndarray
     pitch0: np.ndarray
@@ -321,6 +354,8 @@ class PlaneBatch:
     w: np.ndarray
     h: np.ndarray
     keep: list
+    color: Optional[np.ndarray] = None     # COLORS; None: every slot YCbCr
+    p3: Optional[np.ndarray] = None        # the fourth plane (y's pitch)
 
     @property
     def sampling(self) -> np.ndarray:
@@ -347,7 +382,16 @@ def _check_plane(i: int, name: str, t: torch.Tensor, device) -> None:
 def _check_frame(i: int, f: Frame, device: torch.device) -> None:
     if isinstance(f, YccFrame):
         f.fmt  # noqa: B018  (raises on an unsupported subsampling)
-        for name in ("y", "cb", "cr"):
+        if f.color not in COLORS or (f.cb is None and f.color != "ycc"):
+            raise ValueError(f"frame {i}: colour {f.color!r} of "
+                             f"{'one plane' if f.cb is None else 'planes'}")
+        if (f.k is not None) != (f.color in ("cmyk", "ycck")) or (
+                f.k is not None and (f.k.shape != f.y.shape
+                                     or f.k.stride(0) != f.y.stride(0))):
+            raise ValueError(f"frame {i}: a {f.color} frame's fourth plane "
+                             "is needed (CMYK and YCCK only), of y's shape "
+                             "and pitch")
+        for name in ("y", "cb", "cr", "k"):
             t = getattr(f, name)
             if t is not None:
                 if t.dim() != 2:
@@ -369,7 +413,8 @@ def plane_batch(frames: Sequence[Frame]) -> PlaneBatch:
     per-slot arrays."""
     n = len(frames)
     a = {k: np.zeros(n, np.int64) for k in ("p0", "pitch0", "p1", "p2",
-                                            "pitch1", "w", "h")}
+                                            "pitch1", "w", "h", "color",
+                                            "p3")}
     fmt = np.full(n, PADDED, np.int64)
     keep = []
     for i, f in enumerate(frames):
@@ -383,6 +428,9 @@ def plane_batch(frames: Sequence[Frame]) -> PlaneBatch:
                 if f.cb.stride(0) != f.cr.stride(0):
                     raise ValueError(f"frame {i}: cb and cr pitches differ")
                 a["pitch1"][i] = f.cb.stride(0)
+            if f.k is not None:
+                a["p3"][i] = f.k.data_ptr()
+            a["color"][i] = COLORS[f.color]
             fmt[i] = f.fmt
         else:
             a["h"][i], a["w"][i] = f.shape[:2]
@@ -392,13 +440,13 @@ def plane_batch(frames: Sequence[Frame]) -> PlaneBatch:
     return PlaneBatch(fmt=fmt, keep=keep, **a)
 
 
-def launch(batch: PlaneBatch, res: int, device: torch.device) -> torch.Tensor:
-    """One launch of the kernel over ``batch`` -> uint8 [N, res, res, 3] on
-    ``device`` (a CUDA device)."""
+def descriptor(batch: PlaneBatch, res: int, device: torch.device):
+    """The kernel's launch arguments for ``batch`` (layout in
+    ``csrc/resize_crop.cu``): the int64 descriptor, G geometries of 8 words
+    then N frames of 10; the tap tables it points to, on ``device``, which
+    must outlive the launch; the output rows per CTA and the shared memory
+    the largest tile stages."""
     n = len(batch.fmt)
-    out = torch.empty((n, res, res, 3), dtype=torch.uint8, device=device)
-    if n == 0:
-        return out
     valid = batch.fmt != PADDED
     keys = batch.w * 65536 + batch.h
     uniq, inv = np.unique(keys[valid], return_inverse=True)
@@ -408,22 +456,37 @@ def launch(batch: PlaneBatch, res: int, device: torch.device) -> torch.Tensor:
         tile //= 2
     smem = max([g.smem_bytes(tile) for g in geoms] + [0])
     head = np.zeros((len(geoms), 8), np.int64)
-    tabs = []        # the tables stay alive over the launch
+    tabs = []
     for j, g in enumerate(geoms):
         tabs.append(_tables_on(device, g))
         head[j, :7] = (tabs[-1].data_ptr(), g.x_taps.shape[1],
                        g.y_taps.shape[1], g.w, g.h, *g.staged_cols)
-    rows = np.zeros((n, 8), np.int64)
+    rows = np.zeros((n, 10), np.int64)
     geom = np.zeros(n, np.int64)
     geom[valid] = inv
     rows[:, 0], rows[:, 1], rows[:, 2] = batch.p0, batch.pitch0, geom
     rows[:, 3], rows[:, 4], rows[:, 5] = batch.fmt, batch.p1, batch.p2
     rows[:, 6], rows[:, 7] = batch.pitch1, batch.sampling
-    desc = torch.from_numpy(np.concatenate([head, rows]).ravel()).to(device)
+    if batch.color is not None:
+        rows[:, 8], rows[:, 9] = batch.color, batch.p3
+    return (np.concatenate([head.ravel(), rows.ravel()]), tabs, tile,
+            smem)
+
+
+def launch(batch: PlaneBatch, res: int, device: torch.device) -> torch.Tensor:
+    """One launch of the kernel over ``batch`` -> uint8 [N, res, res, 3] on
+    ``device`` (a CUDA device)."""
+    n = len(batch.fmt)
+    out = torch.empty((n, res, res, 3), dtype=torch.uint8, device=device)
+    if n == 0:
+        return out
+    # one table per geometry; each stays alive over the launch
+    words, tabs, tile, smem = descriptor(batch, res, device)
+    desc = torch.from_numpy(words).to(device)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.hmmc_resize_crop(desc.data_ptr(), len(geoms), n,
+        err = lib.hmmc_resize_crop(desc.data_ptr(), len(tabs), n,
                                    out.data_ptr(), res, tile, smem, stream)
     if err != 0:
         raise RuntimeError(

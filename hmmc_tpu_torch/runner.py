@@ -1,23 +1,34 @@
-"""Run modes: fine-tune and eval (counterpart of ``hmmc_tpu/runner.py``;
-reference main() of main_task_retrieval.py:528-635).
+"""Run modes: fine-tune, eval, feature extract and parameter count
+(counterpart of ``hmmc_tpu/runner.py``; reference main() of
+main_task_retrieval.py:528-635).
 
-:func:`run_finetune` and :func:`run_eval` take the CLI's arguments: they
-build the tokenizer, the registry's loaders (data first, so a bad
-``--data_dir`` fails before the model build) and the model (seeded random
-weights, overlaid by ``--init_model``), then hand over to :func:`finetune`
-or ``Evaluator.run``. :func:`finetune` is the loop, callable with any
-loaders: BertAdam over ``t_total = steps_per_epoch * epochs``, per epoch
-``set_epoch``, the train step over the loader, the reference's console line
-every ``n_display`` steps (epoch, step, the scheduled learning rates, loss,
-host seconds in data and step), ``pytorch_model.bin.{epoch}`` under
-``output_dir`` in the reference's names, then ``Evaluator.run`` and the best
-t2v R@1.
+:func:`run_finetune`, :func:`run_eval`, :func:`run_extract` and
+:func:`run_params` take the CLI's arguments: they build the tokenizer, the
+registry's loaders (data first, so a bad ``--data_dir`` fails before the
+model build) and the model (seeded random weights, overlaid by
+``--clip_model``, then by ``--init_model``), then hand over to
+:func:`finetune`, ``Evaluator.run``, the feature cache or the counters.
+:func:`finetune` is the loop, callable with any loaders: BertAdam over
+``t_total = steps_per_epoch * epochs``, per epoch ``set_epoch``, the train
+step over the loader, the reference's console line every ``n_display``
+steps (epoch, step, the scheduled learning rates, loss, host seconds in
+data and step), ``pytorch_model.bin.{epoch}`` under ``output_dir`` in the
+reference's names, then ``Evaluator.run`` and the best t2v R@1.
+
+:func:`run_extract` writes ``output_dir/features.npz`` with the JAX
+package's keys and dtypes (``tools/retrieve.py``, :mod:`hmmc_tpu_torch.
+retrieve` and :mod:`hmmc_tpu_torch.serve` read it), int8 video side with
+``--quantize_bank int8``. :func:`run_params` counts parameters and the
+forward's FLOPs at batch 1 with ``torch.utils.flop_counter``, over the
+plain attention: the counter sees PyTorch's operators, not K1 behind its
+ctypes call. It counts matrix products and convolutions only, where the
+JAX package's XLA cost analysis counts elementwise work too.
 
 Batches carry compressed frames (``video_blobs``: decoded on the device,
 nvJPEG and R1 on the card) or host uint8 ``video``. Not ported yet
 (ROADMAP.md Queue A): Orbax state checkpoints, ``--resume`` and preemption
-saves, the profiler hook, the mesh, pretrain, extract, retrieval_VT. It runs
-on the card unless the caller passes ``device="cpu"``.
+saves, the profiler hook, the mesh, pretrain, retrieval_VT. It runs on the
+card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from hmmc_tpu_torch.data.registry import get_factory
 from hmmc_tpu_torch.evaluation import Evaluator
 from hmmc_tpu_torch.factory import build_model, resolve_device
 from hmmc_tpu_torch.ops import image_ops
+from hmmc_tpu_torch.ops.quant import quantize_bank
 from hmmc_tpu_torch.train.checkpoint import save_reference_checkpoint
 from hmmc_tpu_torch.train.optimization import build_optimizer, scheduled_lr
 from hmmc_tpu_torch.train.trainer import FinetuneState, make_finetune_step
@@ -105,7 +117,8 @@ def finetune(task: TaskConfig, cross: CrossConfig, train_loader,
     log = log or logger
     device = resolve_device(device)
     model = build_model(task, cross, arch=arch, device=device,
-                        init_model_path=task.init_model)
+                        init_model_path=task.init_model,
+                        clip_model_path=task.clip_model)
     resolution = task.image_resolution or model.arch.image_resolution
     steps_per_epoch = len(train_loader)
     t_total = steps_per_epoch * task.epochs
@@ -165,6 +178,9 @@ def finetune(task: TaskConfig, cross: CrossConfig, train_loader,
 
 
 def _task_with_resolution(args):
+    # the resolution comes from pretrained_clip_name even where --clip_model
+    # names a file of another size, as in the JAX package
+    # (hmmc_tpu/runner.py:101-109)
     task = to_task_config(args)
     cross = load_cross_config(task.cross_model)
     if not task.image_resolution:
@@ -183,7 +199,8 @@ def run_eval(args, log=None, device=None) -> Dict[str, float]:
     loader, dataset = get_factory(task.dataset, split)(task, tokenizer)
     device = resolve_device(device)
     model = build_model(task, cross, device=device,
-                        init_model_path=task.init_model)
+                        init_model_path=task.init_model,
+                        clip_model_path=task.clip_model)
     return Evaluator(model, task, device=device).run(loader, dataset, log)
 
 
@@ -205,11 +222,91 @@ def run_finetune(args, log=None, device=None) -> FinetuneRun:
         writer.close()
 
 
+def _dataset_video_ids(dataset):
+    ids = getattr(dataset, "video_ids", None)
+    if ids is not None:
+        return list(ids)
+    rows = getattr(dataset, "data", None)
+    if rows and "video_id" in rows[0]:
+        return [r["video_id"] for r in rows]
+    return None
+
+
+def run_extract(args, log=None, device=None) -> str:
+    """``--do_extract``: the eval split's features as a bank,
+    ``output_dir/features.npz`` (phase 1 of eval_epoch,
+    main_task_retrieval.py:383-441, as an artifact). Returns its path."""
+    task, cross = _task_with_resolution(args)
+    log = log or setup_logging(task.output_dir)
+    set_seed(task.seed)
+    tokenizer = make_tokenizer(task)
+    loader, dataset = get_factory(task.dataset, "test")(task, tokenizer)
+    device = resolve_device(device)
+    model = build_model(task, cross, device=device,
+                        init_model_path=task.init_model,
+                        clip_model_path=task.clip_model)
+    q, v, f, multi, cut_off = Evaluator(model, task, device=device
+                                        ).cache_features(loader, dataset)
+    payload = {"query": q, "video": v, "frames": f,
+               "logit_scale": np.float32(float(model.logit_scale())),
+               "multi_sentence": np.bool_(multi),
+               "cut_off_points": np.asarray(cut_off, np.int64),
+               "top_frames": np.int32(task.top_frames),
+               "use_frame_fea": np.bool_(task.use_frame_fea)}
+    ids = _dataset_video_ids(dataset)
+    if ids is not None:
+        payload["video_ids"] = np.asarray(ids)
+    if args.quantize_bank == "int8":
+        payload = quantize_bank(payload)
+    out = os.path.join(task.output_dir or ".", "features.npz")
+    np.savez(out, **payload)
+    log.info("wrote %d query / %d video features to %s", len(q), len(v),
+             out)
+    return out
+
+
+def run_params(args, log=None, device=None) -> Dict[str, float]:
+    """``--do_params``: the parameter count and the forward's FLOPs at batch
+    1 (``encode_text`` + ``encode_video`` of zeros), counted by
+    ``FlopCounterMode`` over the plain attention (reference: thop.profile,
+    main_task_retrieval.py:623-633)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    task, cross = _task_with_resolution(args)
+    log = log or setup_logging(task.output_dir)
+    device = resolve_device(device)
+    model = build_model(task.replace(use_fused_attention="off"), cross,
+                        device=device, init_model_path=task.init_model,
+                        clip_model_path=task.clip_model)
+    n_params = sum(p.numel() for p in model.parameters())
+    res = task.image_resolution or 224
+    ids = torch.zeros((1, task.max_words), dtype=torch.long, device=device)
+    video = torch.zeros((1, task.max_frames, res, res, 3), device=device)
+    with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+        model.encode_text(ids)
+        model.encode_video(video)
+    flops = float(counter.get_total_flops())
+    log.info("params: %.2fM  forward flops (batch 1): %.2fG",
+             n_params / 1e6, flops / 1e9)
+    return {"params": n_params, "flops": flops}
+
+
 def main(args, device=None):
-    """``--do_train`` (with its epoch-end evals; returns the
-    :class:`FinetuneRun`), else ``--do_eval`` (returns its metrics)."""
+    """As the JAX runner dispatches: ``--do_params`` first (its counts are
+    returned when nothing else runs), then ``--do_train`` (with its
+    epoch-end evals; returns the :class:`FinetuneRun`), else
+    ``--do_extract`` (returns the bank's path), else ``--do_eval``
+    (returns its metrics)."""
+    out = None
+    if args.do_params:
+        out = run_params(args, device=device)
     if args.do_train:
         return run_finetune(args, device=device)
+    if args.do_extract:
+        return run_extract(args, device=device)
     if args.do_eval:
         return run_eval(args, device=device)
-    raise ValueError("nothing to do: pass --do_train or --do_eval")
+    if out is None:
+        raise ValueError("nothing to do: pass --do_train, --do_eval, "
+                         "--do_extract or --do_params")
+    return out

@@ -1,21 +1,23 @@
-"""Reference-format checkpoints: ``pytorch_model.bin.{epoch}`` in and out
+"""Reference-format checkpoints: OpenAI CLIP archives and
+``pytorch_model.bin.{epoch}`` in, ``pytorch_model.bin.{epoch}`` out
 (counterpart of ``load_torch_state_dict`` / ``remap_gamma_beta`` /
-``merge_params`` in ``hmmc_tpu/train/checkpoint.py`` and
-``save_reference_checkpoint`` in ``hmmc_tpu/train/orbax_io.py``).
+``merge_params`` / the CLIP split of ``import_clip_weights`` in
+``hmmc_tpu/train/checkpoint.py`` and ``save_reference_checkpoint`` in
+``hmmc_tpu/train/orbax_io.py``).
 
 The port's module names are the reference checkpoint's (OpenAI CLIP / HMMC
 ``state_dict`` keys), so a file maps onto ``BirdModel.state_dict()`` by
-name. Files are pickled state dicts read with ``weights_only=True``; an
-OpenAI CLIP TorchScript archive (``ViT-B-32.pt``) is refused until
-``--clip_model`` is ported. Orbax directories (the JAX package's own
-training state) are not read.
+name; an OpenAI CLIP file's keys get the port's tower prefixes
+(:func:`clip_to_port`). A file is a TorchScript archive (OpenAI's
+``ViT-B-32.pt``: its module's ``state_dict()``) or a pickled state dict
+(read with ``weights_only=True``). Orbax directories (the JAX package's
+own training state) are not read.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import zipfile
 from typing import Dict
 
 import torch
@@ -25,26 +27,44 @@ logger = logging.getLogger(__name__)
 StateDict = Dict[str, torch.Tensor]
 
 
-def _is_torchscript(path: str) -> bool:
-    if not zipfile.is_zipfile(path):
-        return False
-    with zipfile.ZipFile(path) as z:
-        return any(n.endswith("constants.pkl") or "/code/" in n
-                   for n in z.namelist())
-
-
 def load_torch_state_dict(path: str) -> StateDict:
-    """A pickled torch state dict as CPU tensors, floating ones in fp32."""
-    if _is_torchscript(path):
-        raise NotImplementedError(
-            f"{path} is a TorchScript archive (an OpenAI CLIP .pt): loading "
-            "those waits for the port of --clip_model (ROADMAP.md Queue A)")
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    """A TorchScript archive's state dict (``torch.jit.load``, as the
+    reference's CLIP loader tries first, module_clip.py:432-439) or else a
+    pickled state dict, as CPU tensors, floating ones in fp32 (OpenAI's
+    archives hold fp16)."""
+    try:
+        sd = torch.jit.load(path, map_location="cpu").state_dict()
+    except RuntimeError:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(sd, dict):
         raise ValueError(f"{path} does not hold a state dict "
                          f"(got {type(sd).__name__})")
     return {k: (v.detach().float() if v.is_floating_point() else v.detach())
             for k, v in sd.items()}
+
+
+# an OpenAI CLIP file's text-tower keys (module_clip.py:470-487)
+_CLIP_TEXT = ("token_embedding.", "positional_embedding", "transformer.",
+              "ln_final.", "text_projection")
+
+
+def clip_to_port(sd: StateDict, language: str) -> StateDict:
+    """An OpenAI CLIP state dict under the port's names: ``visual.*`` ->
+    ``visual_encoder.visual.*``, ``logit_scale`` ->
+    ``text_encoder.logit_scale``, and in English the text tower's keys ->
+    ``text_encoder.*`` (the split of ``import_clip_weights`` and of the JAX
+    factory's overlay, ``hmmc_tpu/factory.py:151-167``). Other keys
+    (``input_resolution``, ``context_length``, ``vocab_size`` in OpenAI's
+    archives) are dropped."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("visual."):
+            out["visual_encoder." + k] = v
+        elif k == "logit_scale":
+            out["text_encoder.logit_scale"] = v
+        elif language == "english" and k.startswith(_CLIP_TEXT):
+            out["text_encoder." + k] = v
+    return out
 
 
 def remap_gamma_beta(sd: StateDict) -> StateDict:

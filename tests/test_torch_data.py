@@ -178,6 +178,37 @@ def test_ycc_to_rgb_reference_equals_libjpeg(w, h, sampling):
         resize_crop([frame], 32)[0].numpy(), _pil_crop(ref, 32))
 
 
+def test_resize_crop_descriptor_layout():
+    """The kernel's descriptor as ``csrc/resize_crop.cu`` reads it: 8 words
+    per geometry, then 10 per frame, the colour and the fourth plane
+    last."""
+    from hmmc_tpu_torch.ops.resize_crop import (COLORS, PADDED, descriptor,
+                                                plane_batch)
+
+    rng = np.random.default_rng(2)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, np.uint8))
+
+    k = u8(30, 40)
+    frames = [u8(30, 40, 3), None, YccFrame(u8(30, 40), u8(15, 20),
+                                            u8(15, 20)),
+              YccFrame(u8(30, 40), u8(30, 40), u8(30, 40), k, "cmyk"),
+              YccFrame(u8(24, 24), u8(24, 24), u8(24, 24), None, "rgb")]
+    batch = plane_batch(frames)
+    words, tabs, tile, smem = descriptor(batch, 16, torch.device("cpu"))
+    assert len(tabs) == 2 and words.shape == (8 * 2 + 10 * len(frames),)
+    rows = words[16:].reshape(len(frames), 10)
+    assert list(rows[:, 3]) == [FORMATS["rgb"], PADDED, FORMATS["ycc420"],
+                                FORMATS["ycc444"], FORMATS["ycc444"]]
+    assert list(rows[:, 8]) == [0, 0, COLORS["ycc"], COLORS["cmyk"],
+                                COLORS["rgb"]]
+    assert rows[3, 9] == k.data_ptr() and rows[4, 9] == 0
+    assert list(rows[:, 2]) == [1, 0, 1, 1, 0]     # geometries by size
+    assert words[0] == tabs[0].data_ptr() and words[3:5].tolist() == [24, 24]
+    assert tile >= 1 and smem > 0
+
+
 def test_resize_crop_batches_sizes_and_padded_slots():
     rng = np.random.default_rng(1)
     arrs = [_image(rng, w, h) for w, h in ((40, 30), (30, 40), (64, 64))]
@@ -195,13 +226,104 @@ def test_fixture_holds_pil_decodes_and_jax_crops(reference):
     from PIL import Image
 
     blobs, rgb, crops = _fixture()
-    assert os.path.getsize(FIXTURE) <= 4 * 2 ** 20 and len(blobs) == 14
+    assert os.path.getsize(FIXTURE) <= 4 * 2 ** 20 and len(blobs) == 17
+    assert [jpeg.parse_header(b).color for b in blobs] == list(
+        np.load(FIXTURE)["color"])
     for b, r, c in zip(blobs, rgb, crops):
         np.testing.assert_array_equal(
             np.asarray(Image.open(io.BytesIO(b)).convert("RGB")), r)
         np.testing.assert_array_equal(jds._decode_eval(b, 224), c)
     np.testing.assert_array_equal(
         jpeg.decode_frames(blobs, 224, "cpu").numpy(), np.stack(crops))
+
+
+def _with_segment(blob, marker, payload):
+    """``blob`` with a marker segment inserted after its SOI."""
+    seg = bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big")
+    return blob[:2] + seg + payload + blob[2:]
+
+
+def _without_app14(blob):
+    assert blob[2:4] == b"\xff\xee"        # Pillow writes APP14 first
+    return blob[:2] + blob[4 + int.from_bytes(blob[4:6], "big"):]
+
+
+def _with_transform(blob, t):
+    assert blob[6:11] == b"Adobe"
+    return blob[:17] + bytes([t]) + blob[18:]
+
+
+def _with_ids(blob, ids):
+    """The component ids renamed in the frame header and in the scan's."""
+    out = bytearray(blob)
+    sof, sos = out.index(b"\xff\xc0"), out.index(b"\xff\xda")
+    for c, cid in enumerate(ids):
+        out[sof + 10 + 3 * c] = out[sos + 5 + 2 * c] = cid
+    return bytes(out)
+
+
+def test_jpeg_header_colour_and_plain_conversion_equal_pil():
+    """C1: what the planes hold, read from the header as libjpeg reads it,
+    and R1's plain stage 0 on the planes as coded, against PIL's decode of
+    the same blob. Pillow writes an RGB-coded (``keep_rgb``) and a CMYK
+    JPEG; the variants patch their headers (Adobe transform, JFIF, the
+    component ids). The planes as coded come from PIL's decode of the
+    blob read without conversion (RGB-coded, or CMYK read inverted)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(9)
+    arr = _image(rng, 61, 45)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, "JPEG", quality=90, keep_rgb=True)
+    rgb_coded = buf.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray(np.concatenate([255 - arr, arr[..., :1]], -1),
+                    "CMYK").save(buf, "JPEG", quality=90)
+    cmyk = buf.getvalue()
+    jfif = b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+    three = np.asarray(Image.open(io.BytesIO(rgb_coded)))
+    four = 255 - np.asarray(Image.open(io.BytesIO(cmyk)))
+    cases = [(rgb_coded, "rgb"), (_with_transform(rgb_coded, 1), "ycc"),
+             (_without_app14(rgb_coded), "rgb"),
+             (_with_ids(_without_app14(rgb_coded), (1, 2, 3)), "ycc"),
+             (_with_segment(rgb_coded, 0xE0, jfif), "ycc"),
+             (cmyk, "cmyk"), (_with_transform(cmyk, 2), "ycck"),
+             (_with_transform(cmyk, 1), "ycck"),
+             (_without_app14(cmyk), "cmyk")]
+    for blob, color in cases:
+        head = jpeg.parse_header(blob)
+        assert head.color == color, (head, color)
+        planes = three if len(head.components) == 3 else four
+        t = [torch.from_numpy(np.ascontiguousarray(planes[..., c]))
+             for c in range(planes.shape[-1])]
+        frame = YccFrame(*t[:3], t[3] if len(t) == 4 else None, color)
+        pil = np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))
+        np.testing.assert_array_equal(ycc_to_rgb_reference(frame).numpy(),
+                                      pil, err_msg=color)
+        np.testing.assert_array_equal(
+            jpeg.decode_frames([blob], 32, "cpu")[0].numpy(),
+            _pil_crop(pil, 32))
+    assert jpeg.parse_header(b"not a jpeg") is None
+    assert jpeg.parse_header(rgb_coded[:20]) is None
+
+
+def test_decompression_bomb_frame_zero_filled_in_both(reference, caplog,
+                                                      monkeypatch):
+    """C2: a frame PIL refuses as a decompression bomb is zero-filled,
+    warned and counted, as the JAX package's ``_decode_eval`` does."""
+    from PIL import Image
+
+    good = _jpeg(_image(np.random.default_rng(3), 40, 30))
+    monkeypatch.setattr(Image, "MAX_IMAGE_PIXELS", 100)
+    with pytest.raises(Image.DecompressionBombError):
+        Image.open(io.BytesIO(good))
+    before = jpeg.decode_frames.decode_failures
+    with caplog.at_level(logging.WARNING):
+        out = jpeg.decode_frames([good, None], 32, "cpu")
+        ref = jds._decode_eval(good, 32)
+    assert int(out.sum()) == 0 and int(np.abs(ref).sum()) == 0
+    assert jpeg.decode_frames.decode_failures == before + 1
+    assert caplog.text.count("corrupt JPEG frame (zero-filled)") == 2
 
 
 def test_corrupt_blob_zero_filled_with_warning_in_both(reference, caplog):
@@ -464,6 +586,10 @@ TINY_ARCH = dict(
     vision_patch_size=16, context_length=64, vocab_size=49408,
     transformer_width=32, transformer_heads=2, transformer_layers=2)
 N_VIDEOS, FRAMES_STORED = 12, 4
+# torch's FLOP counter over XLA's cost analysis at the tiny geometry,
+# measured 0.9616 (XLA adds the elementwise work; the counter takes only
+# the matrix products and the convolution)
+PARAMS_FLOPS_RATIO = (0.9, 1.0)
 
 
 @pytest.fixture(scope="module")
@@ -569,12 +695,19 @@ def test_cli_finetune_matches_jax_and_reloads(reference, tiny_arch,
 
 
 def test_checkpoint_refuses_torchscript_and_merges_by_name(tmp_path):
-    scripted = torch.jit.script(torch.nn.Linear(2, 2))
+    """A TorchScript archive is read (its module's state dict, floats as
+    fp32), no longer refused; a pickled dict as before; merge by name."""
+    scripted = torch.jit.script(torch.nn.Linear(2, 2).half())
     path = str(tmp_path / "clip.pt")
     scripted.save(path)
     assert zipfile.is_zipfile(path)
-    with pytest.raises(NotImplementedError, match="--clip_model"):
-        pckpt.load_torch_state_dict(path)
+    sd = pckpt.load_torch_state_dict(path)
+    assert set(sd) == {"weight", "bias"} and sd["weight"].dtype == \
+        torch.float32
+    assert torch.equal(sd["weight"], scripted.weight.float())
+    with pytest.raises(ValueError, match="state dict"):
+        torch.save([1], str(tmp_path / "list.pt"))
+        pckpt.load_torch_state_dict(str(tmp_path / "list.pt"))
     model = torch.nn.Linear(2, 3)
     sd = pckpt.remap_gamma_beta({"gamma": torch.ones(3, 2),
                                  "extra": torch.zeros(1)})
@@ -598,14 +731,365 @@ def test_cli_flags(tmp_path):
                  ["--sp_size", "2"], ["--fused_ema"]):
         with pytest.raises(ValueError, match=flag[0]):
             task(*flag)
-    with pytest.raises(NotImplementedError, match="--clip_model"):
-        task("--clip_model", "x.pt")
+    assert task("--clip_model", "x.pt").clip_model == "x.pt"
+    for mode in ("--do_extract", "--do_params"):      # alone, as in JAX
+        assert pcli.to_task_config(pcli.get_args(argv=[
+            "--output_dir", str(tmp_path), mode, "--language",
+            "english"]))
+    with pytest.raises(ValueError, match="do_extract"):
+        pcli.to_task_config(pcli.get_args(argv=["--output_dir",
+                                                str(tmp_path)]))
+    with pytest.raises(NotImplementedError, match="--do_pretrain"):
+        task("--do_pretrain")
     with pytest.raises(NotImplementedError, match="Queue A"):
         pcli.make_tokenizer(pconfig.TaskConfig(language="chinese"))
     from hmmc_tpu_torch.data.registry import get_factory
 
     with pytest.raises(NotImplementedError, match="Queue A"):
         get_factory("vatex", "test")
+
+
+# ---------------------------------------------------------------------------
+# serving: OpenAI CLIP archives, the feature bank, params, the service
+# ---------------------------------------------------------------------------
+
+def _clip_state_dict(arch, seed=0):
+    """A seeded state dict under OpenAI CLIP's names at ``arch`` (a
+    TINY_ARCH-like dict)."""
+    g = np.random.default_rng(seed)
+    vw, tw, emb = arch["vision_width"], arch["transformer_width"], \
+        arch["embed_dim"]
+    patch, grid = arch["vision_patch_size"], (
+        arch["image_resolution"] // arch["vision_patch_size"])
+
+    def t(*shape):
+        return torch.tensor(g.normal(size=shape).astype(np.float32) * 0.05)
+
+    sd = {"visual.conv1.weight": t(vw, 3, patch, patch),
+          "visual.class_embedding": t(vw),
+          "visual.positional_embedding": t(grid * grid + 1, vw),
+          "visual.proj": t(vw, emb),
+          "visual.ln_pre.weight": 1 + t(vw), "visual.ln_pre.bias": t(vw),
+          "visual.ln_post.weight": 1 + t(vw), "visual.ln_post.bias": t(vw),
+          "token_embedding.weight": t(arch["vocab_size"], tw),
+          "positional_embedding": t(arch["context_length"], tw),
+          "text_projection": t(tw, emb),
+          "ln_final.weight": 1 + t(tw), "ln_final.bias": t(tw),
+          "logit_scale": torch.tensor(np.float32(3.5))}
+    for tower, n, w in (("visual.transformer", arch["vision_layers"], vw),
+                        ("transformer", arch["transformer_layers"], tw)):
+        for i in range(n):
+            b = f"{tower}.resblocks.{i}"
+            sd.update({
+                f"{b}.attn.in_proj_weight": t(3 * w, w),
+                f"{b}.attn.in_proj_bias": t(3 * w),
+                f"{b}.attn.out_proj.weight": t(w, w),
+                f"{b}.attn.out_proj.bias": t(w),
+                f"{b}.ln_1.weight": 1 + t(w), f"{b}.ln_1.bias": t(w),
+                f"{b}.ln_2.weight": 1 + t(w), f"{b}.ln_2.bias": t(w),
+                f"{b}.mlp.c_fc.weight": t(4 * w, w),
+                f"{b}.mlp.c_fc.bias": t(4 * w),
+                f"{b}.mlp.c_proj.weight": t(w, 4 * w),
+                f"{b}.mlp.c_proj.bias": t(w)})
+    return sd
+
+
+def _save_torchscript(sd, path):
+    """``sd`` as OpenAI ships CLIP: a scripted module (here a container
+    whose parameters carry CLIP's names), fp16, ``torch.jit.save``."""
+    root = torch.nn.Module()
+    for k, v in sd.items():
+        *path_, name = k.split(".")
+        m = root
+        for part in path_:
+            if not hasattr(m, part):
+                m.add_module(part, torch.nn.Module())
+            m = getattr(m, part)
+        m.register_parameter(name, torch.nn.Parameter(
+            v.half(), requires_grad=False))
+    torch.jit.save(torch.jit.script(root), path)
+
+
+# a CLIP file's arch is read from its shapes, heads as width // 64
+CLIP_TEST_ARCH = dict(TINY_ARCH, vision_width=64, transformer_width=64,
+                      transformer_heads=1, context_length=16,
+                      vocab_size=512)
+
+
+def test_clip_archive_both_forms_match_jax(reference, tmp_path):
+    """--clip_model: one seeded CLIP state dict in fp16, as OpenAI ships
+    it, saved as a TorchScript archive and as a torch.save dict, each fed
+    to the JAX factory and to the port's. The arch read from the shapes
+    and the overlaid weights agree; the encoders (fp32, 1e-4) are compared
+    on the first form, and the second gives both packages the same
+    models."""
+    import dataclasses
+
+    from hmmc_tpu import factory as jfactory
+
+    from hmmc_tpu_torch import factory as pfactory
+    from hmmc_tpu_torch.weights import from_jax_params
+
+    # the dict as OpenAI ships it, fp16, saved in both forms
+    sd = {k: v.half() for k, v in _clip_state_dict(CLIP_TEST_ARCH).items()}
+    cross = pconfig.CrossConfig(temporal_hidden_size=32,
+                                temporal_attention_heads=2,
+                                temporal_hidden_layers=2,
+                                max_position_embeddings=8)
+    jcross = jconfig.CrossConfig(**dataclasses.asdict(cross))
+    task = pconfig.TaskConfig(max_frames=4, max_words=16,
+                              compute_dtype="float32")
+    jtask = jconfig.TaskConfig(do_eval=True, language="english",
+                               max_frames=4, max_words=16,
+                               compute_dtype="float32")
+    rng = np.random.default_rng(5)
+    ids = rng.integers(1, 500, size=(3, 16)).astype(np.int32)
+    ids[:, 9], ids[:, 10:] = CLIP_TEST_ARCH["vocab_size"] - 1, 0
+    video = rng.normal(size=(2, 4, 32, 32, 3)).astype(np.float32)
+    expected = {k: v.float() for k, v in sd.items()}
+    first = None
+    for form in ("torchscript", "state_dict"):
+        path = str(tmp_path / f"ViT-Tiny.{form}.pt")
+        if form == "torchscript":
+            _save_torchscript(sd, path)
+        else:
+            torch.save(sd, path)
+        loaded = pckpt.load_torch_state_dict(path)
+        assert all(torch.equal(loaded[k], v) for k, v in expected.items())
+        arch = pconfig.ClipArch.from_state_dict(loaded)
+        assert dataclasses.asdict(arch) == dataclasses.asdict(
+            jconfig.ClipArch.from_state_dict(loaded))
+        assert arch == pconfig.ClipArch(**CLIP_TEST_ARCH)
+        jmodel, variables = jfactory.build_model(jtask, jcross,
+                                                 clip_model_path=path)
+        model = pfactory.build_model(task, cross, device="cpu",
+                                     clip_model_path=path)
+        jsd = from_jax_params(variables["params"])
+        own = model.state_dict()
+        clip_keys = pckpt.clip_to_port(expected, "english")
+        assert len(clip_keys) == len(sd) and set(clip_keys) < set(own)
+        for k, v in clip_keys.items():
+            assert torch.equal(own[k], v.reshape(own[k].shape)), k
+            np.testing.assert_allclose(jsd[k].numpy(), own[k].numpy(),
+                                       atol=1e-7, err_msg=k)
+        # the temporal tower is seeded in each package its own way: give
+        # the port JAX's draw of what the CLIP file lacks
+        model.load_state_dict({k: v for k, v in jsd.items()
+                               if k not in clip_keys}, strict=False)
+        if first is not None:
+            # the same weights from the other form: the same models
+            assert all(torch.equal(first[0][k], v)
+                       for k, v in model.state_dict().items())
+            assert all(torch.equal(first[1][k], v) for k, v in jsd.items())
+            continue
+        first = (model.state_dict(), jsd)
+        with torch.no_grad():
+            q = model.encode_text(torch.from_numpy(ids).long()).numpy()
+            v, f = (t.numpy() for t in model.encode_video(
+                torch.from_numpy(video)))
+        jq = jmodel.apply(variables, ids, (ids > 0).astype(np.int32),
+                          method="encode_text")
+        jv, jf = jmodel.apply(variables, video, method="encode_video")
+        np.testing.assert_allclose(q, np.asarray(jq), atol=1e-4)
+        np.testing.assert_allclose(v, np.asarray(jv), atol=1e-4)
+        np.testing.assert_allclose(f, np.asarray(jf), atol=1e-4)
+    resnet = {"text_projection": torch.zeros(8, 4),
+              "visual.layer1.0.conv1.weight": torch.zeros(2, 2, 1, 1),
+              "visual.attnpool.positional_embedding": torch.zeros(50, 2),
+              "ln_final.weight": torch.zeros(8),
+              "positional_embedding": torch.zeros(4, 8),
+              "token_embedding.weight": torch.zeros(10, 8)}
+    torch.save(resnet, str(tmp_path / "rn.pt"))
+    with pytest.raises(NotImplementedError, match="Queue A 10"):
+        pfactory.build_model(task, cross, device="cpu",
+                             clip_model_path=str(tmp_path / "rn.pt"))
+
+
+@pytest.fixture(scope="module")
+def banks(tiny_arch, cli_layout, tmp_path_factory):
+    """One JAX-written checkpoint; its --do_extract banks from the JAX
+    runner (float; its int8 bank is ``hmmc_tpu.ops.quant.quantize_bank``
+    of that payload, which is all ``--quantize_bank int8`` adds there,
+    hmmc_tpu/runner.py:614-617) and from the port's runner (float and
+    int8)."""
+    if jconfig is None:
+        pytest.skip("needs hmmc_tpu (the reference)")
+    from hmmc_tpu import factory as jfactory
+    from hmmc_tpu.cli import get_args as jax_args
+    from hmmc_tpu.ops.quant import quantize_bank as jax_quantize_bank
+    from hmmc_tpu.runner import run_extract as jax_run_extract
+    from hmmc_tpu.train.orbax_io import save_reference_checkpoint
+
+    data_dir, cross = cli_layout
+    root = tmp_path_factory.mktemp("banks")
+    _, variables = jfactory.build_model(
+        jconfig.TaskConfig(do_eval=True, max_frames=4, max_words=16,
+                           compute_dtype="float32"),
+        jconfig.load_cross_config(cross))
+    init = str(root / "init.bin")
+    save_reference_checkpoint(init, variables["params"])
+    extra = ("--do_extract", "--init_model", init)
+    out = {"init": init, "jax": jax_run_extract(jax_args(argv=_argv(
+        data_dir, cross, str(root / "jax"), extra)))}
+    out["jax_int8"] = str(root / "jax" / "features_int8.npz")
+    np.savez(out["jax_int8"], **jax_quantize_bank(dict(np.load(out["jax"]))))
+    for name, more in (("", ()), ("_int8", ("--quantize_bank", "int8"))):
+        out["port" + name] = prunner.main(pcli.get_args(argv=_argv(
+            data_dir, cross, str(root / ("port" + name)), extra + more)),
+            device="cpu")
+    return out
+
+
+def test_extract_banks_match_jax(reference, banks):
+    """--do_extract: the port's banks against the JAX runner's (keys and
+    dtypes equal; float arrays within 1e-4, int8 arrays bitwise, scales
+    within 1e-6), and tools/retrieve.py's similarity on each (1e-4, equal
+    metrics), which the port's own retrieve reproduces."""
+    from hmmc_tpu.metrics import logging_rank as jax_logging_rank
+    from tools.retrieve import similarity_from_bank as jax_similarity
+
+    from hmmc_tpu_torch import retrieve
+
+    assert banks["port"].endswith("features.npz")
+    pairs = [tuple(dict(np.load(banks[side + q])) for side in ("port", "jax"))
+             for q in ("", "_int8")]
+    for pbank, jbank in pairs:
+        assert sorted(pbank) == sorted(jbank)
+        for k in jbank:
+            assert pbank[k].dtype == jbank[k].dtype, k
+            if k.endswith("_scale"):
+                np.testing.assert_allclose(pbank[k], jbank[k], atol=1e-6)
+            elif jbank[k].dtype.kind == "f":
+                np.testing.assert_allclose(pbank[k], jbank[k], atol=1e-4,
+                                           err_msg=k)
+            else:       # int8 features, ids, flags, cut-offs: bitwise
+                np.testing.assert_array_equal(pbank[k], jbank[k], err_msg=k)
+    assert str(pairs[1][0]["quant"]) == "int8"
+
+    def metrics(sim, bank):
+        return jax_logging_rank(sim, bool(bank["multi_sentence"]),
+                                list(bank["cut_off_points"]))
+
+    for port_bank, jax_bank in pairs:
+        sim, jsim = jax_similarity(port_bank), jax_similarity(jax_bank)
+        np.testing.assert_allclose(sim, jsim, atol=1e-4)
+        assert metrics(sim, port_bank) == metrics(jsim, jax_bank)
+        np.testing.assert_allclose(retrieve.similarity_from_bank(port_bank),
+                                   sim, atol=1e-6)
+        assert retrieve.bank_metrics(port_bank) == metrics(sim, port_bank)
+
+
+def test_run_params_matches_jax(reference, tiny_arch, cli_layout, tmp_path):
+    """--do_params: the parameter count equals JAX's; the forward FLOPs
+    (torch's counter: matrix products and convolutions) against XLA's
+    cost analysis (which adds the elementwise work) at this geometry."""
+    from hmmc_tpu.cli import get_args as jax_args
+    from hmmc_tpu.runner import run_params as jax_run_params
+
+    data_dir, cross = cli_layout
+    argv = _argv(data_dir, cross, str(tmp_path), ("--do_params",))
+    ref = jax_run_params(jax_args(argv=argv))
+    got = prunner.main(pcli.get_args(argv=argv), device="cpu")
+    assert got["params"] == ref["params"]
+    ratio = got["flops"] / ref["flops"]
+    assert PARAMS_FLOPS_RATIO[0] <= ratio <= PARAMS_FLOPS_RATIO[1], ratio
+
+
+def _serve_args(cli_layout, banks, device_rank=False, get_args=None):
+    data_dir, cross = cli_layout
+    args = (get_args or pcli.get_args)(argv=_argv(
+        data_dir, cross, os.path.dirname(banks["port"]),
+        ("--do_eval", "--init_model", banks["init"])))
+    args.features, args.device_rank = banks["port"], device_rank
+    return args
+
+
+SERVE_QUERIES = ["test sentence 3", "a clip about video2 number 1",
+                 "test sentence 10", "nothing like any caption"]
+
+
+def test_retrieval_service_matches_jax_and_serves(reference, banks,
+                                                  cli_layout):
+    """The port's RetrievalService on the CPU: host-ranked top-5 ids equal
+    tools/serve.py's on the same bank and checkpoint; scores as
+    similarity_from_bank's; one HTTP round trip and two concurrent
+    requests; --device_rank ranks the int8 bank with the same top-1."""
+    import urllib.request
+
+    from hmmc_tpu.cli import get_args as jax_args
+    from tools.serve import RetrievalService as JaxService
+
+    from hmmc_tpu_torch import serve
+    from hmmc_tpu_torch.retrieve import _norm, similarity_from_bank
+
+    jsvc = JaxService(_serve_args(cli_layout, banks, get_args=jax_args))
+    svc = serve.RetrievalService(_serve_args(cli_layout, banks),
+                                 device="cpu")
+    for text in SERVE_QUERIES:
+        ids = [r["video_id"] for r in svc.search(text, topk=5)["results"]]
+        assert ids == [r["video_id"] for r in jsvc.search(
+            text, topk=5)["results"]], text
+    bank = dict(np.load(banks["port"]))
+    np.testing.assert_allclose(
+        np.stack([svc.score(q) for q in _norm(bank["query"])]),
+        similarity_from_bank(bank), rtol=1e-5, atol=1e-5)
+
+    httpd = serve.make_server(svc, 0)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+
+    def post(text, out, i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/search",
+            data=json.dumps({"text": text, "topk": 3}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            out[i] = json.loads(r.read())
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=60) as r:
+            assert json.loads(r.read()) == {"ok": True,
+                                            "videos": N_VIDEOS}
+        one = [None]
+        post(SERVE_QUERIES[0], one, 0)
+        both = [None, None]
+        threads = [threading.Thread(target=post, args=(t, both, i))
+                   for i, t in enumerate(SERVE_QUERIES[:2])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    for got, text in zip([one[0], *both], [SERVE_QUERIES[0],
+                                           *SERVE_QUERIES[:2]]):
+        assert [r["video_id"] for r in got["results"]] == [
+            r["video_id"] for r in svc.search(text, topk=3)["results"]]
+
+    dsvc = serve.RetrievalService(_serve_args(cli_layout, banks, True),
+                                  device="cpu")
+    for text in SERVE_QUERIES:
+        assert dsvc.search(text, topk=1)["results"][0]["video_id"] == \
+            svc.search(text, topk=1)["results"][0]["video_id"], text
+
+
+def test_extract_and_serve_without_cuda_raise(reference, banks, cli_layout,
+                                              monkeypatch):
+    """No fallback: without a card and without device="cpu" the extract
+    and the service raise; they never drop to the CPU by themselves."""
+    from hmmc_tpu_torch import serve
+
+    data_dir, cross = cli_layout
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prunner.main(pcli.get_args(argv=_argv(
+            data_dir, cross, os.path.dirname(banks["port"]),
+            ("--do_extract",))))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.RetrievalService(_serve_args(cli_layout, banks))
 
 
 # ---------------------------------------------------------------------------
@@ -634,6 +1118,12 @@ def test_resize_crop_kernel_equals_plain_on_card(cuda, res):
                         u8(-(-h // vf), -(-w // hf)))
                for hf, vf in SAMPLING.values()]
         ycc.append(YccFrame(u8(h, w)))                       # grayscale
+        for color in ("rgb", "cmyk", "ycck"):                # other planes
+            hf, vf = SAMPLING[FORMATS["ycc420"]]
+            ycc.append(YccFrame(
+                u8(h, w), u8(-(-h // vf), -(-w // hf)),
+                u8(-(-h // vf), -(-w // hf)),
+                u8(h, w) if color != "rgb" else None, color))
         frames = [src[0], None, src[1], *ycc, src[2]]
         before = resize_crop.launches
         out = resize_crop(frames, res)
@@ -655,6 +1145,8 @@ def test_nvjpeg_decode_matches_fixture_on_card(cuda):
     frames = jpeg.frame_views(batch, buf)
     assert [f.fmt for f in frames] == [
         FORMATS[f"ycc{s}"] for s in np.load(FIXTURE)["sampling"]]
+    # C1: RGB-coded, CMYK and YCCK frames hold their planes as coded
+    assert [f.color for f in frames] == list(np.load(FIXTURE)["color"])
     diffs = [(ycc_to_rgb_reference(f).int().cpu()
               - torch.from_numpy(r).int()).abs() for f, r in zip(frames, rgb)]
     assert max(int(d.max()) for d in diffs) <= DECODE_MAX_ABS

@@ -155,6 +155,45 @@ def test_blocked_encoder_pads_only_last_block():
     assert _BlockedEncoder(fn, block=4).finish() == ()
 
 
+def test_int8_quant_matches_jax():
+    """ops/quant.py against hmmc_tpu/ops/quant.py: the host quantizer and
+    bank layout bitwise, the tensor quantizer bitwise, int8_rank and
+    int8_frame_rank within 1e-5 (fp32 rescaling of equal int32 sums)."""
+    from hmmc_tpu.ops import quant as jq
+
+    from hmmc_tpu_torch.ops import quant as pq
+
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(3, 24)).astype(np.float32)
+    q[1, :4] = [127.0, 2.5, 3.5, -0.5]     # scale 1: ties, half to even
+    video = rng.normal(size=(10, 24)).astype(np.float32)
+    frames = rng.normal(size=(10, 4, 24)).astype(np.float32)
+    bank = {"video": video, "frames": frames, "query": q}
+    got, ref = pq.quantize_bank(bank), jq.quantize_bank(bank)
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+        assert np.asarray(got[k]).dtype == np.asarray(ref[k]).dtype, k
+    for k, v in jq.dequantize_bank(ref).items():
+        np.testing.assert_array_equal(pq.dequantize_bank(got)[k], v)
+    tq, ts = pq.quantize_rows(torch.from_numpy(q))
+    jqq, jqs = jq.quantize_rows(jnp.asarray(q))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jqq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(jqs))
+    vq, vs = (torch.from_numpy(got["video"]),
+              torch.from_numpy(got["video_scale"]))
+    fq, fs = (torch.from_numpy(got["frames"]),
+              torch.from_numpy(got["frame_scale"]))
+    np.testing.assert_allclose(
+        pq.int8_rank(torch.from_numpy(q), vq, vs).numpy(),
+        np.asarray(jq.int8_rank(jnp.asarray(q), ref["video"],
+                                ref["video_scale"])), atol=1e-5)
+    np.testing.assert_allclose(
+        pq.int8_frame_rank(torch.from_numpy(q), fq, fs).numpy(),
+        np.asarray(jq.int8_frame_rank(jnp.asarray(q), ref["frames"],
+                                      ref["frame_scale"])), atol=1e-5)
+
+
 def test_metrics_copy_matches_jax():
     from hmmc_tpu import metrics as jm
     from hmmc_tpu_torch import metrics as pm
@@ -172,7 +211,7 @@ def test_metrics_copy_matches_jax():
 # import and device rules
 # ---------------------------------------------------------------------------
 
-FORBIDDEN = ("jax", "flax", "optax", "hmmc_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "hmmc_tpu", "tools")
 
 
 def _port_files():
@@ -189,6 +228,8 @@ def test_port_imports_nothing_of_jax():
     bad = []
     files = _port_files()
     assert len(files) > 10 and os.path.isfile(files[0])
+    for name in ("serve.py", "retrieve.py", os.path.join("ops", "quant.py")):
+        assert os.path.join(REPO, "hmmc_tpu_torch", name) in files, name
     for path in files:
         with open(path, encoding="utf-8") as fh:
             tree = ast.parse(fh.read(), path)
