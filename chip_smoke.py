@@ -28,7 +28,17 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             routes; a row for each RGB-coded, CMYK and YCCK frame), R1 on
             PIL's pixels against PIL's
             crops (bitwise), a batch with padded and corrupt slots, and
-            decode + R1 of one 768-frame block (ms, frames/s);
+            decode + R1 of one 768-frame block (ms, frames/s; D's bound:
+            the bitstream read and the planes written once). R2 (cv2's
+            INTER_AREA resize and crop) against its plain version, bitwise,
+            on every cv2 path (copy at 341x256 and 256x341, integer factors,
+            area at non-integer factors, up-scale), RGB and 4:2:0, the
+            pretrain micro-batch's 768 frames at 341x256, two launches
+            bitwise equal, one launch over the other samplings, grayscale,
+            RGB-coded, CMYK and YCCK planes at odd sizes and padded slots;
+            its kernel, plain and library times and bound at three paths;
+            nvJPEG + R2 against the fixture's cv2 crops (max and mean abs
+            difference), decode + R2 of 768 frames;
 4. eval     the full-width ViT-B/32 BirdModel (12 frames at 224 px, 32
             query tokens, temporal transformer, top-3 frame similarity;
             seeded random weights, bf16 compute) evaluated over ``--clips``
@@ -52,6 +62,17 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             switch off (no launches, losses within the stated tolerance);
             one fp32 step on 2 clips, kernels on the card against the plain
             attention on the CPU, every gradient compared.
+   pretrain the full-width BirdPretrainModel (ViT-B/32, cross-base,
+            vocab 49408, projector and predictor MLPs of inner width 4096,
+            1024 negatives, momentum 0.99, temperature 0.07, bf16) on
+            synthetic uint8 frames at 256 through simclr_augment: 6 steps of
+            256 in 4 micro-batches; the four losses, device ms (CUDA
+            events) and clips/s, peak memory, ptr after each step, the key
+            towers' gap against the EMA's prediction, K1 / K2 launches
+            against the prediction (272 / 160 a step); then one fp32
+            micro-batch at ViT-B/32's widths and 2 layers a tower, kernels
+            on the card against the plain attention on the CPU (losses and
+            every gradient);
    cli      the port's CLI in process, runner.main(cli.get_args([...])), over
             a FramePack of 1000 videos x 30 frames cycled from the fixture:
             --do_train at full width, bf16, batch 256 in 4 micro-batches, 2
@@ -77,6 +98,13 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             time goes), one POST /search
             round trip; --device_rank over a synthetic 1,000,000-video bank
             against the same ranking in fp32 with torch.matmul;
+   cli_pretrain  --do_pretrain --dataset vatex at full width over a VATEX
+            layout beside cli's (256 videos x 30 frames cycled from the
+            fixture's three-plane JPEGs, 2 captions each): 2 steps of 256,
+            then the MSR-VTT eval of 1000 clips; R2, decoder, K1, K2 and R1
+            launches against the prediction, decode routes, wall per step,
+            the checkpoint's keys; pytorch_model.bin.0 loads as a
+            fine-tune's --init_model;
 6. result   the nvidia-smi line as it prints it, the kernel table as one
             JSON line, then ``{"ok": true, "device": {...}}`` as the last.
 
@@ -86,6 +114,7 @@ Every line before those is one JSON object.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -111,7 +140,11 @@ from hmmc_tpu_torch.factory import build_model
 from hmmc_tpu_torch.losses import finetune_retrieval_loss
 from hmmc_tpu_torch.metrics import logging_rank
 from hmmc_tpu_torch.ops import fused_attention as fa
+from hmmc_tpu_torch.models.pretrain import (MOMENTUM_SUBTREES, MoCoQueues,
+                                            init_key_params,
+                                            sample_mask_decisions)
 from hmmc_tpu_torch.ops import image_ops, kernel_build, quant
+from hmmc_tpu_torch.ops import resize_area as r2
 from hmmc_tpu_torch.ops.fused_attention import (
     MAX_LEN_BWD, MAX_LEN_BWD_FP32, fused_attention, fused_attention_backward,
     fused_attention_backward_reference, fused_attention_reference,
@@ -121,7 +154,10 @@ from hmmc_tpu_torch.ops.resize_crop import (
     plane_batch, resize_crop, resize_crop_reference, ycc_to_rgb_reference)
 from hmmc_tpu_torch.tokenization import ClipTokenizer
 from hmmc_tpu_torch.train.optimization import build_optimizer
-from hmmc_tpu_torch.train.trainer import (FinetuneState, make_finetune_step,
+from hmmc_tpu_torch.train import checkpoint as ckpt_io
+from hmmc_tpu_torch.train.trainer import (FinetuneState, PretrainState,
+                                          make_finetune_step,
+                                          make_pretrain_step,
                                           split_microbatches)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; FLOP/s by type
@@ -453,6 +489,7 @@ def load_fixture():
                 blobs=[z[f"blob_{i}"].tobytes() for i in range(n)],
                 rgb=[z[f"rgb_{i}"] for i in range(n)],
                 crop=[z[f"crop_{i}"] for i in range(n)],
+                aug=[z[f"aug_{i}"] for i in range(n)],
                 sampling=[str(s) for s in z["sampling"]],
                 color=[str(c) for c in z["color"]])
 
@@ -708,6 +745,14 @@ def check_decoder(smi):
                block_decode_ms=decode_ms, block_r1_ms=r1_ms,
                block_compressed_bytes=sum(len(b) for b in block),
                block_decoded_bytes=BLOCK_FRAMES * RES * RES * 3, card=smi)
+    # D's bound: the bitstream read once and the planes written once
+    planes = sum(int(block_batch.h[i]) * int(block_batch.w[i])
+                 + 2 * -(-int(block_batch.h[i]) // 2)
+                 * -(-int(block_batch.w[i]) // 2)
+                 for i in range(BLOCK_FRAMES))
+    row.update(decode_bound_bytes=row["block_compressed_bytes"] + planes,
+               decode_bound_ms=(row["block_compressed_bytes"] + planes)
+               / HBM_BYTES_PER_S * 1e3, decode_bound_by="bytes")
     emit(row)
     if not (r1_equal and r1_planes_equal and padded_ok and formats_ok
             and row["full_res_max_abs_diff"] <= DECODE_MAX_ABS
@@ -715,6 +760,575 @@ def check_decoder(smi):
             and row["crop_mean_abs_diff"] <= DECODE_MEAN_ABS):
         raise AssertionError(f"nvJPEG decode disagrees with PIL: {row}")
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase frames (R2): the aug decode's INTER_AREA resize and crop
+# ---------------------------------------------------------------------------
+
+AUG = 256                       # the pretrain's decode size (224 * 8 // 7)
+PRETRAIN_BLOCK = 64 * 12        # one pretrain micro-batch's frames
+R2_SIZES = (STORE_SIZE, (256, 341), (512, 512), (768, 768), (640, 360),
+            (1280, 720), (160, 120), (320, 240))
+# odd sizes for the other samplings and colours: up-scale, area at a
+# non-integer factor, area at integer factors (2 x 2)
+R2_ODD_SIZES = ((161, 121), (515, 387), (514, 512))
+
+
+def area_bound(n, w, h):
+    """Least time for R2 on ``n`` frames of ``w`` x ``h`` 4:2:0 planes: the
+    source window's planes read once (as :func:`resize_bound` counts them)
+    and the crop written once, against the resize's multiply-adds (3
+    channels) at the integer rate, or as two fp32 operations each on the
+    area path (no FMA). Returns (ms, what bounds it, bytes, ops)."""
+    t = r2.area_tables(w, h, AUG)
+    xs, xe = t.cols
+    ys, ye = t.rows(0, AUG)
+
+    def chroma(lo, hi, n_luma):
+        last = (n_luma + 1) // 2 - 1
+        return min((hi - 1) // 2 + 1, last) - max(lo // 2 - 1, 0) + 1
+
+    src = (ye - ys) * (xe - xs) + 2 * chroma(ys, ye, h) * chroma(xs, xe, w)
+    nbytes = n * (src + AUG * AUG * 3)
+    mads = 3 * n * ((ye - ys) * int(t.x_count.sum())
+                    + AUG * int(t.y_count.sum()))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * mads / PEAK_FLOPS[torch.float32] if t.mode == "area"
+             else mads / IMAD_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, mads)
+
+
+def r2_plain(frames):
+    """R2's plain version over frames of one size."""
+    rgb = torch.stack([ycc_to_rgb_reference(f, cmyk="cv2")
+                       if isinstance(f, YccFrame) else f for f in frames])
+    return r2.resize_area_reference(rgb, AUG)
+
+
+def check_resize_area(gen):
+    """R2 against its plain version, bitwise: every path of cv2's
+    INTER_AREA (copy at the store's 341x256 and 256x341, integer factors,
+    area at non-integer factors, up-scale) as 4:2:0 planes and as RGB, the
+    path's 768-frame block at 341x256; two launches bitwise equal; one
+    launch over the other samplings, grayscale, RGB-coded, CMYK and YCCK
+    planes at odd sizes of each path, and padded slots. At the path's size,
+    and at 640x360 (area) and 160x120 (up-scale), the kernel, plain and
+    library times and the bound."""
+    rows, timed = [], {}
+    mixed, mixed_ref = [], []
+    for w, h in R2_SIZES:
+        for fmt in ("ycc420", "rgb"):
+            path = (w, h) == STORE_SIZE and fmt == "ycc420"
+            n = PRETRAIN_BLOCK if path else 48
+            frames = random_frames(gen, n, w, h, fmt)
+            out = r2.resize_area(frames, AUG)
+            again = r2.resize_area(frames, AUG)
+            ref = r2_plain(frames)
+            torch.cuda.synchronize()
+            row = dict(phase="frames", check="resize_area", size=[w, h],
+                       format=fmt, frames=n,
+                       mode=r2.area_tables(w, h, AUG).mode,
+                       bitwise_equal=bool(torch.equal(out, ref)),
+                       bitwise_repeat=bool(torch.equal(out, again)),
+                       max_abs_err=float((out.int() - ref.int()).abs().max()))
+            mixed += [frames[0], None]
+            mixed_ref += [ref[0], torch.zeros_like(ref[0])]
+            if fmt == "ycc420" and (w, h) in (STORE_SIZE, (640, 360),
+                                              (160, 120)):
+                nw, nh = r2.output_size(w, h, AUG)
+                left, top = (nw - AUG) // 2, (nh - AUG) // 2
+                xf = torch.stack([ycc_to_rgb_reference(f, cmyk="cv2")
+                                  for f in frames]).permute(0, 3, 1, 2).float()
+
+                def library():
+                    return F.interpolate(
+                        xf, size=(nh, nw), mode="area")[
+                            :, :, top:top + AUG, left:left + AUG]
+
+                batch = plane_batch(frames)
+                dev = torch.device("cuda", torch.cuda.current_device())
+                bound_ms, bound_by, nbytes, ops = area_bound(n, w, h)
+                ms = cuda_ms(lambda: r2.resize_area(frames, AUG), 20)
+                row.update(
+                    ms=ms, launch_ms=cuda_ms(
+                        lambda: r2.launch(batch, AUG, dev), 20),
+                    kernel_device_ms=kernel_device_ms(
+                        lambda: r2.launch(batch, AUG, dev)),
+                    plain_ms=cuda_ms(lambda: r2_plain(frames), 3, warmup=1),
+                    library_ms=cuda_ms(library, 10),
+                    library="F.interpolate(mode='area') on the float RGB "
+                            "frames, then the crop (adaptive average "
+                            "pooling: cv2's area cells only at integer "
+                            "factors)",
+                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                    multiply_adds=ops)
+                kms = row["kernel_device_ms"]
+                row["share_of_bound"] = bound_ms / (
+                    kms if isinstance(kms, float) else ms)
+                del xf
+                timed[row["mode"] if not path else "path"] = row
+            emit(row)
+            rows.append(row)
+            del frames, out, again, ref
+    for w, h in R2_ODD_SIZES:
+        for fmt in ("ycc444", "ycc422", "ycc440", "ycc411", "ycc410",
+                    "gray"):
+            frames = random_frames(gen, 1, w, h, fmt)
+            mixed += frames
+            mixed_ref += list(r2_plain(frames).unbind(0))
+        for color in ("rgb", "cmyk", "ycck"):
+            for fmt in ("ycc444", "ycc420"):
+                frames = random_frames(gen, 1, w, h, fmt, color)
+                mixed += frames
+                mixed_ref += list(r2_plain(frames).unbind(0))
+    out = r2.resize_area(mixed, AUG)
+    torch.cuda.synchronize()
+    ok_mixed = bool(torch.equal(out, torch.stack(mixed_ref)))
+    emit(dict(phase="frames", check="resize_area mixed sizes, paths, "
+              "formats, colours and padded slots in one launch",
+              frames=len(mixed), bitwise_equal=ok_mixed))
+    bad = [r for r in rows if not (r["bitwise_equal"] and r["bitwise_repeat"])]
+    if bad or not ok_mixed:
+        raise AssertionError(f"resize_area disagrees with its plain version: "
+                             f"{bad}, mixed {ok_mixed}")
+    return timed
+
+
+def check_aug_decoder(smi):
+    """nvJPEG + R2 on the card against the fixture's cv2 aug crops (every
+    frame: YCbCr at five samplings, RGB-coded, CMYK, YCCK, and each of
+    cv2's paths), and R2 on those decoded planes against its plain
+    version, bitwise; decode + R2 of one pretrain micro-batch's 768 frames
+    at 341x256 (ms, frames/s)."""
+    fx = load_fixture()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    got = jpeg.decode_frames(fx["blobs"], AUG, dev, mode="aug")
+    # R2 on these decoded planes (every fixture size and layout) against
+    # its plain version on the same planes
+    planes, buf = jpeg._decoder(dev).decode_planes(fx["blobs"])
+    views = jpeg.frame_views(planes, buf)
+    on_planes = r2.launch(planes, AUG, dev)
+    plain_planes = torch.stack([r2_plain([f])[0] for f in views])
+    r2_planes_equal = bool(torch.equal(on_planes, plain_planes))
+    torch.cuda.synchronize()
+    diffs = [(got[i].int().cpu() - torch.from_numpy(fx["aug"][i]).int()
+              ).abs() for i in range(len(fx["blobs"]))]
+    store = [b for b, s in zip(fx["blobs"], fx["sizes"]) if s == STORE_SIZE]
+    block = [store[i % len(store)] for i in range(PRETRAIN_BLOCK)]
+    jpeg.decode_frames(block, AUG, dev, mode="aug")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        jpeg.decode_frames(block, AUG, dev, mode="aug")
+    torch.cuda.synchronize()
+    block_ms = (time.perf_counter() - t0) / 3 * 1e3
+    row = dict(phase="frames", check="nvjpeg + resize_area against cv2",
+               sizes=fx["sizes"], sampling=fx["sampling"], color=fx["color"],
+               modes=[r2.area_tables(w, h, AUG).mode for w, h in fx["sizes"]],
+               per_frame_max=[float(d.max()) for d in diffs],
+               per_frame_mean=[float(d.float().mean()) for d in diffs],
+               max_abs_diff=max(float(d.max()) for d in diffs),
+               mean_abs_diff=float(sum(float(d.float().sum()) for d in diffs)
+                                   / sum(d.numel() for d in diffs)),
+               r2_on_decoded_planes_bitwise_equal_plain=r2_planes_equal,
+               max_abs_tolerance=DECODE_MAX_ABS,
+               mean_abs_tolerance=DECODE_MEAN_ABS,
+               reason=DECODE_REASON.replace("R1", "R2's stage 0"),
+               block_frames=PRETRAIN_BLOCK, block_decode_r2_ms=block_ms,
+               block_frames_per_s=PRETRAIN_BLOCK / block_ms * 1e3, card=smi)
+    emit(row)
+    if not (r2_planes_equal and row["max_abs_diff"] <= DECODE_MAX_ABS
+            and max(row["per_frame_mean"]) <= DECODE_MEAN_ABS):
+        raise AssertionError(f"nvJPEG + R2 disagrees with cv2: {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase pretrain: the MoCo pretrain step at full width
+# ---------------------------------------------------------------------------
+
+PRETRAIN_STEPS = 6
+PRETRAIN_REF_LOSS_ATOL = 1e-3
+PRETRAIN_REF_GRAD_REL = 1e-3
+PRETRAIN_REF_FLOOR = 1e-4
+PRETRAIN_REF_REASON = (
+    "fp32 with TF32 off on both sides, the same weights, data, masks and "
+    "queues: K1 / K2 against the plain attention on the CPU sum in another "
+    "order; each gradient within 1e-3 of its largest magnitude, or of 1e-4 "
+    "of the model's largest gradient where that is more (the biases ahead "
+    "of a BatchNorm, and v_projector's output bias ahead of the "
+    "predictor's, have a gradient of 0 in exact arithmetic and fp32 "
+    "rounding noise near 1e-9; of the others the smallest peaks at about "
+    "5e-4 of the largest). The CPU run takes the card's decisions at "
+    "the query projector's and predictor's ReLUs: each follows a BatchNorm "
+    "over 12 rows, and a unit whose normalised input lies within the "
+    "forward's rounding (~2e-5) of 0 takes the other side on the other "
+    "device (about one of 49,152 a run), which moves that unit's gradient "
+    "whole and, through the frame features, every tower upstream")
+
+
+def pretrain_launch_prediction(arch, cross, n_accum):
+    """K1 and K2 launches of one pretrain step: per micro-batch the query
+    side's ViT, temporal, title and MLM towers (K1, and K2 in their
+    backward) and the key side's ViT, temporal and title towers (K1
+    only)."""
+    vit, text, temp = (arch.vision_layers, arch.transformer_layers,
+                       cross.temporal_hidden_layers)
+    query = vit + temp + text + text
+    key = vit + temp + text
+    return dict(k1=(query + key) * n_accum, k2=query * n_accum)
+
+
+def pretrain_task(seed, **kw):
+    return TaskConfig(seed=seed, do_pretrain=True, dataset="vatex",
+                      batch_size=256, gradient_accumulation_steps=4,
+                      epochs=1, n_display=1, **kw)
+
+
+def pretrain_titles(n, max_words, seed):
+    tok = ClipTokenizer()
+    rng = np.random.default_rng(seed)
+    return np.stack([encode_text(tok, " ".join(rng.choice(
+        WORDS, size=rng.integers(5, 14))), max_words)[0] for _ in range(n)])
+
+
+def key_gap(state):
+    """||params_k - params|| over the paired parameters."""
+    keys, queries = state.pairs
+    return math.sqrt(sum(float((k - q.detach()).float().square().sum())
+                         for k, q in zip(keys, queries)))
+
+
+def pretrain_phase(seed, smi):
+    """The full-width BirdPretrainModel (ViT-B/32, cross-base, vocab 49408,
+    projector and predictor of inner width 4096, 1024 negatives, momentum
+    0.99, temperature 0.07, bf16 compute) on synthetic uint8 frames at 256
+    through simclr_augment, 6 steps of 256 in 4 micro-batches: losses,
+    device ms per step (CUDA events), clips/s, peak memory, ptr, the key
+    towers' gap, K1 / K2 launches against the prediction; then a card-vs-CPU
+    check of one micro-batch at a small depth."""
+    task = pretrain_task(seed)
+    cross = CrossConfig()
+    arch = ClipArch.by_name(cross.pretrained_clip_name)
+    tok = ClipTokenizer()
+    b, f, n_accum = task.batch_size, task.max_frames, \
+        task.gradient_accumulation_steps
+    t0 = time.perf_counter()
+    model = build_model(task, cross, pretrain=True,
+                        vocab_size=tok.vocab_size)
+    state = runner.pretrain_state(task, model, PRETRAIN_STEPS)
+    build_s = time.perf_counter() - t0
+    step_fn = make_pretrain_step(
+        cross, tok.mask_token_id, tok.pad_token_id, tok.cls_token_id,
+        temperature=task.contrast_temperature,
+        momentum=task.contrast_momentum, n_accum=n_accum)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    frames = torch.randint(0, 256, (b * f, AUG, AUG, 3), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    titles = torch.from_numpy(pretrain_titles(b, task.max_words, seed)).to(
+        "cuda").long()
+    res = arch.image_resolution
+    rows, ptrs, gaps = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for s in range(PRETRAIN_STEPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        video = image_ops.simclr_augment(
+            runner.stream(seed, runner.AUG_STREAM, s, "cuda"), frames,
+            out=res).view(b, f, res, res, 3)
+        aug_end = torch.cuda.Event(enable_timing=True)
+        aug_end.record()
+        keys, queries = state.pairs
+        before = [q.detach().clone() for q in queries]
+        gap0 = math.sqrt(sum(float((k - q).float().square().sum())
+                             for k, q in zip(keys, before)))
+        state, metrics = step_fn(
+            state, {"video": video, "title_ids": titles},
+            runner.stream(seed, runner.STEP_STREAM, s, "cuda"))
+        end.record()
+        torch.cuda.synchronize()
+        gap_ema = math.sqrt(sum(float((k - q).float().square().sum())
+                                for k, q in zip(keys, before)))
+        del before
+        ptrs.append(state.queues.ptr)
+        gaps.append(dict(before=gap0, after_ema=gap_ema,
+                         predicted=gap0 * task.contrast_momentum ** n_accum,
+                         after_step=key_gap(state)))
+        rows.append(dict({k: float(v) for k, v in metrics.items()},
+                         step_ms=start.elapsed_time(end),
+                         augment_ms=start.elapsed_time(aug_end)))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_pretrain_step(state, step_fn, frames, titles, seed,
+                                    res, rows[-1]["step_ms"])
+    predicted = pretrain_launch_prediction(arch, cross, n_accum)
+    predicted = {k: v * PRETRAIN_STEPS for k, v in predicted.items()}
+    warm = [r["step_ms"] for r in rows[1:]]
+    # each EMA rounds every key parameter once: a floor of n_accum fp32
+    # half-ulps of the parameters' norm under the 1e-3 relative match
+    floor = n_accum * 2.0 ** -24 * math.sqrt(sum(
+        float(q.detach().float().square().sum()) for q in state.pairs[1]))
+    gap_ok = all(abs(g["after_ema"] - g["predicted"])
+                 <= 1e-3 * g["predicted"] + floor for g in gaps)
+    finite = all(math.isfinite(v) for r in rows for v in r.values())
+    ptr_ok = ptrs == [(b * (s + 1)) % task.contrast_num_negative
+                      for s in range(PRETRAIN_STEPS)]
+    row = dict(phase="pretrain", model="ViT-B/32 BirdPretrainModel",
+               steps=PRETRAIN_STEPS, batch_size=b, micro_batch=b // n_accum,
+               frames=f, aug_size=AUG, resolution=res,
+               negatives=task.contrast_num_negative,
+               momentum=task.contrast_momentum,
+               temperature=task.contrast_temperature,
+               compute_dtype=task.compute_dtype, model_build_s=build_s,
+               per_step=rows, ptr=ptrs, key_gap=gaps, key_gap_as_ema=gap_ok,
+               key_gap_rounding_floor=floor,
+               step_ms_warm_mean=sum(warm) / len(warm),
+               clips_per_s=b / (sum(warm) / len(warm)) * 1e3,
+               max_memory_allocated=peak, launches=counts,
+               predicted_launches=predicted, finite=finite, card=smi)
+    emit(row)
+    emit(dict(phase="pretrain_profile", what="one warm pretrain step with "
+              "its SimCLR augmentation", card=smi, **profile))
+    del state, model, frames, video
+    torch.cuda.empty_cache()
+    if not (finite and ptr_ok and gap_ok and counts["k1"] == predicted["k1"]
+            and counts["k2"] == predicted["k2"]):
+        raise AssertionError(f"pretrain phase failed: {row}")
+    pretrain_reference_check(seed)
+    return dict(k1=counts["k1"], k2=counts["k2"], row=row)
+
+
+def profile_pretrain_step(state, step_fn, frames, titles, seed, res,
+                          step_ms):
+    """Where the device time of one warm pretrain step goes (the
+    augmentation, the EMA and key forwards, BertAdam, the rest: the query
+    forwards, losses and backward); the idle share also against
+    ``step_ms``, the last unprofiled step's time by CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, f = titles.shape[0], frames.shape[0] // titles.shape[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        video = image_ops.simclr_augment(
+            runner.stream(seed, runner.AUG_STREAM, PRETRAIN_STEPS, "cuda"),
+            frames, out=res).view(b, f, res, res, 3)
+        step_fn(state, {"video": video, "title_ids": titles},
+                runner.stream(seed, runner.STEP_STREAM, PRETRAIN_STEPS,
+                              "cuda"))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = device_time_by_kind(prof, wall_ms, ranges=(
+        "simclr_augment", "pretrain_step.keys", "pretrain_step.optimizer"))
+    busy = kinds["device_busy_ms"]
+    return dict(step_device_ms_unprofiled=step_ms,
+                device_idle_share_unprofiled=(
+                    1 - busy / step_ms if isinstance(busy, float)
+                    else "not measured"), **kinds)
+
+
+def pretrain_reference_check(seed):
+    """One fp32 pretrain micro-batch at ViT-B/32's widths and 2 layers per
+    tower (4 clips of 3 frames, 16 negatives): the kernels on the card
+    against the plain attention on the CPU, the same weights, frames,
+    titles, masks and queues, TF32 off. The four losses and every
+    gradient."""
+    cross = CrossConfig(temporal_hidden_layers=1)
+    arch = dataclasses.replace(ClipArch.by_name("ViT-B/32"),
+                               vision_layers=2, transformer_layers=2)
+    tok = ClipTokenizer()
+    task = TaskConfig(seed=seed, do_pretrain=True, compute_dtype="float32",
+                      max_frames=3, contrast_num_negative=16, batch_size=4)
+    rng = np.random.default_rng(seed + 13)
+    video = torch.from_numpy(rng.normal(size=(4, 3, 224, 224, 3)).astype(
+        np.float32))
+    titles = torch.from_numpy(pretrain_titles(4, task.max_words, seed)).long()
+    dec = [{"title": sample_mask_decisions(
+        torch.Generator().manual_seed(seed), titles.shape, tok.vocab_size)}]
+    runs, relu_masks = {}, {}
+    # "cpu_free" keeps its own ReLU decisions: the gradients it gives show
+    # what one unit on the other side does
+    for where, switch in (("card", "on"), ("cpu", "off"),
+                          ("cpu_free", "off")):
+        t = task.replace(use_fused_attention=switch)
+        model = build_model(t, cross, arch=arch, device="cpu", pretrain=True,
+                            vocab_size=tok.vocab_size).to(
+            "cuda" if where == "card" else "cpu")
+        state = runner.pretrain_state(t, model, 10)
+        step = make_pretrain_step(cross, tok.mask_token_id, tok.pad_token_id,
+                                  tok.cls_token_id)
+        dev = next(model.parameters()).device
+        d = [{"title": type(dec[0]["title"])(
+            **{k: v.to(dev) for k, v in vars(dec[0]["title"]).items()})}]
+        keep = {n: p for n, p in model.named_parameters()}
+        state.optimizer.step = lambda: None        # gradients only
+        flips, hooks = [], []
+        for name, mod in model.named_modules():
+            if where == "cpu_free" or not (
+                    isinstance(mod, torch.nn.ReLU) and name.startswith(
+                        ("v_projector.", "v_predictor."))):
+                continue
+
+            def hook(m, inp, out, name=name):
+                if where == "card":
+                    relu_masks[name] = (out > 0).cpu()
+                    return None
+                mask = relu_masks[name]
+                flips.append(int((mask != (out > 0)).sum()))
+                return inp[0] * mask.to(inp[0].dtype)
+
+            hooks.append(mod.register_forward_hook(hook))
+        _, metrics = step(state, {"video": video.to(dev),
+                                  "title_ids": titles.to(dev)}, decisions=d)
+        for h in hooks:
+            h.remove()
+        runs[where] = dict(
+            relu_flips=sum(flips),
+            losses={k: float(v) for k, v in metrics.items()},
+            grads={n: p.grad.detach().float().cpu()
+                   for n, p in keep.items() if p.grad is not None})
+        del model, state
+    torch.cuda.empty_cache()
+    loss_diff = max(abs(runs["card"]["losses"][k] - runs["cpu"]["losses"][k])
+                    for k in ("loss", "loss_FAM", "loss_VTM", "loss_FTM",
+                              "loss_MLM"))
+    top = max(float(g.abs().max()) for g in runs["cpu"]["grads"].values())
+
+    def rel_to(ref):
+        return {n: float((g - runs[ref]["grads"][n]).abs().max()
+                         / max(float(runs[ref]["grads"][n].abs().max()),
+                               PRETRAIN_REF_FLOOR * top))
+                for n, g in runs["card"]["grads"].items()}
+
+    rel = rel_to("cpu")
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    free = sorted(rel_to("cpu_free").items(), key=lambda kv: -kv[1])[:3]
+    ok = (set(runs["card"]["grads"]) == set(runs["cpu"]["grads"])
+          and loss_diff <= PRETRAIN_REF_LOSS_ATOL
+          and worst[0][1] <= PRETRAIN_REF_GRAD_REL)
+    emit(dict(phase="pretrain_reference", what="one fp32 pretrain "
+              "micro-batch, ViT-B/32 widths, 2 layers a tower, 4 clips",
+              losses=runs["card"]["losses"], cpu_losses=runs["cpu"]["losses"],
+              loss_max_abs_diff=loss_diff, loss_atol=PRETRAIN_REF_LOSS_ATOL,
+              grads=len(rel), worst_grad_rel=worst,
+              grad_floor=PRETRAIN_REF_FLOOR * top,
+              relu_units_taken_from_card=runs["cpu"]["relu_flips"],
+              worst_grad_rel_cpu_own_relu=free,
+              grad_rel=PRETRAIN_REF_GRAD_REL, reason=PRETRAIN_REF_REASON,
+              ok=ok))
+    if not ok:
+        raise AssertionError(f"pretrain card vs CPU: losses {loss_diff}, "
+                             f"gradients {worst}")
+
+
+# ---------------------------------------------------------------------------
+# phase cli_pretrain: --do_pretrain --dataset vatex through the CLI
+# ---------------------------------------------------------------------------
+
+PRETRAIN_VIDEOS = 256        # train_list.txt; 2 captions each: 2 steps
+
+
+def build_vatex_layout(root, seed):
+    """``root/vatex``: a FramePack of PRETRAIN_VIDEOS videos x
+    CLI_STORED_FRAMES frames cycled from the fixture's three-plane frames
+    (every size, sampling and R2 path but the four-plane CMYK and YCCK,
+    which nvJPEG's batched decode refuses), ``vatex_data.json`` with 2
+    English captions per video and ``train_list.txt``."""
+    fx = load_fixture()
+    blobs = [b for b, c in zip(fx["blobs"], fx["color"])
+             if c in ("ycc", "rgb")]
+    vx = os.path.join(root, "vatex")
+    os.makedirs(vx)
+    vids = [f"vatex{i}" for i in range(PRETRAIN_VIDEOS)]
+    with FramePackWriter(os.path.join(vx, "frames.fpk")) as w:
+        for i, vid in enumerate(vids):
+            w.add_video(vid, [blobs[(i + j) % len(blobs)]
+                              for j in range(CLI_STORED_FRAMES)])
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(vx, "vatex_data.json"), "w") as fh:
+        json.dump({v: {"enCap": [" ".join(rng.choice(
+            WORDS, size=rng.integers(5, 14))) for _ in range(2)]}
+            for v in vids}, fh)
+    with open(os.path.join(vx, "train_list.txt"), "w") as fh:
+        fh.write("\n".join(vids) + "\n")
+    return len(blobs)
+
+
+def cli_pretrain_phase(root, seed, smi):
+    """``runner.main(cli.get_args(["--do_pretrain", "--dataset", "vatex",
+    ...]))`` at full width over ``root``'s VATEX layout, 2 steps of 256 in 4
+    micro-batches, then the epoch-end eval on the MSR-VTT layout cli built
+    in ``root``. R2, decoder, K1, K2 and R1 launches against their
+    predictions, decode routes, wall time per step, the checkpoint's keys;
+    ``pytorch_model.bin.0`` must load as a fine-tune's ``--init_model``."""
+    cross = CrossConfig()
+    arch = ClipArch.by_name(cross.pretrained_clip_name)
+    distinct = build_vatex_layout(root, seed)
+    out = os.path.join(root, "out_pretrain")
+    argv = ["--do_pretrain", "--dataset", "vatex", "--language", "english",
+            "--use_temp", "--use_frame_fea", "--data_dir", root,
+            "--output_dir", out, "--batch_size", "256",
+            "--gradient_accumulation_steps", "4", "--batch_size_val", "512",
+            "--epochs", "1", "--n_display", "1", "--num_thread_reader", "4",
+            "--seed", str(seed)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with EvalProbe() as probe:
+        run = runner.main(cli.get_args(argv=argv))
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = len(run.displayed)
+    pred = pretrain_launch_prediction(arch, cross, 4)
+    eval_k1 = ((arch.vision_layers + cross.temporal_hidden_layers)
+               * math.ceil(CLI_CLIPS / 64)
+               + arch.transformer_layers * math.ceil(CLI_CLIPS / 512))
+    eval_decodes = math.ceil(CLI_CLIPS / 512)
+    expected = dict(k1=pred["k1"] * steps + eval_k1,
+                    k2=pred["k2"] * steps, r1=eval_decodes,
+                    r2=steps, decoder=steps + eval_decodes)
+    ckpt = os.path.join(out, "pytorch_model.bin.0")
+    sd = ckpt_io.load_torch_state_dict(ckpt)
+    ft_task = TaskConfig(do_train=True, seed=seed)
+    ft = build_model(ft_task, cross, init_model_path=ckpt)
+    loaded = all(torch.equal(v.cpu(), sd[k])
+                 for k, v in ft.state_dict().items())
+    del ft
+    torch.cuda.empty_cache()
+    losses = [{k: r[k] for k in runner.LOSS_NAMES} for r in run.displayed]
+    finite = all(math.isfinite(v) for r in losses for v in r.values())
+    row = dict(phase="cli_pretrain", model="ViT-B/32 BirdPretrainModel",
+               videos=PRETRAIN_VIDEOS, distinct_frames=distinct, steps=steps,
+               losses=losses, ptr=[r["ptr"] for r in run.displayed],
+               wall_s_per_step=[r["wall_s"] for r in run.displayed],
+               run_s=run_s, eval_wall_ms=probe.calls[0]["wall_ms"]
+               if probe.calls else "not measured",
+               epoch_metrics=run.epoch_metrics, launches=counts,
+               expected_launches=expected,
+               routes=dict(jpeg.decode_frames.routes),
+               formats=dict(jpeg.decode_frames.formats),
+               colors=dict(jpeg.decode_frames.colors),
+               decode_failures=jpeg.decode_frames.decode_failures,
+               checkpoint_keys=len(sd),
+               checkpoint_queue_keys=sorted(k for k in sd
+                                            if k.startswith("queue_")),
+               finetune_init_model_loads=loaded,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               card=smi)
+    emit(row)
+    del run
+    torch.cuda.empty_cache()
+    if not (finite and steps == 2 and counts == expected and loaded
+            and row["decode_failures"] == 0 and run_s > 0
+            and len(row["checkpoint_queue_keys"]) == 6):
+        raise AssertionError(f"cli pretrain phase failed: {row}")
+    return dict(k1=counts["k1"], k2=counts["k2"], r1=counts["r1"],
+                r2=counts["r2"])
 
 
 # ---------------------------------------------------------------------------
@@ -799,6 +1413,7 @@ def device_throughput(model, task, arch, ev):
 
 KERNEL_KINDS = {"nvjpeg": ("nvjpeg",),
                 "R1 resize_crop": ("resize_crop_kernel",),
+                "R2 resize_area": ("resize_area_kernel",),
                 "K1 fused_attention_fwd": ("attention_fwd_",),
                 "K2 fused_attention_bwd": ("attention_bwd_",),
                 "conv": ("cudnn", "fprop", "dgrad", "wgrad", "conv"),
@@ -1187,12 +1802,13 @@ def cli_argv(data_dir, out, extra):
 def launch_counts():
     return dict(k1=fused_attention.launches,
                 k2=fused_attention_backward.launches,
-                r1=resize_crop.launches, decoder=jpeg.decode_frames.launches)
+                r1=resize_crop.launches, r2=r2.resize_area.launches,
+                decoder=jpeg.decode_frames.launches)
 
 
 def reset_launch_counts():
     fused_attention.launches = fused_attention_backward.launches = 0
-    resize_crop.launches = 0
+    resize_crop.launches = r2.resize_area.launches = 0
     jpeg.reset_counters()
 
 
@@ -1367,9 +1983,9 @@ def cli_phase(root, seed, smi, cross_model="cross-base"):
     eval_decodes = math.ceil(CLI_CLIPS / 512)
     expected_train = dict(k1=layers_step * CLI_STEPS + eval_k1,
                           k2=layers_step * CLI_STEPS,
-                          r1=CLI_STEPS + eval_decodes,
+                          r1=CLI_STEPS + eval_decodes, r2=0,
                           decoder=CLI_STEPS + eval_decodes)
-    expected_eval = dict(k1=eval_k1, k2=0, r1=eval_decodes,
+    expected_eval = dict(k1=eval_k1, k2=0, r1=eval_decodes, r2=0,
                          decoder=eval_decodes)
     losses = [r["loss"] for r in run.displayed]
     finite = all(math.isfinite(x) for x in losses + list(along.values())) \
@@ -2069,14 +2685,18 @@ def main(argv=None) -> int:
     rows, bwd_rows = kernels_phase(gen)
     r1_row = check_resize_crop(gen)
     check_decoder(smi)
+    r2_rows = check_resize_area(gen)
+    check_aug_decoder(smi)
     eval_k1 = eval_phase(args, smi)
     train = train_slice(CrossConfig(), ClipArch.by_name("ViT-B/32"),
                         args.seed, smi)
+    pretrain = pretrain_phase(args.seed, smi)
     with tempfile.TemporaryDirectory(prefix="hmmc_cli_") as root:
         cli_counts = cli_phase(root, args.seed, smi)
         serve_counts = serve_phase(root, cli_counts["ckpt"],
                                    cli_counts["eval_metrics"], args.seed,
                                    smi)
+        cli_pre = cli_pretrain_phase(root, args.seed, smi)
 
     # result
     def kernel_row(name, replaces, rows, launches, by_path):
@@ -2099,9 +2719,14 @@ def main(argv=None) -> int:
     k1_paths = {"eval": eval_k1, "finetune_steps": train["k1"],
                 "finetune_epoch_eval": train["eval_k1"],
                 "cli_finetune_and_evals": cli_counts["k1"],
-                "serve_extract_and_queries": serve_counts["k1"]}
+                "serve_extract_and_queries": serve_counts["k1"],
+                "pretrain_steps": pretrain["k1"],
+                "cli_pretrain_and_eval": cli_pre["k1"]}
     k2_paths = {"finetune_steps": train["k2"],
-                "cli_finetune": cli_counts["k2"]}
+                "cli_finetune": cli_counts["k2"],
+                "pretrain_steps": pretrain["k2"],
+                "cli_pretrain": cli_pre["k2"]}
+    r2_row = r2_rows["path"]
     print(smi, flush=True)
     emit({"kernels": [
         kernel_row("fused_attention_fwd", "hmmc_tpu/ops/pallas_attention.py:48",
@@ -2114,9 +2739,10 @@ def main(argv=None) -> int:
              replaces="hmmc_tpu/data/datasets.py:36 (_decode_eval's PIL "
                       "bicubic resize and centre crop: a host PIL step, "
                       "not a Pallas kernel)",
-             launches=cli_counts["r1"] + serve_counts["r1"],
+             launches=cli_counts["r1"] + serve_counts["r1"] + cli_pre["r1"],
              launches_by_path={"cli_finetune_and_evals": cli_counts["r1"],
-                               "serve_extract": serve_counts["r1"]},
+                               "serve_extract": serve_counts["r1"],
+                               "cli_pretrain_eval": cli_pre["r1"]},
              max_abs_err=r1_row["max_abs_err"], ms=r1_row["launch_ms"],
              kernel_device_ms=r1_row["kernel_device_ms"],
              wrapper_from_frame_list_ms=r1_row["ms"],
@@ -2124,7 +2750,26 @@ def main(argv=None) -> int:
              bound_by=r1_row["bound_by"], library_ms=r1_row["library_ms"],
              timed_at=f"{BLOCK_FRAMES} frames {STORE_SIZE[0]}x"
                       f"{STORE_SIZE[1]} -> {RES}, 4:2:0 planes, one launch "
-                      f"as the decode path makes it")]})
+                      f"as the decode path makes it"),
+        dict(name="resize_area", route="cuda",
+             source="hmmc_tpu_torch/csrc/resize_area.cu",
+             replaces="hmmc_tpu/data/datasets.py:64 (_decode_aug's cv2 "
+                      "INTER_AREA resize and centre crop: a host cv2 step, "
+                      "not a Pallas kernel)",
+             launches=cli_pre["r2"],
+             launches_by_path={"cli_pretrain_steps": cli_pre["r2"]},
+             max_abs_err=r2_row["max_abs_err"], ms=r2_row["launch_ms"],
+             kernel_device_ms=r2_row["kernel_device_ms"],
+             wrapper_from_frame_list_ms=r2_row["ms"],
+             plain_ms=r2_row["plain_ms"], bound_ms=r2_row["bound_ms"],
+             bound_by=r2_row["bound_by"], library_ms=r2_row["library_ms"],
+             timed_at=f"{PRETRAIN_BLOCK} frames {STORE_SIZE[0]}x"
+                      f"{STORE_SIZE[1]} -> {AUG} (cv2's copy path), 4:2:0 "
+                      "planes, one launch",
+             other_paths={m: {k: r2_rows[m][k] for k in (
+                 "size", "launch_ms", "kernel_device_ms", "plain_ms",
+                 "library_ms", "bound_ms", "bound_by")}
+                 for m in ("area", "linear") if m in r2_rows})]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

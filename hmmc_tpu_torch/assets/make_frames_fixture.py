@@ -15,14 +15,17 @@ whose planes are not YCbCr, written by Pillow at quality 90, 4:4:4: an
 RGB-coded JPEG (``keep_rgb``: Adobe marker, transform 0) at 300x200, a
 CMYK one (Adobe's inverted ink, with a black plane) at 200x300, and a YCCK
 one at 257x193 (Y, Cb, Cr and a black plane written as CMYK planes, then
-the Adobe transform byte set to 2, which is how libjpeg marks YCCK).
-Keys:
+the Adobe transform byte set to 2, which is how libjpeg marks YCCK). Last,
+one 4:2:0 frame at 512x512, whose short side halves exactly to 256 (cv2's
+integer-factor area path). Keys:
 
 - ``blob_{i}``: the JPEG bytes (uint8);
 - ``rgb_{i}``: PIL's full-resolution RGB decode (``Image.open().convert``);
 - ``crop_{i}``: the JAX package's eval decode at 224 (``_decode_eval``:
   PIL bicubic short-side resize, centre crop), written out here so this
   script needs nothing of that package;
+- ``aug_{i}``: its aug decode at 256 (``_decode_aug``: cv2's decode,
+  ``INTER_AREA`` short-side resize, centre crop), written out likewise;
 - ``sizes``: [n, 2] (width, height);
 - ``sampling``: [n] the chroma sampling, "420", "422", "440", "411" or
   "444";
@@ -43,7 +46,10 @@ SAMPLING = ["420"] * 11 + ["422", "440", "411"]
 # Pillow-written frames whose planes are not YCbCr
 OTHER_COLORS = [("rgb", (300, 200)), ("cmyk", (200, 300)),
                 ("ycck", (257, 193))]
+# appended last, so the earlier frames' draws and blobs stay as they were
+LAST = [("ycc", (512, 512), "420")]
 RES = 224
+AUG = 256
 ADOBE_TRANSFORM_AT = 17     # SOI, APP14 marker and length, "Adobe" + 6
 
 
@@ -117,6 +123,22 @@ def pil_eval_crop(rgb: np.ndarray, res: int) -> np.ndarray:
     return np.asarray(img.crop((left, top, left + res, top + res)), np.uint8)
 
 
+def cv2_aug_crop(blob: bytes, size: int) -> np.ndarray:
+    """``hmmc_tpu.data.datasets._decode_aug``."""
+    import cv2
+
+    bgr = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+    rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+    h, w = rgb.shape[:2]
+    if w <= h:
+        nw, nh = size, max(size, round(h * size / w))
+    else:
+        nw, nh = max(size, round(w * size / h)), size
+    rgb = cv2.resize(rgb, (nw, nh), interpolation=cv2.INTER_AREA)
+    top, left = (nh - size) // 2, (nw - size) // 2
+    return np.ascontiguousarray(rgb[top:top + size, left:left + size])
+
+
 def main(argv=None) -> None:
     import cv2
     from PIL import Image
@@ -127,16 +149,18 @@ def main(argv=None) -> None:
         os.path.dirname(os.path.abspath(__file__)), "frames_fixture.npz"))
     args = ap.parse_args(argv)
     rng = np.random.default_rng(args.seed)
-    sizes = SIZES + [s for _, s in OTHER_COLORS]
-    colors = ["ycc"] * len(SIZES) + [c for c, _ in OTHER_COLORS]
+    sizes = SIZES + [s for _, s in OTHER_COLORS] + [s for _, s, _ in LAST]
+    colors = (["ycc"] * len(SIZES) + [c for c, _ in OTHER_COLORS]
+              + [c for c, _, _ in LAST])
+    sampling = (SAMPLING + ["444"] * len(OTHER_COLORS)
+                + [f for _, _, f in LAST])
     out = {"sizes": np.asarray(sizes, np.int32),
-           "sampling": np.asarray(SAMPLING + ["444"] * len(OTHER_COLORS)),
-           "color": np.asarray(colors)}
+           "sampling": np.asarray(sampling), "color": np.asarray(colors)}
     for i, ((w, h), color) in enumerate(zip(sizes, colors)):
         rgb = synthetic_frame(w, h, rng)
         if color == "ycc":
             factor = getattr(cv2,
-                             f"IMWRITE_JPEG_SAMPLING_FACTOR_{SAMPLING[i]}")
+                             f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling[i]}")
             ok, enc = cv2.imencode(".jpg", rgb[..., ::-1], [
                 cv2.IMWRITE_JPEG_QUALITY, 90,
                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor])
@@ -149,6 +173,7 @@ def main(argv=None) -> None:
         out[f"blob_{i}"] = np.frombuffer(blob, np.uint8)
         out[f"rgb_{i}"] = dec
         out[f"crop_{i}"] = pil_eval_crop(dec, RES)
+        out[f"aug_{i}"] = cv2_aug_crop(blob, AUG)
     np.savez_compressed(args.out, **out)
     print(args.out, os.path.getsize(args.out), "bytes")
 

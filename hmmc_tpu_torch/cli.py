@@ -12,12 +12,13 @@ does not run is still accepted where its default asks for nothing:
 - the TPU's mesh and program flags (--dp_size, --tp_size, --sp_size,
   --dcn_dp_size, --zero_opt, --multihost, --fused_ema) raise with the flag's
   name when set away from their defaults;
-- so do the modes and options not ported yet (ROADMAP.md Queue A):
-  --do_pretrain, --resume, --save_steps, --async_save, --profile_dir,
+- so do the modes and options not ported yet, each naming its ROADMAP.md
+  item: --resume, --save_steps, --async_save, --profile_dir,
   --eval_dual_softmax, --token_filter_keep, --use_randaugment and
-  --task retrieval_VT.
---do_extract (with --quantize_bank), --do_params and --clip_model run as in
-the JAX package; either mode alone is a run.
+  --task retrieval_VT, and a pretrain over another dataset than VATEX.
+--do_pretrain (VATEX, English), --do_extract (with --quantize_bank),
+--do_params and --clip_model run as in the JAX package; any mode alone is
+a run.
 --use_pallas_attention maps "auto" and "on" to the CUDA attention kernels
 (``use_fused_attention="on"``) and "off" to the plain attention.
 """
@@ -128,27 +129,45 @@ def get_args(description: str = "HMMC on Retrieval Task (PyTorch port)",
 # flag -> its default; any other value raises
 _TPU_ONLY = {"dp_size": 0, "tp_size": 1, "sp_size": 1, "dcn_dp_size": 1,
              "zero_opt": False, "multihost": False, "fused_ema": False}
-_NOT_PORTED = {"do_pretrain": False, "resume": False, "save_steps": 0,
-               "async_save": False, "profile_dir": None,
-               "eval_dual_softmax": False, "token_filter_keep": 0,
-               "use_randaugment": False, "task": "retrieval"}
+# flag -> (its default, the ROADMAP.md item that ports it)
+_CHECKPOINTS = "Queue A 4, train-state checkpoints"
+_NOT_PORTED = {"resume": (False, _CHECKPOINTS),
+               "save_steps": (0, _CHECKPOINTS),
+               "async_save": (False, _CHECKPOINTS),
+               "profile_dir": (None, _CHECKPOINTS),
+               "eval_dual_softmax": (False, "Queue A 9, retrieval_VT"),
+               "token_filter_keep": (0, "Queue A 11, token filter"),
+               "use_randaugment": (False, "Queue A 7, RandAugment"),
+               "task": ("retrieval", "Queue A 9, retrieval_VT")}
+# datasets the pretrain runs over
+PRETRAIN_DATASETS = ("vatex",)
 
 
 def to_task_config(args: argparse.Namespace) -> TaskConfig:
     for flag, default in _TPU_ONLY.items():
         if getattr(args, flag) != default:
+            where = ("the pretrain's --fused_ema is ROADMAP.md Queue A 7, "
+                     "fused EMA" if flag == "fused_ema" else
+                     "multi-GPU is ROADMAP.md Queue A 6")
             raise ValueError(
                 f"--{flag} {getattr(args, flag)!r}: a TPU mesh/program flag; "
-                "the port runs on one card (multi-GPU is ROADMAP.md Queue A)")
-    for flag, default in _NOT_PORTED.items():
+                f"the port runs on one card ({where})")
+    for flag, (default, item) in _NOT_PORTED.items():
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"--{flag} {getattr(args, flag)!r} is not ported yet "
-                "(ROADMAP.md Queue A)")
-    if not (args.do_train or args.do_eval or args.do_params
-            or args.do_extract):
-        raise ValueError("At least one of do_train/do_eval/do_params/"
-                         "do_extract must be set")
+                f"(ROADMAP.md {item})")
+    if args.do_pretrain and (args.dataset not in PRETRAIN_DATASETS
+                             or args.language != "english"):
+        raise NotImplementedError(
+            f"--do_pretrain --dataset {args.dataset} --language "
+            f"{args.language}: the port pretrains in English over "
+            f"{', '.join(PRETRAIN_DATASETS)} only (the bird pretrain and the "
+            "Chinese MLM are ROADMAP.md Queue A 8)")
+    if not (args.do_pretrain or args.do_train or args.do_eval
+            or args.do_params or args.do_extract):
+        raise ValueError("At least one of do_pretrain/do_train/do_eval/"
+                         "do_params/do_extract must be set")
     fields = {f.name for f in dataclasses.fields(TaskConfig)}
     kv = {k: v for k, v in vars(args).items() if k in fields}
     kv["use_fused_attention"] = ("off" if args.use_pallas_attention == "off"

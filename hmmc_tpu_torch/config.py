@@ -4,7 +4,7 @@
 ``from_state_dict``) are copies of the JAX package's (field names and
 defaults match the reference's ``cross_config.json`` and CLIP model zoo).
 :class:`TaskConfig` carries only the fields the retrieval eval, the
-fine-tune, the extract and the CLI read, plus the
+fine-tune, the pretrain, the extract and the CLI read, plus the
 attention switch ``use_fused_attention`` ("on": the hand-written CUDA kernel for every
 unmasked or causal attention; "off": the plain PyTorch attention). The JAX
 package's automatic kernel choice is not carried over: its crossover was
@@ -207,10 +207,11 @@ class ClipArch:
 
 @dataclasses.dataclass(frozen=True)
 class TaskConfig:
-    """The run flags the retrieval eval, the fine-tune and the CLI read
-    (names and defaults as in ``hmmc_tpu.config.TaskConfig``)."""
+    """The run flags the retrieval eval, the fine-tune, the pretrain and
+    the CLI read (names and defaults as in ``hmmc_tpu.config.TaskConfig``)."""
 
     # mode
+    do_pretrain: bool = False
     do_train: bool = False
     do_eval: bool = False
     do_extract: bool = False
@@ -243,6 +244,10 @@ class TaskConfig:
     batch_size: int = 256
     batch_size_val: int = 3500
     gradient_accumulation_steps: int = 1
+    # pretrain contrast engine (main_pretrain.py:61-63)
+    contrast_num_negative: int = 1024
+    contrast_momentum: float = 0.99
+    contrast_temperature: float = 0.07
     seed: int = 42
     n_display: int = 100
     output_dir: Optional[str] = None
@@ -273,6 +278,12 @@ class TaskConfig:
         if self.frame_sample_len not in ("fix", "dynamic"):
             raise ValueError(
                 f"unknown frame_sample_len {self.frame_sample_len!r}")
+
+    @property
+    def aug_size(self) -> int:
+        """The pretrain decode's short side and square crop: 8/7 of the
+        input resolution (224 -> 256; ``hmmc_tpu/data/registry.py:50``)."""
+        return (self.image_resolution or 224) * 8 // 7
 
     @property
     def micro_batch_size(self) -> int:

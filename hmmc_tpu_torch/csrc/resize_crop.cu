@@ -11,7 +11,8 @@
 // otherwise; jdcolor.c ycc_rgb_convert: 16-bit fixed point; no conversion
 // for RGB-coded planes; for CMYK and YCCK planes, libjpeg's YCCK->CMYK and
 // Pillow's CMYK->RGB), then
-// Pillow's two passes with taps
+// Pillow's two passes (stage 0, the planes' conversion, is in
+// jpeg_planes.cuh, shared with R2), with taps
 // from the host (hmmc_tpu_torch/ops/resize_crop.py: pil_coeffs, the same
 // double arithmetic as Pillow's precompute_coeffs, then its 22-bit fixed
 // point). Integer arithmetic only: it equals the plain version
@@ -50,12 +51,13 @@
 
 #include <cstdint>
 
+#include "jpeg_planes.cuh"
+
 namespace {
 
 constexpr int kPrecisionBits = 22;
 constexpr int kThreads = 256;
 constexpr int kGeomWords = 8;
-constexpr int kFrameWords = 10;
 
 __device__ __forceinline__ unsigned char clip8(int v) {
   // Pillow's clip8: <= 0 -> 0, >= 256 << 22 -> 255, else v >> 22
@@ -63,86 +65,13 @@ __device__ __forceinline__ unsigned char clip8(int v) {
   return static_cast<unsigned char>(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
-__device__ __forceinline__ unsigned char range_limit(int v) {
-  return static_cast<unsigned char>(v < 0 ? 0 : (v > 255 ? 255 : v));
-}
-
-// libjpeg's upsampling (jdsample.c) of one chroma sample at full-resolution
-// (x, y) for sampling factors (hf, vf) = (1 << hs, 1 << vs). h2v2, h2v1
-// (chroma wider than 2) and h1v2 are fancy: 3/4 nearer + 1/4 farther
-// sample along each halved axis, edges replicated, rounding 8 / 7 (h2v2)
-// or 1 / 2 (one axis); every other sampling replicates.
-__device__ __forceinline__ int upsample(const unsigned char* c,
-                                        long long pitch, int cw, int ch,
-                                        int hf, int vf, int hs, int vs,
-                                        int x, int y) {
-  const int cy = y >> vs;
-  const int cx = x >> hs;
-  const bool fancy_h = hf == 2 && vf <= 2 && cw > 2;
-  const bool fancy_v = vf == 2 && (hf == 1 || fancy_h);
-  const unsigned char* r0 = c + cy * pitch;
-  if (!fancy_h && !fancy_v) return r0[cx];
-  const int oy =
-      fancy_v ? min(max((y & 1) ? cy + 1 : cy - 1, 0), ch - 1) : cy;
-  const unsigned char* r1 = c + oy * pitch;
-  const int near = fancy_v ? 3 * r0[cx] + r1[cx] : r0[cx];
-  if (!fancy_h) return (near + ((y & 1) ? 2 : 1)) >> 2;
-  const int ox = min(max((x & 1) ? cx + 1 : cx - 1, 0), cw - 1);
-  if (!fancy_v) return (3 * near + r0[ox] + ((x & 1) ? 2 : 1)) >> 2;
-  const int far = 3 * r0[ox] + r1[ox];
-  return (3 * near + far + ((x & 1) ? 7 : 8)) >> 4;
-}
-
-// jdcolor.c ycc_rgb_convert with its tables' arithmetic written out
-__device__ __forceinline__ void ycc_rgb(int y, int cb, int cr,
-                                        unsigned char* out) {
-  const int xb = cb - 128, xr = cr - 128;
-  const int r = (91881 * xr + 32768) >> 16;
-  const int b = (116130 * xb + 32768) >> 16;
-  const int g = (-22554 * xb + 32768 + -46802 * xr) >> 16;
-  out[0] = range_limit(y + r);
-  out[1] = range_limit(y + g);
-  out[2] = range_limit(y + b);
-}
-
-// Pillow's cmyk2rgb of one channel: k - MULDIV255(ink, k), k the stored
-// fourth plane (Adobe's inverted K), ink the channel's C, M or Y
-__device__ __forceinline__ unsigned char ink_rgb(int ink, int k) {
-  const int t = ink * k + 128;
-  return range_limit(k - (((t >> 8) + t) >> 8));
-}
-
-// the planes' values at one pixel -> RGB, by colour (see the descriptor)
-__device__ __forceinline__ void to_rgb(int colour, int c0, int c1, int c2,
-                                       int k, unsigned char* out) {
-  if (colour == 1) {
-    out[0] = static_cast<unsigned char>(c0);
-    out[1] = static_cast<unsigned char>(c1);
-    out[2] = static_cast<unsigned char>(c2);
-    return;
-  }
-  if (colour == 2) {
-    out[0] = ink_rgb(255 - c0, k);
-    out[1] = ink_rgb(255 - c1, k);
-    out[2] = ink_rgb(255 - c2, k);
-    return;
-  }
-  ycc_rgb(c0, c1, c2, out);
-  // YCCK: libjpeg's ycck_cmyk_convert stores 255 - rgb, which Pillow reads
-  // inverted, so the ink is the YCbCr conversion's rgb
-  if (colour == 3) {
-    out[0] = ink_rgb(out[0], k);
-    out[1] = ink_rgb(out[1], k);
-    out[2] = ink_rgb(out[2], k);
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 resize_crop_kernel(const long long* __restrict__ desc, int n_geom,
                    unsigned char* __restrict__ out, int res, int tile_rows) {
   extern __shared__ unsigned char smem[];
-  const long long* frame = desc + kGeomWords * n_geom
-                           + kFrameWords * static_cast<long long>(blockIdx.x);
+  const long long* frame =
+      desc + kGeomWords * n_geom
+      + hmmc_planes::kFrameWords * static_cast<long long>(blockIdx.x);
   const int r0 = blockIdx.y * tile_rows;
   const int r1 = min(r0 + tile_rows, res);
   const int width3 = res * 3;
@@ -176,45 +105,8 @@ resize_crop_kernel(const long long* __restrict__ desc, int n_geom,
   unsigned char* tmp = smem + n_rows * n_cols * 3; // [n_rows][res][3]
 
   // stage 0: the staged source pixels as RGB
-  const unsigned char* p0 = reinterpret_cast<const unsigned char*>(frame[0]);
-  const long long pitch0 = frame[1];
-  if (fmt == 0) {
-    const int row_bytes = n_cols * 3;
-    const int items = n_rows * row_bytes;
-    for (int i = threadIdx.x; i < items; i += blockDim.x) {
-      const int rr = i / row_bytes;
-      const int b = i - rr * row_bytes;
-      src[i] = p0[static_cast<long long>(ys + rr) * pitch0 + xs * 3 + b];
-    }
-  } else {
-    const unsigned char* pcb = reinterpret_cast<const unsigned char*>(frame[4]);
-    const unsigned char* pcr = reinterpret_cast<const unsigned char*>(frame[5]);
-    const unsigned char* pk = reinterpret_cast<const unsigned char*>(frame[9]);
-    const long long pitch1 = frame[6];
-    const int hf = static_cast<int>(frame[7] & 15);
-    const int vf = static_cast<int>(frame[7] >> 4);
-    const int colour = static_cast<int>(frame[8]);
-    const int hs = hf >> 1, vs = vf >> 1;      // log2 of 1, 2, 4
-    const int cw = fmt == 3 ? 0 : (w + hf - 1) >> hs;
-    const int ch = fmt == 3 ? 0 : (h + vf - 1) >> vs;
-    const int items = n_rows * n_cols;
-    for (int i = threadIdx.x; i < items; i += blockDim.x) {
-      const int rr = i / n_cols;
-      const int y = ys + rr;
-      const int x = xs + (i - rr * n_cols);
-      const long long at = static_cast<long long>(y) * pitch0 + x;
-      const int luma = p0[at];
-      unsigned char* o = src + i * 3;
-      if (fmt == 3) {
-        o[0] = o[1] = o[2] = static_cast<unsigned char>(luma);
-      } else {
-        to_rgb(colour, luma,
-               upsample(pcb, pitch1, cw, ch, hf, vf, hs, vs, x, y),
-               upsample(pcr, pitch1, cw, ch, hf, vf, hs, vs, x, y),
-               colour >= 2 ? pk[at] : 0, o);
-      }
-    }
-  }
+  hmmc_planes::stage_rgb<false>(frame, fmt, w, h, ys, n_rows, xs, n_cols,
+                                src);
   __syncthreads();
 
   // stage 1, horizontal pass: staged rows x cropped columns -> uint8

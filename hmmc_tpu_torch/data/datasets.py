@@ -1,28 +1,31 @@
-"""MSR-VTT datasets over a frame store (counterpart of
-``hmmc_tpu/data/datasets.py``: ``FrameSource`` in ``eval`` mode,
-``_get_video``, ``SeededFrameSampling``, ``MsrvttEvalDataset``,
-``MsrvttTrainDataset``).
+"""MSR-VTT and VATEX datasets over a frame store (counterpart of
+``hmmc_tpu/data/datasets.py``: ``FrameSource`` in ``eval`` and ``aug``
+mode, ``_get_video``, ``SeededFrameSampling``, ``MsrvttEvalDataset``,
+``MsrvttTrainDataset``, ``VatexDataset``).
 
 A sample carries the frames still compressed: ``video_blobs``, ``want``
 JPEG blobs as ``bytes`` (``None`` in zero-padded slots up to
 ``max_frames``), beside ``query_ids``, ``query_mask``, ``nframes`` and
 ``idx``. The consumer decodes a whole batch on its device
 (:func:`hmmc_tpu_torch.data.jpeg.decode_video_blobs`); no pixel is decoded
-on the host. :meth:`FrameSource.load` decodes on the CPU, as the JAX
-package's ``FrameSource.load`` does (PIL, then R1's plain version: the same
-frames bit for bit).
+on the host. The source's ``mode`` says how (``"eval"``: R1's geometry at
+``resolution``; ``"aug"``: R2's at ``aug_size``), and the consumer decodes
+in that mode. :meth:`FrameSource.load` decodes on the CPU, as the
+JAX package's ``FrameSource.load`` does (PIL, then R1's plain version, or
+cv2, then R2's: the same frames bit for bit as its PIL and cv2 routes).
 
 CSV files are read with the standard ``csv`` module (the card's machine has
 no pandas), every field kept as the string it is, in file order.
 
-Not ported yet (ROADMAP.md Queue A): the ``aug`` decode mode (pretrain),
-the LMDB reader, and the VATEX, bird, MSVD and LSMDC datasets.
+Not ported yet (ROADMAP.md Queue A): the LMDB reader, and the bird, MSVD
+and LSMDC datasets.
 """
 
 from __future__ import annotations
 
 import csv
 import json
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -42,12 +45,19 @@ def read_csv(path: str) -> List[Dict[str, str]]:
 
 
 class FrameSource:
-    """Frame store + the eval decode geometry (the JAX package's ``eval``
-    mode; its ``aug`` mode is not ported)."""
+    """Frame store + decode policy: ``mode="eval"`` decodes at
+    ``resolution`` (R1's geometry), ``mode="aug"`` at ``aug_size`` (R2's:
+    the pretrain's 256 for 224)."""
 
-    def __init__(self, store_path: str, resolution: int = 224):
+    def __init__(self, store_path: str, resolution: int = 224,
+                 mode: str = "eval", aug_size: int = 256):
+        if mode not in ("eval", "aug"):
+            raise ValueError(f"decode mode {mode!r}: eval or aug")
         self.store = open_frame_store(store_path)
         self.resolution = resolution
+        self.mode = mode
+        self.aug_size = aug_size
+        self.out_size = resolution if mode == "eval" else aug_size
 
     def stored_frames(self, video_id: str) -> int:
         return self.store.num_frames(video_id)
@@ -58,9 +68,9 @@ class FrameSource:
             video_id, [int(i) for i in indices])]
 
     def load(self, video_id: str, indices: Sequence[int]) -> np.ndarray:
-        """Decoded on the CPU: uint8 [n, res, res, 3]."""
-        return decode_frames(self.blobs(video_id, indices), self.resolution,
-                             "cpu").numpy()
+        """Decoded on the CPU: uint8 [n, out_size, out_size, 3]."""
+        return decode_frames(self.blobs(video_id, indices), self.out_size,
+                             "cpu", self.mode).numpy()
 
 
 def _get_video(source: FrameSource, video_id: str, want: int,
@@ -146,6 +156,59 @@ class MsrvttTrainDataset(SeededFrameSampling):
         self.max_frames = max_frames
         self.frame_sample = frame_sample
         self.language = language
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx: int) -> Dict:
+        video_id, caption = self.samples[idx]
+        ids, mask = encode_text(self.tokenizer, caption, self.max_words,
+                                self.language)
+        blobs, nframes = _get_video(
+            self.source, video_id, self.max_frames, self.max_frames,
+            self.frame_sample, self._sample_rng(idx))
+        return _sample(ids, mask, blobs, nframes, idx)
+
+
+class VatexDataset(SeededFrameSampling):
+    """VATEX, multi-sentence (dataloader_vatex_retrieval.py): every caption
+    (``enCap``) of every listed video is a sample; ``cut_off_points`` mark
+    each video's last sentence index + 1, and the eval groups sentences per
+    video. ``list_path`` overrides the split list's location."""
+
+    multi_sentence_per_video = True
+    LISTS = {"pretrain": "train_list.txt", "train": "train_list.txt",
+             "val": "val_list.txt", "test": "test_list.txt"}
+
+    def __init__(self, source: FrameSource, data_path: str, subset: str,
+                 tokenizer, language: str = "english", max_words: int = 32,
+                 max_frames: int = 12, frame_sample: str = "uniform",
+                 list_path: Optional[str] = None):
+        if language != "english":
+            raise NotImplementedError(
+                "VATEX's Chinese captions need the Chinese tower, not "
+                "ported yet (ROADMAP.md Queue A 8, 'Chinese branch')")
+        with open(list_path or os.path.join(data_path, self.LISTS[subset]),
+                  "r", encoding="utf-8") as f:
+            video_ids = [line.strip() for line in f if line.strip()]
+        with open(os.path.join(data_path, "vatex_data.json"), "r",
+                  encoding="utf-8") as f:
+            captions = json.load(f)
+        self.samples: List[Tuple[str, str]] = []
+        self.cut_off_points: List[int] = []
+        for vid in video_ids:
+            for cap in captions[vid]["enCap"]:
+                self.samples.append((vid, cap))
+            self.cut_off_points.append(len(self.samples))
+        self.video_num = len(video_ids)
+        self.sentence_num = len(self.samples)
+        self.video_ids = video_ids
+        self.source = source
+        self.tokenizer = tokenizer
+        self.language = language
+        self.max_words = max_words
+        self.max_frames = max_frames
+        self.frame_sample = frame_sample
 
     def __len__(self):
         return len(self.samples)

@@ -1,6 +1,12 @@
 """JPEG frames -> uint8 ``[N, res, res, 3]`` at the eval geometry: decode,
 then R1 (``ops/resize_crop.py``: the short-side bicubic resize and centre
-crop, bit for bit as PIL).
+crop, bit for bit as PIL); or, in ``mode="aug"`` (the pretrain), at the aug
+geometry: decode, then R2 (``ops/resize_area.py``: cv2's ``INTER_AREA``
+short-side resize and centre crop, bit for bit as cv2), the counterpart of
+``_decode_aug`` in ``hmmc_tpu/data/datasets.py:64-85``. The aug route
+follows that cv2 route, not the JAX package's native decoder
+(``native/hmmc_jpeg.cpp``: DCT-domain prescaling, which nvJPEG has no
+counterpart of).
 
 Counterpart of ``_decode_eval`` in ``hmmc_tpu/data/datasets.py:36-61``, which
 decodes on the host with PIL. Here the host only hands compressed blobs
@@ -25,7 +31,9 @@ over:
 - On the CPU (``device="cpu"``: the tests, small runs), PIL decodes each
   blob (imported here, as ``_decode_eval`` does; without PIL it raises) and
   R1's plain version resizes and crops, so the frames equal the JAX
-  package's bit for bit.
+  package's bit for bit. In aug mode cv2 decodes (``imdecode``,
+  ``cvtColor``; imported here, and the card's machine, which has no cv2,
+  never takes this route) and R2's plain version resizes and crops.
 
 ``None`` in a batch is a padded slot and comes out zero. A blob that does
 not decode (on the CPU: any exception PIL raises, a
@@ -53,6 +61,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from hmmc_tpu_torch.ops import resize_area as r2
 from hmmc_tpu_torch.ops.resize_crop import (COLORS, FORMATS, PADDED,
                                             SAMPLING, Frame, PlaneBatch,
                                             YccFrame, chroma_format, launch,
@@ -164,14 +173,25 @@ def _count_failure() -> None:
     decode_frames.decode_failures += 1
 
 
-def _decode_cpu(blobs: Sequence[Optional[bytes]], res: int) -> torch.Tensor:
+def _cv2_rgb(blob) -> Optional[np.ndarray]:
+    import cv2
+
+    bgr = cv2.imdecode(np.frombuffer(bytes(blob), np.uint8),
+                       cv2.IMREAD_COLOR)
+    return None if bgr is None else cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+
+
+def _decode_cpu(blobs: Sequence[Optional[bytes]], res: int,
+                mode: str = "eval") -> torch.Tensor:
+    rgb_of, resize = ((_pil_rgb, resize_crop) if mode == "eval"
+                      else (_cv2_rgb, r2.resize_area))
     frames: List[Optional[torch.Tensor]] = []
     for b in blobs:
-        rgb = None if b is None else _pil_rgb(b)
+        rgb = None if b is None else rgb_of(b)
         if b is not None and rgb is None:
             _count_failure()
         frames.append(None if rgb is None else torch.from_numpy(rgb))
-    return resize_crop(frames, res, device="cpu")
+    return resize(frames, res, device="cpu")
 
 
 class _NvJpeg:
@@ -354,32 +374,42 @@ def _decoder(device: torch.device) -> _NvJpeg:
     return _NvJpeg(device)
 
 
+MODES = ("eval", "aug")
+
+
 def decode_frames(blobs: Sequence[Optional[bytes]], res: int,
-                  device) -> torch.Tensor:
+                  device, mode: str = "eval") -> torch.Tensor:
     """JPEG blobs (``None`` = padded slot) -> uint8 ``[N, res, res, 3]`` on
-    ``device``: nvJPEG + R1 on a CUDA device, PIL + R1's plain version on
-    the CPU."""
+    ``device``. ``mode="eval"``: nvJPEG + R1 on a CUDA device, PIL + R1's
+    plain version on the CPU; ``mode="aug"``: nvJPEG + R2, or cv2 + R2's
+    plain version."""
+    if mode not in MODES:
+        raise ValueError(f"decode mode {mode!r}: one of {MODES}")
     device = torch.device(device)
     if device.type == "cpu":
-        return _decode_cpu(blobs, res)
+        return _decode_cpu(blobs, res, mode)
     if device.type != "cuda":
         raise ValueError(f"decode_frames runs on cuda or cpu; got {device}")
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     with record_function("nvjpeg_decode"):
         batch, _ = _decoder(device).decode_planes(blobs)
+    if mode == "aug":
+        with record_function("resize_area"):
+            return r2.launch(batch, res, device)
     with record_function("resize_crop"):
         return launch(batch, res, device)
 
 
 def decode_video_blobs(video_blobs: Sequence[Sequence[Optional[bytes]]],
-                       res: int, device) -> torch.Tensor:
+                       res: int, device, mode: str = "eval"
+                       ) -> torch.Tensor:
     """A loader batch's ``video_blobs`` (B lists of F blobs) -> uint8
     ``[B, F, res, res, 3]`` on ``device``."""
     b = len(video_blobs)
     f = len(video_blobs[0]) if b else 0
     flat = [blob for clip in video_blobs for blob in clip]
-    return decode_frames(flat, res, device).view(b, f, res, res, 3)
+    return decode_frames(flat, res, device, mode).view(b, f, res, res, 3)
 
 
 def reset_counters() -> None:

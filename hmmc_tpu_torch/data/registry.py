@@ -10,8 +10,11 @@ reference's file layout:
       msrvtt/MSRVTT_JSFUSION_test.1k.csv
       msrvtt/MSRVTT_train.9k.csv
       msrvtt/MSRVTT_data.json
+      vatex/{train,val,test}_list.txt, vatex/vatex_data.json
 
-Only MSR-VTT is ported; the other datasets wait in ROADMAP.md Queue A.
+MSR-VTT and VATEX (English captions) are ported; the other datasets wait
+in ROADMAP.md Queue A. VATEX's split lists fall back to the copies the
+repository ships under ``tools/vatex_txt/`` (read as data files).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Callable, Dict
 
 from hmmc_tpu_torch.config import TaskConfig
 from hmmc_tpu_torch.data.datasets import (FrameSource, MsrvttEvalDataset,
-                                          MsrvttTrainDataset)
+                                          MsrvttTrainDataset, VatexDataset)
 from hmmc_tpu_torch.data.loader import BatchLoader
 
 
@@ -37,10 +40,12 @@ def _store_path(task: TaskConfig, sub: str) -> str:
         f"no frame store under {base!r} (looked for frames.fpk / lmdb)")
 
 
-def _source(task: TaskConfig, sub: str) -> FrameSource:
-    """The eval-mode frame source (both MSR-VTT splits decode so)."""
+def _source(task: TaskConfig, sub: str, mode: str = "eval") -> FrameSource:
+    """The frame source: ``eval`` mode for every split but the pretrain's
+    (``aug``, at ``task.aug_size``)."""
     return FrameSource(_store_path(task, sub),
-                       resolution=task.image_resolution or 224)
+                       resolution=task.image_resolution or 224, mode=mode,
+                       aug_size=task.aug_size)
 
 
 def process_index_count():
@@ -90,8 +95,50 @@ def msrvtt_test(task: TaskConfig, tokenizer):
     return _loader(ds, task, train=False), ds
 
 
+BUNDLED_VATEX_LISTS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "tools", "vatex_txt")
+
+
+def vatex_split(subset: str, train: bool) -> Callable:
+    """The factory of a VATEX split (``hmmc_tpu/data/registry.py:97-128``):
+    the data dir's split list, else the bundled one; the pretrain split
+    decodes in ``aug`` mode (256, centre square) for the device-side
+    RandomResizedCrop, the others in ``eval`` mode."""
+    def factory(task: TaskConfig, tokenizer):
+        base = os.path.join(task.data_dir or ".", "vatex")
+        list_file = VatexDataset.LISTS[subset]
+        list_path = None
+        if not os.path.isfile(os.path.join(base, list_file)):
+            cand = os.path.join(BUNDLED_VATEX_LISTS, list_file)
+            if os.path.isfile(cand):
+                list_path = cand
+        ds = VatexDataset(
+            _source(task, "vatex", "aug" if subset == "pretrain" else "eval"),
+            data_path=base, subset=subset, tokenizer=tokenizer,
+            language=task.language, max_words=task.max_words,
+            max_frames=task.max_frames,
+            frame_sample=task.frame_sample if train else "uniform",
+            list_path=list_path)
+        return _loader(ds, task, train=train), ds
+
+    return factory
+
+
+def vatex_pretrain(task: TaskConfig, tokenizer):
+    """Pretrain over VATEX: its captions serve as the titles (and as the
+    tags, which the English VATEX pretrain does not read;
+    dataloader_vatex_retrieval.py:248-249), taken so by
+    ``runner.prepare_pretrain_batch``."""
+    return vatex_split("pretrain", train=True)(task, tokenizer)
+
+
 DATALOADER_DICT: Dict[str, Dict[str, Callable]] = {
     "msrvtt": {"train": msrvtt_train, "test": msrvtt_test},
+    "vatex": {"pretrain": vatex_pretrain,
+              "train": vatex_split("train", train=True),
+              "val": vatex_split("val", train=False),
+              "test": vatex_split("test", train=False)},
 }
 
 
@@ -102,4 +149,9 @@ def get_factory(dataset: str, split: str) -> Callable:
         raise NotImplementedError(
             f"dataset {dataset!r} is not ported yet: only "
             f"{sorted(DATALOADER_DICT)} (ROADMAP.md Queue A)")
+    if split not in DATALOADER_DICT[dataset]:
+        raise NotImplementedError(
+            f"dataset {dataset!r} has no {split!r} split in the port (its "
+            f"splits: {sorted(DATALOADER_DICT[dataset])}; ROADMAP.md Queue "
+            "A)")
     return DATALOADER_DICT[dataset][split]

@@ -1,13 +1,18 @@
 """Model construction (counterpart of ``hmmc_tpu/factory.py``).
 
-:func:`build_model` builds the retrieval ``BirdModel`` with seeded random
+:func:`build_model` builds the retrieval ``BirdModel`` (or, with
+``pretrain=True``, the ``BirdPretrainModel``) with seeded random
 weights drawn on the CPU from an explicit ``torch.Generator`` (so a seed
 gives the same weights on every device), overlays an OpenAI CLIP file
 (``--clip_model``: its architecture read from its tensor shapes, its
 visual tower, ``logit_scale`` and, in English, its text tower), then an
 HMMC checkpoint (``pytorch_model.bin.N``, ``--init_model``), which wins, as
 in the JAX factory; then it moves the model to the device. Orbax
-directories are not read.
+directories are not read. A pretrain checkpoint's key towers and queues
+are not the query model's: with ``pretrain=True`` they are kept on the
+model as ``pretrain_import`` for the run to load into its state (the JAX
+factory's ``_pretrain_import``, ``hmmc_tpu/factory.py:206-234``); for the
+retrieval model they are dropped and logged.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Optional
 import torch
 
 from hmmc_tpu_torch.config import ClipArch, CrossConfig, TaskConfig
+from hmmc_tpu_torch.models.pretrain import BirdPretrainModel
 from hmmc_tpu_torch.models.retrieval import BirdModel
 from hmmc_tpu_torch.train import checkpoint
 
@@ -44,8 +50,10 @@ def build_model(task: TaskConfig, cross: CrossConfig,
                 arch: Optional[ClipArch] = None, device=None,
                 generator: Optional[torch.Generator] = None,
                 init_model_path: Optional[str] = None,
-                clip_model_path: Optional[str] = None) -> BirdModel:
-    """A ``BirdModel`` in eval mode on ``device`` with weights drawn from
+                clip_model_path: Optional[str] = None,
+                pretrain: bool = False, vocab_size: int = 49408):
+    """A ``BirdModel`` (``pretrain``: a ``BirdPretrainModel`` with an MLM
+    head of ``vocab_size``) in eval mode on ``device`` with weights drawn from
     ``generator`` (a CPU generator; default: seeded with ``task.seed``),
     overlaid first by the OpenAI CLIP file at ``clip_model_path`` (whose
     tensor shapes give the architecture), then by the checkpoint at
@@ -70,10 +78,15 @@ def build_model(task: TaskConfig, cross: CrossConfig,
                 "not ported yet (ROADMAP.md Queue A 10)")
     elif arch is None:
         arch = ClipArch.by_name(cross.pretrained_clip_name)
-    model = BirdModel(arch, cross, language=task.language,
-                      use_temp=task.use_temp,
-                      dtype=COMPUTE_DTYPES[task.compute_dtype],
-                      use_fused=task.use_fused_attention == "on")
+    common = dict(language=task.language, use_temp=task.use_temp,
+                  dtype=COMPUTE_DTYPES[task.compute_dtype],
+                  use_fused=task.use_fused_attention == "on")
+    if pretrain:
+        model = BirdPretrainModel(arch, cross, vocab_size=vocab_size,
+                                  **common)
+        model.pretrain_import = None
+    else:
+        model = BirdModel(arch, cross, **common)
     if generator is None:
         generator = torch.Generator().manual_seed(task.seed)
     model.reset_parameters(generator)
@@ -86,7 +99,12 @@ def build_model(task: TaskConfig, cross: CrossConfig,
             raise NotImplementedError(
                 f"{init_model_path} is a directory: Orbax checkpoints are "
                 "not read by the port; pass a pytorch_model.bin.N file")
-        checkpoint.merge_into(model, checkpoint.remap_gamma_beta(
-            checkpoint.load_torch_state_dict(init_model_path)), logger)
+        sd = checkpoint.remap_gamma_beta(
+            checkpoint.load_torch_state_dict(init_model_path))
+        if pretrain:
+            sd, keys, queues = checkpoint.split_pretrain_state_dict(sd)
+            if keys or queues:
+                model.pretrain_import = {"towers": keys, "queues": queues}
+        checkpoint.merge_into(model, sd, logger)
         logger.info("loaded checkpoint %s", init_model_path)
     return model.to(device).eval()

@@ -9,8 +9,14 @@ modeling.py:207-229, 665-722).
 - :func:`finetune_retrieval_loss`: VTM (symmetric CrossEn on the global
   similarity) plus FTM (the per-frame symmetric CrossEn, meaned).
 
-All math in fp32; inputs may be bf16 (cast up on entry). The MoCo, MIL-NCE
-and max-margin losses come with the pretrain slice.
+- :func:`moco_contrastive`: InfoNCE of a query against its key and a
+  negative queue; :func:`frame_self_loss` (FAM) and
+  :func:`frame_cross_loss` (FTM), the pretrain's frame losses built on it
+  (``hmmc_tpu/losses.py:97-166``; modeling.py:286-332). Keys and queues
+  carry no gradient.
+
+All math in fp32; inputs may be bf16 (cast up on entry). The MIL-NCE and
+max-margin losses are not ported.
 """
 
 from __future__ import annotations
@@ -73,3 +79,54 @@ def finetune_retrieval_loss(query_output: torch.Tensor,
         frame_loss = (cross_en(per) + cross_en(per.transpose(1, 2))).mean()
         loss = loss + weight_ftm * frame_loss
     return {"loss": loss, "sim_loss": sim_loss, "frame_loss": frame_loss}
+
+
+def _moco_rows(q: torch.Tensor, k: torch.Tensor, queue: torch.Tensor,
+               temperature: float) -> torch.Tensor:
+    """-log softmax of the positive logit per row: q, k [..., B, H],
+    queue [H, K] -> [..., B]. The positive's logit joins the queue's
+    log-sum-exp through ``logaddexp``, which equals the log-sum-exp of
+    their concatenation without building it."""
+    q = _l2norm(q.float())
+    k = _l2norm(k.float()).detach()
+    pos = (q * k).sum(dim=-1) / temperature
+    neg = torch.logsumexp((q @ queue.float().detach()) / temperature, dim=-1)
+    return torch.logaddexp(pos, neg) - pos
+
+
+def moco_contrastive(q: torch.Tensor, k: torch.Tensor, queue: torch.Tensor,
+                     temperature: float) -> torch.Tensor:
+    """InfoNCE against a negative queue (modeling.py:286-313): q, k
+    [..., B, H] (leading axes batch independent terms), queue [H, K]
+    column-normalised. The mean over every row."""
+    return _moco_rows(q, k, queue, temperature).mean()
+
+
+def frame_self_loss(frame_pred: torch.Tensor, frame_proj_k: torch.Tensor,
+                    queue_frame: torch.Tensor,
+                    temperature: float) -> torch.Tensor:
+    """FAM, adjacent-frame alignment (modeling.py:315-323): for i in
+    [0, F-2], contrast(pred[:, i], proj_k[:, i+1]) + contrast(pred[:, i+1],
+    proj_k[:, i]), summed and divided by F - 1. [B, F, H] each."""
+    f = frame_pred.shape[1]
+    q = torch.cat([frame_pred[:, :-1], frame_pred[:, 1:]], dim=1)
+    k = torch.cat([frame_proj_k[:, 1:], frame_proj_k[:, :-1]], dim=1)
+    per_pair = _moco_rows(q.transpose(0, 1), k.transpose(0, 1), queue_frame,
+                          temperature).mean(dim=-1)          # [2(F-1)]
+    return per_pair.sum() / (f - 1)
+
+
+def frame_cross_loss(frame_fea: torch.Tensor, frame_fea_k: torch.Tensor,
+                     queue_frame: torch.Tensor, text_fea: torch.Tensor,
+                     text_fea_k: torch.Tensor, queue_text: torch.Tensor,
+                     temperature: float) -> torch.Tensor:
+    """FTM, per-frame text <-> frame contrast (modeling.py:325-332): for each
+    frame i, contrast(text, frame_k[:, i], queue_frame) + contrast(frame[:,
+    i], text_k, queue_text), summed over frames and divided by F."""
+    f = frame_fea.shape[1]
+    t2f = _moco_rows(text_fea.unsqueeze(0).expand(f, -1, -1),
+                     frame_fea_k.transpose(0, 1), queue_frame, temperature)
+    f2t = _moco_rows(frame_fea.transpose(0, 1),
+                     text_fea_k.unsqueeze(0).expand(f, -1, -1), queue_text,
+                     temperature)
+    return (t2f.mean(dim=-1).sum() + f2t.mean(dim=-1).sum()) / f

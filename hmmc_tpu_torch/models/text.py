@@ -50,9 +50,12 @@ class ClipTextTower(nn.Module):
         self.transformer.reset_parameters(generator)
         self.ln_final.reset_parameters(generator)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, return_hidden: bool = False):
         """input_ids: [B, L] -> pooled [B, embed_dim] fp32. Pad id is 0, so
-        EOT (49407) is each row's maximum."""
+        EOT (49407) is each row's maximum. ``return_hidden`` also returns
+        every position's projected hidden state, after ``ln_final`` and
+        ``text_projection`` ([B, L, embed_dim] fp32, the MLM head's input,
+        as ``hmmc_tpu/models/text.py:48,82``)."""
         dtype = self.dtype
         l = input_ids.shape[1]
         x = self.token_embedding.weight[input_ids].to(dtype)
@@ -61,8 +64,10 @@ class ClipTextTower(nn.Module):
         hidden = self.ln_final(x) @ self.text_projection.to(dtype)
         eot = input_ids.argmax(dim=-1)
         pooled = hidden[torch.arange(hidden.shape[0], device=hidden.device),
-                        eot]
-        return pooled.float()
+                        eot].float()
+        if return_hidden:
+            return pooled, hidden.float()
+        return pooled
 
 
 class TextEncoder(ClipTextTower):

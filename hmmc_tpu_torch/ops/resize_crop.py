@@ -260,9 +260,11 @@ def _muldiv255(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((t >> 8) + t) >> 8
 
 
-def ycc_to_rgb_reference(f: YccFrame) -> torch.Tensor:
+def ycc_to_rgb_reference(f: YccFrame, cmyk: str = "pil") -> torch.Tensor:
     """libjpeg's and PIL's output for decoded components: uint8 [H, W, 3]
-    (plain version of R1's stage 0)."""
+    (plain version of R1's stage 0). ``cmyk="cv2"`` ends a CMYK or YCCK
+    frame with OpenCV's ``icvCvt_CMYK2BGR``, ``k - ((ink * k) >> 8)``,
+    in place of Pillow's ``cmyk2rgb`` (R2's stage 0)."""
     h, w = f.y.shape
     y = f.y.to(torch.int32)
     if f.fmt == FORMATS["gray"]:
@@ -285,7 +287,8 @@ def ycc_to_rgb_reference(f: YccFrame) -> torch.Tensor:
         # ycck_cmyk_convert gives 255 - rgb, which Pillow reads inverted
         ink = rgb
     k = f.k.to(torch.int32).unsqueeze(-1)
-    return (k - _muldiv255(ink, k)).clamp_(0, 255).to(torch.uint8)
+    part = (ink * k) >> 8 if cmyk == "cv2" else _muldiv255(ink, k)
+    return (k - part).clamp_(0, 255).to(torch.uint8)
 
 
 def resize_crop_reference(frames: torch.Tensor, res: int) -> torch.Tensor:

@@ -1,6 +1,20 @@
-"""Run modes: fine-tune, eval, feature extract and parameter count
-(counterpart of ``hmmc_tpu/runner.py``; reference main() of
-main_task_retrieval.py:528-635).
+"""Run modes: pretrain, fine-tune, eval, feature extract and parameter
+count (counterpart of ``hmmc_tpu/runner.py``; reference main() of
+main_task_retrieval.py:528-635 and of main_pretrain.py).
+
+:func:`run_pretrain` (``--do_pretrain``, ``hmmc_tpu/runner.py:394-560``)
+builds the ``BirdPretrainModel``, its key towers and queues (a pretrain
+``--init_model`` loads all three), BertAdam and the pretrain step; each
+batch is decoded on the device in aug mode (nvJPEG + R2 on the card), run
+through the SimCLR augmentation there and placed ahead of the step by
+``device_prefetch``; VATEX's caption serves as the title (and the tag).
+Random streams come from (seed, purpose, global position), as the JAX
+package's ``fold_in``: the augmentation's by batch, the MLM masks' by
+step. It logs the four losses every ``n_display`` steps, writes
+``pytorch_model.bin.{epoch}`` (the pretrain file, key towers and queues
+included) at each epoch's end, then evaluates on MSR-VTT's test split when
+that data is present (the reference's pretrain evaluates on it whatever
+``--dataset`` is).
 
 :func:`run_finetune`, :func:`run_eval`, :func:`run_extract` and
 :func:`run_params` take the CLI's arguments: they build the tokenizer, the
@@ -27,8 +41,8 @@ JAX package's XLA cost analysis counts elementwise work too.
 Batches carry compressed frames (``video_blobs``: decoded on the device,
 nvJPEG and R1 on the card) or host uint8 ``video``. Not ported yet
 (ROADMAP.md Queue A): Orbax state checkpoints, ``--resume`` and preemption
-saves, the profiler hook, the mesh, pretrain, retrieval_VT. It runs on the
-card unless the caller passes ``device="cpu"``.
+saves, the profiler hook, the mesh, the bird pretrain, retrieval_VT. It
+runs on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -47,6 +61,7 @@ from hmmc_tpu_torch.cli import (MetricsWriter, make_tokenizer, set_seed,
 from hmmc_tpu_torch.config import (ClipArch, CrossConfig, TaskConfig,
                                    load_cross_config)
 from hmmc_tpu_torch.data.jpeg import decode_video_blobs
+from hmmc_tpu_torch.data.loader import device_prefetch
 from hmmc_tpu_torch.data.registry import get_factory
 from hmmc_tpu_torch.evaluation import Evaluator
 from hmmc_tpu_torch.factory import build_model, resolve_device
@@ -54,7 +69,10 @@ from hmmc_tpu_torch.ops import image_ops
 from hmmc_tpu_torch.ops.quant import quantize_bank
 from hmmc_tpu_torch.train.checkpoint import save_reference_checkpoint
 from hmmc_tpu_torch.train.optimization import build_optimizer, scheduled_lr
-from hmmc_tpu_torch.train.trainer import FinetuneState, make_finetune_step
+from hmmc_tpu_torch.models.pretrain import MoCoQueues, init_key_params
+from hmmc_tpu_torch.train.trainer import (FinetuneState, PretrainState,
+                                          make_finetune_step,
+                                          make_pretrain_step)
 
 logger = logging.getLogger(__name__)
 
@@ -189,6 +207,172 @@ def _task_with_resolution(args):
     return task, cross
 
 
+# purposes of the random streams (the JAX runner's fold_in constants)
+QUEUE_STREAM, AUG_STREAM, STEP_STREAM = 0, 1, 2
+
+
+def stream(seed: int, purpose: int, position: int,
+           device="cpu") -> torch.Generator:
+    """A generator on ``device`` for (seed, purpose, position): the JAX
+    package's ``fold_in(fold_in(PRNGKey(seed), purpose), position)``, so a
+    run that resumes at a position draws what it would have drawn."""
+    state = np.random.SeedSequence([seed, purpose, position]).generate_state(
+        2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        int(state[0]) << 32 | int(state[1]))
+
+
+def prepare_pretrain_batch(batch: Dict, device, generator: torch.Generator,
+                           resolution: int = 224, aug_size: int = 256
+                           ) -> Dict[str, torch.Tensor]:
+    """A VATEX loader batch -> the pretrain step's device batch
+    (``_prepare_pretrain_batch`` and ``place``, ``hmmc_tpu/runner.py:54-76,
+    493-505``): the ``video_blobs`` decoded on the device in aug mode at
+    ``aug_size``, then :func:`image_ops.simclr_augment` over the flattened
+    frames from ``generator``; the captions serve as the titles."""
+    video = decode_video_blobs(batch["video_blobs"], aug_size, device,
+                               mode="aug")
+    b, f = video.shape[:2]
+    aug = image_ops.simclr_augment(
+        generator, video.reshape(b * f, *video.shape[2:]), out=resolution)
+    ids = torch.from_numpy(np.ascontiguousarray(batch["query_ids"]))
+    return {"video": aug.view(b, f, resolution, resolution, 3),
+            "title_ids": ids.to(device).long()}
+
+
+@dataclasses.dataclass
+class PretrainRun:
+    displayed: List[Dict]        # one row per logged step
+    epoch_metrics: List[Dict[str, float]]
+    state: PretrainState
+
+
+def pretrain_state(task: TaskConfig, model, t_total: int,
+                   log: Optional[logging.Logger] = None) -> PretrainState:
+    """The state a pretrain starts from: key towers copied from ``model``,
+    queues drawn from the seed's stream, BertAdam over the query model;
+    then a pretrain ``--init_model``'s key towers and queues, where the
+    factory kept them (queues only at this run's shapes)."""
+    log = log or logger
+    device = next(model.parameters()).device
+    towers = init_key_params(model)
+    queues = MoCoQueues.create(
+        stream(task.seed, QUEUE_STREAM, 0), model.arch.embed_dim,
+        task.contrast_num_negative, task.max_frames, device)
+    extra = getattr(model, "pretrain_import", None)
+    if extra and extra["towers"]:
+        towers.load_state_dict(extra["towers"], strict=False)
+        log.info("restored momentum (key) towers from checkpoint")
+    if extra and extra["queues"]:
+        q = extra["queues"]
+        if all(tuple(q[f].shape) == tuple(getattr(queues, f).shape)
+               for f in MoCoQueues.NAMES if f in q):
+            for f in MoCoQueues.NAMES:
+                if f in q:
+                    getattr(queues, f).copy_(q[f])
+            queues.ptr = int(q.get("ptr", 0))
+            log.info("restored MoCo queues (ptr=%d)", queues.ptr)
+        else:
+            log.warning("checkpoint queue shapes do not match "
+                        "--contrast_num_negative/--max_frames; queues start "
+                        "fresh")
+    optimizer = build_optimizer(
+        model.named_parameters(), lr=task.lr, text_lr=task.text_lr,
+        coef_lr=task.coef_lr, weight_decay=task.weight_decay,
+        warmup_proportion=task.warmup_proportion, t_total=t_total,
+        state_dtype=torch.bfloat16 if task.optim_bf16_state else None)
+    return PretrainState(model, towers, queues, optimizer)
+
+
+LOSS_NAMES = ("loss", "loss_FAM", "loss_VTM", "loss_FTM", "loss_MLM")
+
+
+def run_pretrain(args, log=None, device=None) -> PretrainRun:
+    """``--do_pretrain``: the registry's pretrain loader through the MoCo
+    pretrain step (see the module docstring)."""
+    task, cross = _task_with_resolution(args)
+    log = log or setup_logging(task.output_dir)
+    set_seed(task.seed)
+    tokenizer = make_tokenizer(task)
+    writer = MetricsWriter(task.logdir)
+    loader, _ = get_factory(task.dataset, "pretrain")(task, tokenizer)
+    device = resolve_device(device)
+    model = build_model(task, cross, device=device,
+                        init_model_path=task.init_model,
+                        clip_model_path=task.clip_model, pretrain=True,
+                        vocab_size=tokenizer.vocab_size)
+    steps_per_epoch = len(loader)
+    t_total = steps_per_epoch * task.epochs
+    state = pretrain_state(task, model, t_total, log)
+    step_fn = make_pretrain_step(
+        cross, tokenizer.mask_token_id, tokenizer.pad_token_id,
+        tokenizer.cls_token_id,
+        temperature=task.contrast_temperature,
+        momentum=task.contrast_momentum, use_frame_fea=task.use_frame_fea,
+        n_accum=task.gradient_accumulation_steps)
+    resolution = task.image_resolution or model.arch.image_resolution
+    displayed, epoch_metrics = [], []
+    try:
+        for epoch in range(task.epochs):
+            loader.set_epoch(epoch)
+            position = epoch * steps_per_epoch
+
+            def place(batch):
+                nonlocal position
+                gen = stream(task.seed, AUG_STREAM, position, device)
+                position += 1
+                return prepare_pretrain_batch(batch, device, gen, resolution,
+                                              task.aug_size)
+
+            t0 = time.time()
+            for dev_batch in device_prefetch(iter(loader), place):
+                state, metrics = step_fn(
+                    state, dev_batch,
+                    stream(task.seed, STEP_STREAM, state.step, device))
+                if state.step % task.n_display == 0:
+                    values = torch.stack([metrics[k].float()
+                                          for k in LOSS_NAMES]).tolist()
+                    row = dict(zip(LOSS_NAMES, values))
+                    for k, v in row.items():
+                        writer.scalar(k, v, state.step)
+                    lrs = log_lrs(task, state.step, t_total, writer)
+                    wall = time.time() - t0
+                    log.info("epoch %d step %d lr %s loss %.4f (FAM %.3f VTM "
+                             "%.3f FTM %.3f MLM %.3f) %.3fs", epoch,
+                             state.step, lrs, *values, wall)
+                    displayed.append(dict(row, epoch=epoch, step=state.step,
+                                          lr=lrs, wall_s=wall,
+                                          ptr=state.queues.ptr))
+                    t0 = time.time()
+            if task.output_dir:
+                save_reference_checkpoint(
+                    os.path.join(task.output_dir,
+                                 f"pytorch_model.bin.{epoch}"),
+                    model, pretrain_state=state)
+            epoch_metrics.append(_pretrain_eval(task, tokenizer, model,
+                                                device, log, writer, epoch))
+    finally:
+        writer.close()
+    return PretrainRun(displayed, epoch_metrics, state)
+
+
+def _pretrain_eval(task, tokenizer, model, device, log, writer, epoch):
+    """MSR-VTT's test split through ``Evaluator.run`` where its data is
+    present (main_pretrain.py:512-515; the Chinese eval on VATEX waits with
+    the Chinese tower); ``{}`` where it is not."""
+    eval_task = task.replace(dataset="msrvtt")
+    try:
+        loader, dataset = get_factory("msrvtt", "test")(eval_task,
+                                                        tokenizer)
+    except FileNotFoundError as e:
+        log.info("skipping pretrain eval (msrvtt data not found: %s)", e)
+        return {}
+    metrics = Evaluator(model, eval_task, device=device).run(loader, dataset,
+                                                             log)
+    writer.scalar("R1", metrics["R1"], epoch)
+    return metrics
+
+
 def run_eval(args, log=None, device=None) -> Dict[str, float]:
     """``--do_eval``: the test split (or val) through ``Evaluator.run``."""
     task, cross = _task_with_resolution(args)
@@ -293,13 +477,16 @@ def run_params(args, log=None, device=None) -> Dict[str, float]:
 
 def main(args, device=None):
     """As the JAX runner dispatches: ``--do_params`` first (its counts are
-    returned when nothing else runs), then ``--do_train`` (with its
+    returned when nothing else runs), then ``--do_pretrain`` (returns the
+    :class:`PretrainRun`), then ``--do_train`` (with its
     epoch-end evals; returns the :class:`FinetuneRun`), else
     ``--do_extract`` (returns the bank's path), else ``--do_eval``
     (returns its metrics)."""
     out = None
     if args.do_params:
         out = run_params(args, device=device)
+    if args.do_pretrain:
+        return run_pretrain(args, device=device)
     if args.do_train:
         return run_finetune(args, device=device)
     if args.do_extract:

@@ -3,7 +3,7 @@
 (counterpart of ``load_torch_state_dict`` / ``remap_gamma_beta`` /
 ``merge_params`` / the CLIP split of ``import_clip_weights`` in
 ``hmmc_tpu/train/checkpoint.py`` and ``save_reference_checkpoint`` in
-``hmmc_tpu/train/orbax_io.py``).
+``hmmc_tpu/train/orbax_io.py``, its pretrain files included).
 
 The port's module names are the reference checkpoint's (OpenAI CLIP / HMMC
 ``state_dict`` keys), so a file maps onto ``BirdModel.state_dict()`` by
@@ -21,6 +21,8 @@ import os
 from typing import Dict
 
 import torch
+
+from hmmc_tpu_torch.models.pretrain import MOMENTUM_SUBTREES, MoCoQueues
 
 logger = logging.getLogger(__name__)
 
@@ -103,13 +105,58 @@ def merge_into(model: torch.nn.Module, sd: StateDict,
             dst.copy_(src.to(dst.dtype))
 
 
-def save_reference_checkpoint(path: str, model: torch.nn.Module) -> None:
+# the reference's buffer name of each MoCoQueues field
+QUEUE_NAMES = {f: f"queue_{f}_ng" for f in MoCoQueues.NAMES}
+
+
+def _cpu(v: torch.Tensor) -> torch.Tensor:
+    v = v.detach().cpu().contiguous()
+    return v.float() if v.is_floating_point() else v
+
+
+def save_reference_checkpoint(path: str, model: torch.nn.Module,
+                              pretrain_state=None) -> None:
     """Write ``model``'s state dict in fp32 under the reference names,
     readable by the reference and by ``hmmc_tpu``'s
-    ``load_torch_state_dict``. Atomic: a crash mid-save leaves no file under
-    the final name."""
-    sd = {k: v.detach().float().cpu().contiguous()
-          for k, v in model.state_dict().items()}
+    ``load_torch_state_dict``. With ``pretrain_state`` (a
+    ``PretrainState``; ``model`` is its query model) the file is the
+    reference pretrain's (modeling.py:88-157; the JAX package's
+    ``save_reference_checkpoint``, ``hmmc_tpu/train/orbax_io.py:189-260``):
+    the query towers, projectors and predictor with their BatchNorm running
+    statistics and ``cls.*``, the key towers as ``text_encoder_k.*``,
+    ``visual_encoder_k.*``, ``t_projector_k.*`` and ``v_projector_k.*``
+    (with the key statistics), and the five ``queue_*_ng`` buffers with
+    ``queue_ptr``. Atomic: a crash mid-save leaves no file under the final
+    name."""
+    sd = {k: _cpu(v) for k, v in model.state_dict().items()}
+    if pretrain_state is not None:
+        for k, v in pretrain_state.towers.state_dict().items():
+            tower, rest = k.split(".", 1)
+            sd[f"{tower}_k.{rest}"] = _cpu(v)
+        q = pretrain_state.queues
+        for field, name in QUEUE_NAMES.items():
+            sd[name] = _cpu(getattr(q, field))
+        sd["queue_ptr"] = torch.tensor([q.ptr], dtype=torch.int64)
     tmp = path + ".tmp"
     torch.save(sd, tmp)
     os.replace(tmp, path)
+
+
+def split_pretrain_state_dict(sd: StateDict):
+    """A pretrain checkpoint's state dict -> (the query model's entries,
+    the key towers' under the towers' own names, the queues by
+    ``MoCoQueues`` field and ``ptr``): the reverse import of
+    ``_apply_pretrain_import`` (``hmmc_tpu/runner.py:349``)."""
+    query, keys, queues = {}, {}, {}
+    names = {v: k for k, v in QUEUE_NAMES.items()}
+    for k, v in sd.items():
+        head, _, rest = k.partition(".")
+        if head.endswith("_k") and head[:-2] in MOMENTUM_SUBTREES and rest:
+            keys[f"{head[:-2]}.{rest}"] = v
+        elif k in names:
+            queues[names[k]] = v
+        elif k == "queue_ptr":
+            queues["ptr"] = int(v.reshape(-1)[0])
+        else:
+            query[k] = v
+    return query, keys, queues

@@ -18,11 +18,15 @@ the grouping of main_task_retrieval.py:171-212).
   moment and parameter updates compute in fp32.
 
 Groups by state_dict name: ``visual_encoder.visual.*`` (the CLIP ViT) take
-``lr * coef_lr``, ``text_encoder.*`` take ``text_lr``, everything else
-``lr``; no weight decay for a name whose last part contains ``bias``. The
-CLIP LayerNorm weights (``ln_*.weight``) DO decay: the reference's
-no-decay match is the substring ``LayerNorm.weight``, which they do not
-contain.
+``lr * coef_lr``, ``text_encoder.*`` take ``text_lr``, ``t_projector.*``
+take 0 (the pretrain model builds it but never calls it, so the reference
+never updates it; an lr of 0 also stops its decoupled weight decay),
+everything else ``lr``. No weight decay for a name whose last part contains
+``bias`` (the MLM head's ``cls.bias`` too) and for the BERT-style
+LayerNorm weights (``*.LayerNorm.weight``: the MLM head's). The CLIP
+LayerNorm weights (``ln_*.weight``) and the projectors' BatchNorm weights
+DO decay: the reference's no-decay match is the substring
+``LayerNorm.weight``, which they do not contain.
 """
 
 from __future__ import annotations
@@ -74,13 +78,16 @@ def scheduled_lr(lr: float, step: int, t_total: int,
 
 def decay_mask(names: Iterable[str]) -> Dict[str, bool]:
     """True where weight decay applies."""
-    return {n: "bias" not in n.rsplit(".", 1)[-1] for n in names}
+    return {n: "bias" not in n.rsplit(".", 1)[-1]
+            and not n.endswith("LayerNorm.weight") for n in names}
 
 
 def lr_tree(names: Iterable[str], lr: float, text_lr: float,
             coef_lr: float) -> Dict[str, float]:
     """Base learning rate per name (main_task_retrieval.py:192-199)."""
     def base(name: str) -> float:
+        if name.startswith("t_projector."):
+            return 0.0
         if name.startswith("visual_encoder.visual."):
             return lr * coef_lr
         if name.startswith("text_encoder."):

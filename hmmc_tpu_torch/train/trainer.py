@@ -1,6 +1,7 @@
-"""The fine-tune step (counterpart of ``make_finetune_step`` and
-``_accumulate`` in ``hmmc_tpu/train/trainer.py``, the non-BatchNorm branch;
-reference train_epoch, main_task_retrieval.py:250-318).
+"""The fine-tune and pretrain steps (counterparts of ``make_finetune_step``
+and ``_accumulate``, the non-BatchNorm branch, and of ``PretrainState`` and
+``make_pretrain_step`` in ``hmmc_tpu/train/trainer.py``; reference
+train_epoch, main_task_retrieval.py:250-318, and modeling.py:334-436).
 
 One step: for each of ``n_accum`` micro-batches, encode the queries and the
 video, take the VTM + FTM CrossEn loss (:mod:`hmmc_tpu_torch.losses`) with
@@ -14,17 +15,33 @@ never waits for the card; the caller reads them when it logs.
 
 ``torch.profiler`` sees the step as two ranges, ``finetune_step.grads`` and
 ``finetune_step.optimizer``.
+
+The pretrain step (:func:`make_pretrain_step`) runs, for each micro-batch
+in order: the momentum EMA of the key towers; the key forwards under
+``no_grad`` (the key projector in train mode, moving the key BatchNorm
+statistics); the query forwards; FAM, VTM and FTM against the queues as
+they stand, then MLM; the backward; the enqueue of this micro-batch's keys
+(after the backward: the losses' saved tensors read the queues). The mean
+of the micro-batch gradients feeds one BertAdam update, as in the
+fine-tune. Its ranges are ``pretrain_step.grads`` (which holds
+``pretrain_step.keys``: the EMA and the key forwards) and
+``pretrain_step.optimizer``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from hmmc_tpu_torch import losses
 from hmmc_tpu_torch.config import CrossConfig
+from hmmc_tpu_torch.models.pretrain import (BirdPretrainModel, MaskDecisions,
+                                            MoCoQueues, MomentumTowers,
+                                            apply_mask_decisions,
+                                            momentum_pairs, momentum_update,
+                                            mlm_loss, sample_mask_decisions)
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
@@ -40,7 +57,7 @@ class FinetuneState:
 def split_microbatches(batch: Batch, n: int) -> List[Batch]:
     """n equal consecutive slices along the batch axis (the JAX package's
     reshape to [n, B/n, ...])."""
-    b = batch["query_ids"].shape[0]
+    b = len(next(iter(batch.values())))
     if b % n:
         raise ValueError(f"batch {b} is not divisible into {n} micro-batches")
     m = b // n
@@ -93,6 +110,143 @@ def make_finetune_step(cross_config: CrossConfig, use_frame_fea: bool = True,
             metrics = {k: v / n_accum for k, v in sums.items()}
             metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
         with torch.profiler.record_function("finetune_step.optimizer"):
+            state.optimizer.step()
+        state.step += 1
+        return state, metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# pretrain step (BirdPretrainModel + MoCo)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PretrainState:
+    """The pretrain's state (the JAX ``PretrainState``): the query model
+    (``params`` and its projectors' ``batch_stats``), the key towers
+    (``params_k``, their projectors' statistics ``batch_stats_k``), the
+    queues, the optimizer over the query model and the step."""
+
+    model: BirdPretrainModel
+    towers: MomentumTowers
+    queues: MoCoQueues
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+    def __post_init__(self):
+        self.pairs = momentum_pairs(self.model, self.towers)
+
+
+MLM_STREAMS = ("title", "tag")
+
+
+def make_pretrain_step(cross_config: CrossConfig, mask_token_id: int,
+                       pad_token_id: int, cls_token_id: int,
+                       temperature: float = 0.07, momentum: float = 0.99,
+                       use_frame_fea: bool = True, use_tag: bool = False,
+                       n_accum: int = 1) -> Callable:
+    """Returns ``step(state, batch, generator, decisions=None) -> (state,
+    metrics)``. batch: ``title_ids`` [B, L], ``video`` [B, F, H, W, 3]
+    normalized floats, and with ``use_tag`` (the bird datasets) ``tag_ids``.
+    ``generator`` draws the MLM masks on the batch's device; ``decisions``
+    (one dict per micro-batch of :class:`MaskDecisions` by
+    :data:`MLM_STREAMS` name) replaces those draws. metrics: ``loss``,
+    ``loss_FAM``, ``loss_VTM``, ``loss_FTM``, ``loss_MLM`` (means over the
+    micro-batches) and ``grad_norm``."""
+    w = cross_config
+    t = temperature
+
+    def key_forwards(towers: MomentumTowers, mb: Batch) -> Batch:
+        title_k = towers.encode_text(mb["title_ids"])
+        tag_k = towers.encode_text(mb["tag_ids"]) if use_tag else title_k
+        v_k, frame_k = towers.encode_video(mb["video"])
+        return dict(title_k=title_k, tag_k=tag_k, v_k=v_k, frame_k=frame_k,
+                    frame_proj_k=towers.project_frames_key(frame_k, True))
+
+    def loss_fn(model: BirdPretrainModel, mb: Batch, keys: Batch,
+                queues: MoCoQueues, dec: Dict[str, MaskDecisions]
+                ) -> Metrics:
+        v_fea, frame_fea = model.encode_video(mb["video"])
+        title_fea = model.encode_text(mb["title_ids"])
+        tag_fea = model.encode_text(mb["tag_ids"]) if use_tag else title_fea
+        _, frame_pred = model.project_frames(frame_fea, True)
+        # FAM (modeling.py:385)
+        loss_fam = losses.frame_self_loss(frame_pred, keys["frame_proj_k"],
+                                          queues.frame_proj, t)
+        # VTM (modeling.py:387-394)
+        loss_vtm = (
+            losses.moco_contrastive(v_fea, keys["title_k"],
+                                    queues.title_cross, t)
+            + losses.moco_contrastive(title_fea, keys["v_k"],
+                                      queues.v_cross, t))
+        if use_tag:
+            v_tag = (losses.moco_contrastive(v_fea, keys["tag_k"],
+                                             queues.tag_cross, t)
+                     + losses.moco_contrastive(tag_fea, keys["v_k"],
+                                               queues.v_cross, t))
+            loss_vtm = (v_tag + loss_vtm) / 2
+        # FTM (modeling.py:396-405)
+        loss_ftm = loss_vtm.new_zeros(())
+        if use_frame_fea:
+            loss_ftm = losses.frame_cross_loss(
+                frame_fea, keys["frame_k"], queues.frame_cross, title_fea,
+                keys["title_k"], queues.title_cross, t)
+            if use_tag:
+                f_tag = losses.frame_cross_loss(
+                    frame_fea, keys["frame_k"], queues.frame_cross, tag_fea,
+                    keys["tag_k"], queues.tag_cross, t)
+                loss_ftm = (f_tag + loss_ftm) / 2
+
+        # MLM (modeling.py:416-421)
+        def one_mlm(ids, d):
+            masked, labels = apply_mask_decisions(
+                ids, d, mask_token_id, pad_token_id, cls_token_id)
+            return mlm_loss(model.mlm_logits(masked), labels)
+
+        loss_mlm = one_mlm(mb["title_ids"], dec["title"])
+        if use_tag:
+            loss_mlm = (loss_mlm + one_mlm(mb["tag_ids"], dec["tag"])) / 2
+        loss = (w.weight_FAM * loss_fam + w.weight_VTM * loss_vtm
+                + w.weight_FTM * loss_ftm + w.weight_MLM * loss_mlm)
+        return {"loss": loss, "loss_FAM": loss_fam, "loss_VTM": loss_vtm,
+                "loss_FTM": loss_ftm, "loss_MLM": loss_mlm}
+
+    def draw(generator, mb: Batch, vocab: int
+             ) -> Dict[str, MaskDecisions]:
+        return {name: sample_mask_decisions(
+                    generator, mb[f"{name}_ids"].shape, vocab,
+                    w.mlm_probability, mb[f"{name}_ids"].device)
+                for name in MLM_STREAMS if f"{name}_ids" in mb}
+
+    def step(state: PretrainState, batch: Batch,
+             generator: Optional[torch.Generator] = None,
+             decisions: Optional[List[Dict[str, MaskDecisions]]] = None
+             ) -> Tuple[PretrainState, Metrics]:
+        model, towers, queues = state.model, state.towers, state.queues
+        with torch.profiler.record_function("pretrain_step.grads"):
+            model.zero_grad(set_to_none=True)
+            sums: Metrics = {}
+            for i, mb in enumerate(split_microbatches(batch, n_accum)):
+                with torch.profiler.record_function("pretrain_step.keys"), \
+                        torch.no_grad():
+                    momentum_update(model, towers, momentum, state.pairs)
+                    keys = key_forwards(towers, mb)
+                dec = (decisions[i] if decisions is not None
+                       else draw(generator, mb, model.vocab_size))
+                out = loss_fn(model, mb, keys, queues, dec)
+                out["loss"].backward()
+                queues.enqueue(keys["v_k"], keys["tag_k"], keys["title_k"],
+                               keys["frame_k"], keys["frame_proj_k"])
+                for k, v in out.items():
+                    sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            if n_accum > 1:
+                for g in grads:
+                    g.div_(n_accum)
+            metrics = {k: v / n_accum for k, v in sums.items()}
+            metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
+        with torch.profiler.record_function("pretrain_step.optimizer"):
             state.optimizer.step()
         state.step += 1
         return state, metrics

@@ -7,7 +7,15 @@ it. The mapping unstacks the scan-stacked ``[layers, ...]`` leaves,
 transposes ``[in, out]`` kernels to ``[out, in]`` (``in_proj_kernel``
 [D, 3D] -> ``in_proj_weight`` [3D, D]), turns the HWIO patch convolution
 into OIHW, and renames LayerNorm ``scale``/``bias`` to ``weight``/``bias``.
-Covers the English ViT ``BirdModel`` this port builds.
+Covers the English ViT ``BirdModel`` this port builds, and with
+:func:`from_jax_pretrain_state` a JAX ``PretrainState``: the
+``BirdPretrainModel``'s projectors and predictor (``hidden_j`` / ``bn_j`` /
+``out`` -> the reference ``nn.Sequential``'s ``linear_hidden.{1+3j}`` /
+``{2+3j}`` / ``linear_out``, BatchNorm ``scale`` -> ``weight`` and its
+``mean`` / ``var`` statistics -> ``running_mean`` / ``running_var``), the
+MLM head (``transform_dense``, ``transform_ln``, ``decoder`` -> ``cls.
+transform.dense``, ``cls.transform.LayerNorm``, ``cls.decoder.weight`` and
+``cls.bias``), the key towers and the queues.
 
 The mapping only moves, transposes and renames elements, so it is linear:
 any tree shaped like the parameters maps the same way. A JAX gradient tree,
@@ -21,6 +29,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from hmmc_tpu_torch.models.pretrain import MoCoQueues
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -96,3 +106,72 @@ def from_jax_params(params: Dict) -> StateDict:
     _text(params["text_encoder"], "text_encoder.", out)
     _visual(params["visual_encoder"], "visual_encoder.", out)
     return out
+
+
+def _mlp(p: Dict, stats: Dict, prefix: str, out: StateDict) -> None:
+    j = 0
+    while f"hidden_{j}" in p:
+        li, bi = 1 + 3 * j, 2 + 3 * j
+        out[f"{prefix}linear_hidden.{li}.weight"] = _kernel(
+            p[f"hidden_{j}"]["kernel"])
+        out[f"{prefix}linear_hidden.{li}.bias"] = _t(p[f"hidden_{j}"]["bias"])
+        bn = f"{prefix}linear_hidden.{bi}"
+        out[f"{bn}.weight"] = _t(p[f"bn_{j}"]["scale"])
+        out[f"{bn}.bias"] = _t(p[f"bn_{j}"]["bias"])
+        st = (stats or {}).get(f"bn_{j}", {})
+        width = np.shape(p[f"bn_{j}"]["scale"])
+        out[f"{bn}.running_mean"] = _t(st.get("mean", np.zeros(width)))
+        out[f"{bn}.running_var"] = _t(st.get("var", np.ones(width)))
+        out[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+        j += 1
+    out[f"{prefix}linear_out.weight"] = _kernel(p["out"]["kernel"])
+    out[f"{prefix}linear_out.bias"] = _t(p["out"]["bias"])
+
+
+def _mlm_head(p: Dict, prefix: str, out: StateDict) -> None:
+    out[f"{prefix}transform.dense.weight"] = _kernel(
+        p["transform_dense"]["kernel"])
+    out[f"{prefix}transform.dense.bias"] = _t(p["transform_dense"]["bias"])
+    _layer_norm(p["transform_ln"], f"{prefix}transform.LayerNorm", out)
+    out[f"{prefix}decoder.weight"] = _kernel(p["decoder"]["kernel"])
+    out[f"{prefix}bias"] = _t(p["decoder"]["bias"])
+
+
+def from_jax_pretrain_params(params: Dict, batch_stats: Dict = None
+                             ) -> StateDict:
+    """``hmmc_tpu`` ``BirdPretrainModel`` params (and the projectors'
+    ``batch_stats``) -> the port's ``BirdPretrainModel`` state_dict.
+    Linear like :func:`from_jax_params` in ``params``: a gradient tree maps
+    too (its statistics then come out at their init)."""
+    out = from_jax_params(params)
+    stats = batch_stats or {}
+    for tower in ("t_projector", "v_projector", "v_predictor"):
+        _mlp(params[tower], stats.get(tower), f"{tower}.", out)
+    _mlm_head(params["cls"], "cls.", out)
+    return out
+
+
+def from_jax_key_params(params_k: Dict, batch_stats_k: Dict = None
+                        ) -> StateDict:
+    """The JAX ``params_k`` (and ``batch_stats_k``) -> the port's
+    ``MomentumTowers`` state_dict."""
+    out = from_jax_params(params_k)
+    stats = batch_stats_k or {}
+    for tower in ("t_projector", "v_projector"):
+        _mlp(params_k[tower], stats.get(tower), f"{tower}.", out)
+    return out
+
+
+def from_jax_pretrain_state(state) -> Dict[str, Any]:
+    """A JAX ``PretrainState`` (its arrays as numpy, or anything with its
+    ``params``, ``params_k``, ``batch_stats``, ``batch_stats_k`` and
+    ``queues`` attributes) -> ``{"model": state_dict, "towers":
+    state_dict, "queues": {field: tensor}, "ptr": int}``, to load strictly
+    into ``BirdPretrainModel``, ``MomentumTowers`` and ``MoCoQueues``."""
+    q = state.queues
+    return {
+        "model": from_jax_pretrain_params(state.params, state.batch_stats),
+        "towers": from_jax_key_params(state.params_k, state.batch_stats_k),
+        "queues": {f: _t(getattr(q, f)) for f in MoCoQueues.NAMES},
+        "ptr": int(np.asarray(q.ptr)),
+    }

@@ -84,7 +84,7 @@ def jax_params():
     if pa is None:
         pytest.skip("needs jax and hmmc_tpu (the reference)")
     model = JaxBirdModel(JaxClipArch(**ARCH_KW), JaxCrossConfig(**CROSS_KW))
-    params = model.init(
+    params = jax.jit(model.init)(
         jax.random.PRNGKey(3), jnp.zeros((1, CTX), jnp.int32),
         jnp.ones((1, CTX), jnp.int32),
         jnp.zeros((1, FRAMES, 32, 32, 3), jnp.float32))["params"]
@@ -228,7 +228,10 @@ def test_port_imports_nothing_of_jax():
     bad = []
     files = _port_files()
     assert len(files) > 10 and os.path.isfile(files[0])
-    for name in ("serve.py", "retrieve.py", os.path.join("ops", "quant.py")):
+    for name in ("serve.py", "retrieve.py", os.path.join("ops", "quant.py"),
+                 os.path.join("models", "heads.py"),
+                 os.path.join("models", "pretrain.py"),
+                 os.path.join("ops", "resize_area.py")):
         assert os.path.join(REPO, "hmmc_tpu_torch", name) in files, name
     for path in files:
         with open(path, encoding="utf-8") as fh:

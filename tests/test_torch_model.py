@@ -56,7 +56,7 @@ def interpret_mode(monkeypatch):
 @pytest.fixture(scope="module")
 def jax_params():
     model = JaxBirdModel(JaxClipArch(**ARCH_KW), JaxCrossConfig(**CROSS_KW))
-    params = model.init(
+    params = jax.jit(model.init)(
         jax.random.PRNGKey(7), jnp.zeros((1, CTX), jnp.int32),
         jnp.ones((1, CTX), jnp.int32),
         jnp.zeros((1, FRAMES, RES, RES, 3), jnp.float32))["params"]

@@ -179,7 +179,7 @@ def jax_params():
     if pa is None:
         pytest.skip("needs jax and hmmc_tpu (the reference)")
     model = JaxBirdModel(JaxClipArch(**ARCH_KW), JaxCrossConfig(**CROSS_KW))
-    params = model.init(
+    params = jax.jit(model.init)(
         jax.random.PRNGKey(5), jnp.zeros((1, CTX), jnp.int32),
         jnp.ones((1, CTX), jnp.int32),
         jnp.zeros((1, FRAMES, 32, 32, 3), jnp.float32))["params"]
