@@ -19,15 +19,17 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             microseconds per call at the text site, two launches bitwise
             equal; K1 also at one served query's text site (batch 1);
    frames   R1 (the PIL-exact resize and crop) against its plain version,
-            bitwise, at the path's 768-frame block (341x256 -> 224) and at
-            320x240, 256x341, 640x360, 1280x720, 224x224 and 160x120, two
-            launches bitwise equal, one launch over mixed sizes and padded
-            slots, RGB-coded, CMYK and YCCK planes; its kernel, plain and
-            library times and bound. nvJPEG on the card against the
-            committed fixture's PIL decodes (max and mean abs difference,
-            routes; a row for each RGB-coded, CMYK and YCCK frame), R1 on
-            PIL's pixels against PIL's
-            crops (bitwise), a batch with padded and corrupt slots, and
+            bitwise, at the path's 768-frame block (341x256 -> 224, planes
+            laid out as the decoder leaves them; timed also with packed
+            rows) and at 320x240, 256x341, 640x360, 1280x720, 224x224 and
+            160x120, two launches bitwise equal, one launch over mixed
+            sizes and padded slots, RGB-coded, CMYK and YCCK planes, RGB
+            rows and planes at aligned and at odd bases and pitches; its
+            kernel, plain and library times and bound. nvJPEG on the card
+            against the committed fixture's PIL decodes (max and mean abs
+            difference, routes; a row for each RGB-coded, CMYK and YCCK
+            frame), R1 on PIL's pixels against PIL's crops (bitwise), a
+            batch with padded and corrupt slots, and
             decode + R1 of one 768-frame block (ms, frames/s; D's bound:
             the bitstream read and the planes written once). R2 (cv2's
             INTER_AREA resize and crop) against its plain version, bitwise,
@@ -35,7 +37,8 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             area at non-integer factors, up-scale), RGB and 4:2:0, the
             pretrain micro-batch's 768 frames at 341x256, two launches
             bitwise equal, one launch over the other samplings, grayscale,
-            RGB-coded, CMYK and YCCK planes at odd sizes and padded slots;
+            RGB-coded, CMYK and YCCK planes at odd sizes and padded slots,
+            RGB rows and planes at aligned and at odd bases and pitches;
             its kernel, plain and library times and bound at three paths;
             nvJPEG + R2 against the fixture's cv2 crops (max and mean abs
             difference), decode + R2 of 768 frames;
@@ -145,6 +148,7 @@ from hmmc_tpu_torch.models.pretrain import (MOMENTUM_SUBTREES, MoCoQueues,
                                             sample_mask_decisions)
 from hmmc_tpu_torch.ops import image_ops, kernel_build, quant
 from hmmc_tpu_torch.ops import resize_area as r2
+from hmmc_tpu_torch.ops import resize_crop as rc
 from hmmc_tpu_torch.ops.fused_attention import (
     MAX_LEN_BWD, MAX_LEN_BWD_FP32, fused_attention, fused_attention_backward,
     fused_attention_backward_reference, fused_attention_reference,
@@ -152,6 +156,7 @@ from hmmc_tpu_torch.ops.fused_attention import (
 from hmmc_tpu_torch.ops.resize_crop import (
     FORMATS, SAMPLING, YccFrame, crop_tables, launch, output_size,
     plane_batch, resize_crop, resize_crop_reference, ycc_to_rgb_reference)
+from hmmc_tpu_torch.testing import aligned_and_odd_layouts
 from hmmc_tpu_torch.tokenization import ClipTokenizer
 from hmmc_tpu_torch.train.optimization import build_optimizer
 from hmmc_tpu_torch.train import checkpoint as ckpt_io
@@ -167,6 +172,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # against 128 FFMA (CUDA C++ Programming Guide, arithmetic instruction
 # throughput), so half the FFMA rate behind the fp32 peak above
 IMAD_PER_S = PEAK_FLOPS[torch.float32] / 2 / 2
+# dense int8 tensor-core operations per second (a multiply-add is two)
+INT8_OPS_PER_S = 1979e12
 TOLERANCE = {
     torch.float32: dict(atol=2e-5, rtol=1e-4, reason=(
         "same arithmetic, sums in another order: the JAX package's own "
@@ -252,17 +259,26 @@ def ptxas_by_function(lines):
     return out
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 3, windows: int = 1,
+            per_window=None) -> float:
+    """ms per call by CUDA events after ``warmup``: the time of ``windows``
+    windows of ``iters`` calls each over the calls of all of them. Each
+    window's own ms per call is appended to ``per_window`` where given."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    total = 0.0
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+        if per_window is not None:
+            per_window.append(start.elapsed_time(end) / iters)
+    return total / (windows * iters)
 
 
 def kernel_device_ms(fn, iters: int = 10):
@@ -499,11 +515,12 @@ def resize_bound(n, w, h, res):
     the source bytes the crop needs read once (the luma rows and columns
     the taps reach, and the chroma samples under them with the one
     neighbour each side that the fancy upsampling reads) and each output
-    byte written once, against the int32 multiply-adds of the resize taps
-    (3 channels; the colour conversion's and the upsampling's few per
-    pixel, which tables or shifts could replace, are not counted) at
-    :data:`IMAD_PER_S`. Returns (ms, what bounds it, bytes, multiply-adds).
-    """
+    byte written once, against the resize taps' multiply-adds (3 channels;
+    the colour conversion's and the upsampling's few per pixel, which
+    tables or shifts could replace, are not counted), two int8 operations
+    each at :data:`INT8_OPS_PER_S`: the taps are exact integers, which the
+    tensor cores take as byte limbs. Returns (ms, what bounds it, bytes,
+    multiply-adds)."""
     t = crop_tables(w, h, res)
     xs, xe = t.staged_cols
     ys, ye = int(t.y_first[0]), int(t.y_first[-1] + t.y_count[-1])
@@ -517,22 +534,38 @@ def resize_bound(n, w, h, res):
     mads = 3 * n * ((ye - ys) * int(t.x_count.sum())
                     + res * int(t.y_count.sum()))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = mads / IMAD_PER_S * 1e3
+    t_ops = 2 * mads / INT8_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes, mads)
 
 
-def random_frames(gen, n, w, h, fmt, color="ycc"):
-    """``n`` random frames of one size on the card: RGB [H, W, 3] views of
-    one tensor, or YccFrames of random planes (gray, or three planes at any
-    sampling R1 takes holding ``color``: YCbCr, RGB as coded, or with a
-    fourth plane CMYK or YCCK)."""
+def unaligned_frames(gen, w, h):
+    """One random frame's RGB and 4:2:0 planes at aligned and at odd bases
+    and pitches (:func:`aligned_and_odd_layouts`)."""
     def u8(*shape):
         return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
                              generator=gen)
 
+    return aligned_and_odd_layouts(u8(h, w, 3), u8(h, w),
+                                   u8(-(-h // 2), -(-w // 2)),
+                                   u8(-(-h // 2), -(-w // 2)))
+
+
+def random_frames(gen, n, w, h, fmt, color="ycc", pitch_align=1):
+    """``n`` random frames of one size on the card: RGB [H, W, 3] views of
+    one tensor, or YccFrames of random planes (gray, or three planes at any
+    sampling R1 takes holding ``color``: YCbCr, RGB as coded, or with a
+    fourth plane CMYK or YCCK). Rows are padded to a multiple of
+    ``pitch_align`` bytes: jpeg.PITCH_ALIGN lays planes out as the decoder
+    does (16-byte aligned bases and pitches), 1 packs them (odd pitches at
+    odd widths)."""
+    def u8(n, rows, cols):
+        pitch = -(-cols // pitch_align) * pitch_align
+        return torch.randint(0, 256, (n, rows, pitch), dtype=torch.uint8,
+                             device="cuda", generator=gen)[:, :, :cols]
+
     if fmt == "rgb":
-        return list(u8(n, h, w, 3).unbind(0))
+        return list(u8(n, h, 3 * w).unflatten(2, (w, 3)).unbind(0))
     ys = u8(n, h, w)
     if fmt == "gray":
         return [YccFrame(y) for y in ys.unbind(0)]
@@ -564,7 +597,9 @@ def check_resize_crop(gen):
         for fmt in ("ycc420", "rgb"):
             path = (w, h) == STORE_SIZE and fmt == "ycc420"
             n = BLOCK_FRAMES if path else 96
-            frames = random_frames(gen, n, w, h, fmt)
+            # planes as the decoder lays them out, RGB rows packed
+            frames = random_frames(gen, n, w, h, fmt, pitch_align=(
+                jpeg.PITCH_ALIGN if fmt != "rgb" else 1))
             out = resize_crop(frames, RES)
             again = resize_crop(frames, RES)
             ref = r1_plain(frames)
@@ -592,21 +627,39 @@ def check_resize_crop(gen):
                 dev = torch.device("cuda", torch.cuda.current_device())
                 bound_ms, bound_by, nbytes, ops = resize_bound(n, w, h, RES)
                 ms = cuda_ms(lambda: resize_crop(frames, RES), 20)
+                launch_w, library_w = [], []
                 row.update(
                     ms=ms, launch_ms=cuda_ms(lambda: launch(batch, RES, dev),
-                                             20),
+                                             20, windows=3,
+                                             per_window=launch_w),
+                    launch_ms_windows=launch_w,
+                    launch_host_us=host_us_per_call(
+                        lambda: launch(batch, RES, dev), 20),
                     kernel_device_ms=kernel_device_ms(
                         lambda: launch(batch, RES, dev)),
                     plain_ms=cuda_ms(lambda: r1_plain(frames), 3, warmup=1),
-                    library_ms=cuda_ms(library, 10),
+                    library_ms=cuda_ms(library, 10, windows=3,
+                                       per_window=library_w),
+                    library_ms_windows=library_w,
                     library="F.interpolate(bicubic, antialias=True) on the "
                             "float RGB frames, then the crop",
                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                    int_multiply_adds=ops)
+                    int_multiply_adds=ops, launch=dict(
+                        resize_crop.last_launch))
                 row["share_of_bound"] = bound_ms / (
                     row["kernel_device_ms"]
                     if isinstance(row["kernel_device_ms"], float) else ms)
-                del xf
+                # the same frames with packed rows (odd pitches: stage 0's
+                # skewed staging and per-pixel conversion)
+                packed = [YccFrame(*(p.contiguous() for p in (f.y, f.cb,
+                                                             f.cr)))
+                          for f in frames]
+                pbatch = plane_batch(packed)
+                row["kernel_device_ms_packed_rows"] = kernel_device_ms(
+                    lambda: launch(pbatch, RES, dev))
+                row["packed_rows_bitwise_equal"] = bool(torch.equal(
+                    resize_crop(packed, RES), ref))
+                del xf, packed, pbatch
                 timed = row
             emit(row)
             rows.append(row)
@@ -620,13 +673,20 @@ def check_resize_crop(gen):
             frames = random_frames(gen, 2, 161, 121, fmt, color)
             mixed += frames
             mixed_ref += list(r1_plain(frames).unbind(0))
+    for w, h in (STORE_SIZE, (161, 121)):     # any base and pitch
+        for f in unaligned_frames(gen, w, h):
+            mixed.append(f)
+            mixed_ref.append(r1_plain([f])[0])
     out = resize_crop(mixed, RES)
     torch.cuda.synchronize()
     ok_mixed = bool(torch.equal(out, torch.stack(mixed_ref)))
-    emit(dict(phase="frames", check="resize_crop mixed sizes, formats and "
-              "padded slots in one launch", frames=len(mixed),
-              bitwise_equal=ok_mixed))
-    bad = [r for r in rows if not (r["bitwise_equal"] and r["bitwise_repeat"])]
+    emit(dict(phase="frames", check="resize_crop mixed sizes, formats, "
+              "padded slots, aligned and unaligned bases and pitches in one "
+              "launch", frames=len(mixed), bitwise_equal=ok_mixed,
+              **resize_crop.last_launch))
+    bad = [r for r in rows if not (r["bitwise_equal"] and r["bitwise_repeat"]
+                                   and r.get("packed_rows_bitwise_equal",
+                                             True))]
     if bad or not ok_mixed:
         raise AssertionError(f"resize_crop disagrees with its plain version: "
                              f"{bad}, mixed {ok_mixed}")
@@ -822,7 +882,8 @@ def check_resize_area(gen):
         for fmt in ("ycc420", "rgb"):
             path = (w, h) == STORE_SIZE and fmt == "ycc420"
             n = PRETRAIN_BLOCK if path else 48
-            frames = random_frames(gen, n, w, h, fmt)
+            frames = random_frames(gen, n, w, h, fmt, pitch_align=(
+                jpeg.PITCH_ALIGN if fmt != "rgb" else 1))
             out = r2.resize_area(frames, AUG)
             again = r2.resize_area(frames, AUG)
             ref = r2_plain(frames)
@@ -851,23 +912,39 @@ def check_resize_area(gen):
                 dev = torch.device("cuda", torch.cuda.current_device())
                 bound_ms, bound_by, nbytes, ops = area_bound(n, w, h)
                 ms = cuda_ms(lambda: r2.resize_area(frames, AUG), 20)
+                launch_w, library_w = [], []
                 row.update(
                     ms=ms, launch_ms=cuda_ms(
+                        lambda: r2.launch(batch, AUG, dev), 20, windows=3,
+                        per_window=launch_w),
+                    launch_ms_windows=launch_w,
+                    launch_host_us=host_us_per_call(
                         lambda: r2.launch(batch, AUG, dev), 20),
                     kernel_device_ms=kernel_device_ms(
                         lambda: r2.launch(batch, AUG, dev)),
                     plain_ms=cuda_ms(lambda: r2_plain(frames), 3, warmup=1),
-                    library_ms=cuda_ms(library, 10),
+                    library_ms=cuda_ms(library, 10, windows=3,
+                                       per_window=library_w),
+                    library_ms_windows=library_w,
                     library="F.interpolate(mode='area') on the float RGB "
                             "frames, then the crop (adaptive average "
                             "pooling: cv2's area cells only at integer "
                             "factors)",
                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                    multiply_adds=ops)
+                    multiply_adds=ops, launch=dict(
+                        r2.resize_area.last_launch))
                 kms = row["kernel_device_ms"]
                 row["share_of_bound"] = bound_ms / (
                     kms if isinstance(kms, float) else ms)
-                del xf
+                packed = [YccFrame(*(p.contiguous() for p in (f.y, f.cb,
+                                                             f.cr)))
+                          for f in frames]
+                pbatch = plane_batch(packed)
+                row["kernel_device_ms_packed_rows"] = kernel_device_ms(
+                    lambda: r2.launch(pbatch, AUG, dev))
+                row["packed_rows_bitwise_equal"] = bool(torch.equal(
+                    r2.resize_area(packed, AUG), ref))
+                del xf, packed, pbatch
                 timed[row["mode"] if not path else "path"] = row
             emit(row)
             rows.append(row)
@@ -883,13 +960,22 @@ def check_resize_area(gen):
                 frames = random_frames(gen, 1, w, h, fmt, color)
                 mixed += frames
                 mixed_ref += list(r2_plain(frames).unbind(0))
+    # any base and pitch, on the copy path (one with odd crop offsets), the
+    # area path and the up-scale
+    for w, h in (STORE_SIZE, (343, 259), (515, 387), (161, 121)):
+        for f in unaligned_frames(gen, w, h):
+            mixed.append(f)
+            mixed_ref.append(r2_plain([f])[0])
     out = r2.resize_area(mixed, AUG)
     torch.cuda.synchronize()
     ok_mixed = bool(torch.equal(out, torch.stack(mixed_ref)))
     emit(dict(phase="frames", check="resize_area mixed sizes, paths, "
-              "formats, colours and padded slots in one launch",
-              frames=len(mixed), bitwise_equal=ok_mixed))
-    bad = [r for r in rows if not (r["bitwise_equal"] and r["bitwise_repeat"])]
+              "formats, colours, padded slots, aligned and unaligned bases "
+              "and pitches in one launch", frames=len(mixed),
+              bitwise_equal=ok_mixed, **r2.resize_area.last_launch))
+    bad = [r for r in rows if not (r["bitwise_equal"] and r["bitwise_repeat"]
+                                   and r.get("packed_rows_bitwise_equal",
+                                             True))]
     if bad or not ok_mixed:
         raise AssertionError(f"resize_area disagrees with its plain version: "
                              f"{bad}, mixed {ok_mixed}")
@@ -2767,8 +2853,9 @@ def main(argv=None) -> int:
                       f"{STORE_SIZE[1]} -> {AUG} (cv2's copy path), 4:2:0 "
                       "planes, one launch",
              other_paths={m: {k: r2_rows[m][k] for k in (
-                 "size", "launch_ms", "kernel_device_ms", "plain_ms",
-                 "library_ms", "bound_ms", "bound_by")}
+                 "size", "launch_ms", "launch_ms_windows", "launch_host_us",
+                 "kernel_device_ms", "plain_ms", "library_ms",
+                 "library_ms_windows", "bound_ms", "bound_by")}
                  for m in ("area", "linear") if m in r2_rows})]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -36,11 +36,14 @@ installed cv2 (5.0.0) by the tests:
 :func:`area_tables` computes each path's per-axis taps on the host in
 Python doubles, as cv2 does; :func:`resize_area_reference` applies them in
 PyTorch with the same arithmetic, and the kernel (``csrc/resize_area.cu``)
-does too. The kernel has R1's shape: one launch per batch, a descriptor of
-plane pointers, a CTA per frame and tile of output rows; stage 0 stages the
-rows and columns the tile needs as RGB in shared memory, stage 1 the
-horizontal pass into a 4-byte tile (int32 or fp32 by path), stage 2 the
-vertical pass into ``[N, size, size, 3]``. Padded slots are zeros.
+does too. The kernel shares R1's stage 0 and launch: one launch per batch,
+a descriptor of plane pointers, persistent CTAs over (frame, band of tiles
+of output rows) items, each tile's planes staged while the previous tile
+computes.
+On the copy path (the pretrain's 341x256 store frames) stage 0 converts
+straight into the tile's output rows; the other paths run a horizontal pass
+into three planes of 4-byte sums (int32 or fp32 by path) and a vertical
+pass into ``[N, size, size, 3]``. Padded slots are zeros.
 
 Device rule: CPU tensors take the plain versions; CUDA tensors launch the
 kernel or raise. ``resize_area.launches`` counts launches.
@@ -52,22 +55,25 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from hmmc_tpu_torch.ops.resize_crop import (PADDED, Frame, PlaneBatch,
-                                            YccFrame, _check_frame,
-                                            plane_batch, ycc_to_rgb_reference)
+from hmmc_tpu_torch.ops.resize_crop import (
+    Frame, PlaneBatch, YccFrame, _check_frame, _pitch16, _roundup, bands,
+    plane_batch, raw_bound, tables_on, upload, ycc_to_rgb_reference)
 
-MODES = {"fast": 0, "area": 1, "linear": 2}
+# the kernel's word for each path ("copy": fast at 1 x 1)
+MODES = {"fast": 0, "area": 1, "linear": 2, "copy": 3}
 COEF_ONE = 2048                   # INTER_RESIZE_COEF_SCALE (11 bits)
-# output rows per CTA, halved while a tile stages more than SMEM_LIMIT
-# bytes: the horizontal pass keeps 12 bytes a pixel, so 32 rows of 256
-# would hold 123 KB and one CTA an SM; at 48 KB seven fit
+# output rows per tile, halved while a CTA would take more than SMEM_LIMIT
+# bytes (the horizontal pass keeps 12 bytes a pixel); the copy path takes
+# 30 (_copy_tile_rows), ~53 KB
 TILE_ROWS = 32
-SMEM_LIMIT = 48 * 1024
+SMEM_LIMIT = 100 * 1024
+HEAD_WORDS = 16                   # the descriptor's head, then 12 words a
+GEOM_WORDS = 12                   # geometry
 _DBL_EPSILON = 2.220446049250313e-16
 
 
@@ -158,15 +164,17 @@ class AreaTables:
         return (int(self.x_first[0]),
                 int(self.x_first[-1] + self.x_count[-1]))
 
-    def smem_bytes(self, tile: int) -> int:
-        """Shared memory of the largest tile: its staged RGB (padded to 16
-        bytes) and the horizontal pass's 4-byte values."""
-        xs, xe = self.cols
-        spans = (self.rows(r0, min(r0 + tile, self.size))
-                 for r0 in range(0, self.size, tile))
-        most = max(end - start for start, end in spans)
-        return (-(-most * (xe - xs) * 3 // 16) * 16
-                + most * self.size * 3 * 4)
+    @property
+    def copy(self) -> bool:
+        """cv2's copy: integer factors of 1 x 1, the size unchanged."""
+        return (self.mode == "fast" and self.x_w.shape[1] == 1
+                and self.y_w.shape[1] == 1)
+
+    def most_rows(self, tile: int) -> int:
+        """Most source rows a tile of ``tile`` output rows reads."""
+        return max(end - start for start, end in (
+            self.rows(r0, min(r0 + tile, self.size))
+            for r0 in range(0, self.size, tile)))
 
     def packed(self) -> np.ndarray:
         """int32 [x_first, x_count, y_first, y_count, x_w, y_w], the
@@ -233,7 +241,7 @@ def resize_area_reference(frames: torch.Tensor, size: int) -> torch.Tensor:
     dev = frames.device
     y0, y1 = t.rows(0, size)
     xi = _gather(t.x_first, t.x_w.shape[1], w, dev)
-    yi = _gather(t.y_first - y0, t.y_w.shape[1], h - y0, dev)
+    yi = _gather(t.y_first - y0, t.y_w.shape[1], y1 - y0, dev)
     src = frames[:, y0:y1]
     if t.mode == "area":
         xw = torch.from_numpy(t.x_w.view(np.float32)).to(dev)
@@ -274,85 +282,143 @@ def _library() -> ctypes.CDLL:
     lib = kernel_build.load("resize_area")
     lib.hmmc_resize_area_error_string.argtypes = [ctypes.c_int]
     lib.hmmc_resize_area_error_string.restype = ctypes.c_char_p
+    lib.hmmc_resize_area_ctas.argtypes = [ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
+    lib.hmmc_resize_area_ctas.restype = ctypes.c_int
     lib.hmmc_resize_area.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.hmmc_resize_area.restype = ctypes.c_int
     return lib
 
 
-_device_tables: Dict[Tuple[int, int, int, int], torch.Tensor] = {}
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch shape's layout: output rows per tile, the most source
+    rows a tile reads, the pitches of the RGB planes and of the output
+    tile's, and the shared-memory regions (stage 0's buffer, twice; RGB
+    planes and 4-byte sums, none where every geometry copies; the output
+    tile, interleaved rows) and their sum."""
+
+    tile_rows: int
+    n_tiles: int
+    rows: int
+    rgb_pitch: int
+    tile_pitch: int
+    raw_bytes: int
+    rgb_bytes: int
+    tmp_bytes: int
+    smem: int
 
 
-def _tables_on(device: torch.device, t: AreaTables) -> torch.Tensor:
-    key = (device.index, t.w, t.h, t.size)
-    dev = _device_tables.get(key)
-    if dev is None:
-        dev = torch.from_numpy(t.packed()).to(device)
-        _device_tables[key] = dev
-    return dev
+def _copy_tile_rows(size: int, threads: int = 256) -> int:
+    """Output rows per tile on the copy path: the even height up to
+    TILE_ROWS whose 8 x 2-pixel units (at most ceil((size + 7) / 8) a block
+    row) fill the CTA's threads' passes best, the taller on a tie."""
+    units = -(-(size + 7) // 8)
+
+    def fill(t):
+        n = t // 2 * units
+        return n / (-(-n // threads) * threads)
+
+    return max(range(2, TILE_ROWS + 1, 2), key=lambda t: (fill(t), t))
 
 
-GEOM_WORDS = 10
-
-
-def descriptor(batch: PlaneBatch, size: int, device: torch.device):
-    """The kernel's launch arguments for ``batch`` (layout in
-    ``csrc/resize_area.cu``): the int64 descriptor, G geometries of 10
-    words then N frames of 10 (R1's frame rows); the tables it points to,
-    on ``device``, which must outlive the launch; the output rows per CTA
-    and the shared memory of the largest tile."""
-    n = len(batch.fmt)
-    valid = batch.fmt != PADDED
-    keys = batch.w * 65536 + batch.h
-    uniq, inv = np.unique(keys[valid], return_inverse=True)
-    geoms = [area_tables(int(k // 65536), int(k % 65536), size)
-             for k in uniq]
-    tile = TILE_ROWS
-    while tile > 1 and any(g.smem_bytes(tile) > SMEM_LIMIT for g in geoms):
+@functools.lru_cache(maxsize=256)
+def plan(sizes: tuple, size: int, kinds: tuple) -> Plan:
+    """The layout for frames of ``sizes`` and ``kinds``: tiles of output
+    rows as tall as a CTA of at most :data:`SMEM_LIMIT` bytes allows."""
+    tabs = [area_tables(w, h, size) for w, h in sizes]
+    resize = any(not t.copy for t in tabs)
+    cols = max([t.cols[1] - t.cols[0] for t in tabs] + [0])
+    # planes start at the window's first column rounded down to 16, and
+    # stage 0 writes whole 8-pixel units: up to 22 columns more
+    rgb_pitch = _pitch16(cols + 22) if resize else 0
+    tile_pitch = _pitch16(3 * (size + 22))            # interleaved RGB
+    tile = TILE_ROWS if resize else _copy_tile_rows(size)
+    while True:
+        rows = max([t.most_rows(tile) for t in tabs] + [0])
+        raw = max([raw_bound(f, four, rows, cols) for f, four in kinds]
+                  + [0])
+        rgb_bytes = _roundup(3 * rows * rgb_pitch, 16)
+        tmp_bytes = _roundup(12 * rows * size, 16) if resize else 0
+        smem = 2 * raw + rgb_bytes + tmp_bytes + tile * tile_pitch + 16
+        if smem <= SMEM_LIMIT or tile == 1:
+            return Plan(tile, -(-size // tile), rows, rgb_pitch, tile_pitch,
+                        raw, rgb_bytes, tmp_bytes, smem)
         tile //= 2
-    smem = max([g.smem_bytes(tile) for g in geoms] + [0])
-    head = np.zeros((len(geoms), GEOM_WORDS), np.int64)
+
+
+def descriptor(batch: PlaneBatch, size: int, device: torch.device,
+               ctas: Callable[[int], int] = lambda smem: 0):
+    """The kernel's launch arguments for ``batch`` (layout in
+    ``csrc/resize_area.cu``): the int64 descriptor's head (16 words, then G
+    geometries of 12), whose frame rows (R1's, 10 words a slot) are
+    ``batch.rows``; the tables it points to on ``device`` (which must
+    outlive the launch), the work items and the :class:`Plan`. An item is
+    a band of a frame's tiles: the whole frame unless ``ctas(smem)``, the
+    persistent grid, would leave CTAs idle."""
+    n = len(batch.fmt)
+    p = plan(batch.sizes, size, batch.kinds)
+    band_tiles = bands(n, p.n_tiles, ctas(p.smem))
+    n_bands = -(-p.n_tiles // band_tiles)
+    head = np.zeros((HEAD_WORDS + GEOM_WORDS * len(batch.sizes),), np.int64)
+    head[:13] = (len(batch.sizes), n, size, p.tile_rows, p.n_tiles, p.rows,
+                 p.rgb_pitch, p.raw_bytes, p.rgb_bytes, p.tmp_bytes,
+                 p.tile_pitch, band_tiles, n_bands)
     tabs = []
-    for j, g in enumerate(geoms):
-        tabs.append(_tables_on(device, g))
-        head[j] = (tabs[-1].data_ptr(), g.x_w.shape[1], g.y_w.shape[1], g.w,
-                   g.h, *g.cols, MODES[g.mode], int(g.fast_shift),
-                   int(np.float32(g.inv_area).view(np.int32)))
-    rows = np.zeros((n, 10), np.int64)
-    geom = np.zeros(n, np.int64)
-    geom[valid] = inv
-    rows[:, 0], rows[:, 1], rows[:, 2] = batch.p0, batch.pitch0, geom
-    rows[:, 3], rows[:, 4], rows[:, 5] = batch.fmt, batch.p1, batch.p2
-    rows[:, 6], rows[:, 7] = batch.pitch1, batch.sampling
-    if batch.color is not None:
-        rows[:, 8], rows[:, 9] = batch.color, batch.p3
-    return (np.concatenate([head.ravel(), rows.ravel()]), tabs, tile, smem)
+    for j, (w, h) in enumerate(batch.sizes):
+        g = area_tables(w, h, size)
+        tabs.append(tables_on(device, ("r2", w, h, size), g.packed))
+        at = HEAD_WORDS + GEOM_WORDS * j
+        head[at:at + 10] = (
+            tabs[-1].data_ptr(), g.x_w.shape[1], g.y_w.shape[1], w, h,
+            *g.cols, MODES["copy" if g.copy else g.mode], int(g.fast_shift),
+            int(np.float32(g.inv_area).view(np.int32)))
+    return head, tabs, n * n_bands, p
 
 
 def launch(batch: PlaneBatch, size: int,
            device: torch.device) -> torch.Tensor:
     """One launch of the kernel over ``batch`` -> uint8 [N, size, size, 3]
-    on ``device`` (a CUDA device)."""
+    on ``device`` (a CUDA device). Nothing here waits for the card."""
     n = len(batch.fmt)
     out = torch.empty((n, size, size, 3), dtype=torch.uint8, device=device)
     if n == 0:
         return out
-    words, tabs, tile, smem = descriptor(batch, size, device)
-    desc = torch.from_numpy(words).to(device)
     lib = _library()
+    grid = ctypes.c_int()
     with torch.cuda.device(device):
+        head, tabs, items, p = descriptor(batch, size, device,
+                                          persistent_ctas)
+        host, desc = upload(head, batch.rows, device)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.hmmc_resize_area(desc.data_ptr(), len(tabs), n,
-                                   out.data_ptr(), size, tile, smem, stream)
+        err = lib.hmmc_resize_area(desc.data_ptr(), host.data_ptr(), items,
+                                   p.smem, out.data_ptr(), stream,
+                                   ctypes.byref(grid))
     if err != 0:
         raise RuntimeError(
             f"resize_area kernel launch failed: CUDA error {err} "
             f"({lib.hmmc_resize_area_error_string(err).decode()}) for {n} "
-            f"frames at size {size}, tile {tile}, {smem} bytes of shared "
-            "memory")
+            f"frames at size {size}: {items} items (tiles of {p.tile_rows} "
+            f"rows), {p.smem} bytes of shared memory")
     resize_area.launches += 1
+    resize_area.last_launch = dict(items=items, grid=grid.value,
+                                   smem=p.smem)
     return out
+
+
+def persistent_ctas(smem: int) -> int:
+    """CTAs of the kernel's persistent grid on the current device."""
+    lib = _library()
+    ctas = ctypes.c_int()
+    err = lib.hmmc_resize_area_ctas(smem, ctypes.byref(ctas))
+    if err != 0:
+        raise RuntimeError(
+            f"resize_area: no CTA of {smem} bytes of shared memory fits: "
+            f"CUDA error {err} "
+            f"({lib.hmmc_resize_area_error_string(err).decode()})")
+    return ctas.value
 
 
 def resize_area(frames: Sequence[Frame], size: int,
@@ -384,3 +450,4 @@ def resize_area(frames: Sequence[Frame], size: int,
 
 
 resize_area.launches = 0
+resize_area.last_launch = {}

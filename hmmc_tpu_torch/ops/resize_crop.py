@@ -34,15 +34,17 @@ Python doubles (the same operations in the same order), so the kernel and
 :func:`resize_crop_reference` do integer arithmetic only and agree with
 Pillow and with each other bit for bit.
 
-The kernel (``csrc/resize_crop.cu``) is bound by the int32 multiply-adds of
-the resize taps, with the bytes (the staged source read once, the output
-written once) close behind; the note in the source gives the numbers. One
-launch covers a whole batch of frames (arrays of plane pointers,
-pitches, formats and geometries); a CTA takes one frame and a tile of
-output rows, turns the source rows and columns that tile needs into RGB in
-shared memory, runs the horizontal pass over only the cropped columns,
-then the vertical pass into the ``[N, res, res, 3]`` output. Padded slots
-are zero-filled.
+The kernel (``csrc/resize_crop.cu``) is bound by bytes: the planes the
+crop reads, once, and the crop written once. Pillow's taps are exact
+integers, so the kernel runs them on the int8 tensor cores: each tap splits
+into three byte limbs (:func:`limbs`) and each pass into three banded
+integer matrix products whose int32 sums recombine into Pillow's sum bit
+for bit; :func:`mma_tables` lays the limbs out as the fragments the
+kernel's lanes load. One launch covers a whole batch of frames (arrays of
+plane pointers, pitches, formats and geometries); persistent CTAs walk the
+(frame, column strip, band of output rows) items, staging, converting and
+filtering 16 source rows at a time, and write the ``[N, res, res, 3]``
+output. Padded slots are zero-filled.
 
 Device rule: CPU tensors take the plain versions; CUDA tensors launch the
 kernel or raise. ``resize_crop.launches`` counts launches.
@@ -54,14 +56,19 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 PRECISION_BITS = 22
-TILE_ROWS = 32             # output rows per CTA (halved while a tile's
-SMEM_LIMIT = 160 * 1024    # staged pixels exceed this many bytes)
+CHUNK = 16                 # source rows a CTA stages and filters at once
+# shared memory of a CTA: column strips narrow until a CTA fits, so that
+# two (the most 128 registers a thread allow) share an SM (the path's
+# 341x256 -> 224 takes ~77 KB)
+SMEM_LIMIT = 100 * 1024
+HEAD_WORDS = 16            # the descriptor's head, then 8 words a geometry
+GEOM_WORDS = 8
 _BICUBIC_SUPPORT = 2.0
 FORMATS = {"rgb": 0, "ycc420": 1, "ycc444": 2, "gray": 3, "ycc422": 4,
            "ycc440": 5, "ycc411": 6, "ycc410": 7}
@@ -74,6 +81,9 @@ SAMPLING = {FORMATS["ycc444"]: (1, 1), FORMATS["ycc422"]: (2, 1),
             FORMATS["ycc411"]: (4, 1), FORMATS["ycc440"]: (1, 2),
             FORMATS["ycc420"]: (2, 2), FORMATS["ycc410"]: (4, 2)}
 PADDED = -1
+# hf + 16 vf by format + 1 (0 for padded, RGB and grey slots)
+_SAMPLING_WORD = np.array([0] + [hf + 16 * vf for hf, vf in (
+    SAMPLING.get(f, (0, 0)) for f in range(8))], np.int64)
 
 
 def chroma_format(w: int, h: int, cw: int, ch: int) -> Optional[int]:
@@ -147,33 +157,11 @@ class CropTables:
     y_count: np.ndarray
     y_taps: np.ndarray     # [res, kv]
 
-    def staged_rows(self, tile: int) -> int:
-        """Most source rows one tile of ``tile`` output rows needs."""
-        most = 0
-        for r0 in range(0, self.res, tile):
-            r1 = min(r0 + tile, self.res) - 1
-            most = max(most, int(self.y_first[r1] + self.y_count[r1]
-                                 - self.y_first[r0]))
-        return most
-
     @property
     def staged_cols(self) -> Tuple[int, int]:
         """First and end source column of the cropped output columns."""
         return (int(self.x_first[0]),
                 int(self.x_first[-1] + self.x_count[-1]))
-
-    def smem_bytes(self, tile: int) -> int:
-        """Shared memory one tile stages: its source pixels as RGB and the
-        horizontal pass's rows."""
-        xs, xe = self.staged_cols
-        return self.staged_rows(tile) * 3 * ((xe - xs) + self.res)
-
-    def packed(self) -> np.ndarray:
-        """int32 [x_first, x_count, y_first, y_count, x_taps, y_taps], the
-        kernel's layout."""
-        return np.concatenate([self.x_first, self.x_count, self.y_first,
-                               self.y_count, self.x_taps.ravel(),
-                               self.y_taps.ravel()]).astype(np.int32)
 
 
 @functools.lru_cache(maxsize=64)
@@ -188,6 +176,95 @@ def crop_tables(w: int, h: int, res: int) -> CropTables:
     return CropTables(w, h, res, xf[sl].copy(), xc[sl].copy(),
                       np.ascontiguousarray(xt[sl]), yf[st].copy(),
                       yc[st].copy(), np.ascontiguousarray(yt[st]))
+
+
+def limbs(taps: np.ndarray) -> np.ndarray:
+    """int taps in [-2^23, 2^23) -> uint8 ``[3, *taps.shape]``: the byte
+    limbs t0 and t1 (unsigned) and t2 (signed, stored as its byte), with
+    ``t = t0 + 2^8 t1 + 2^16 t2``."""
+    t = np.asarray(taps, np.int64)
+    if t.size and (t.min() < -(1 << 23) or t.max() >= 1 << 23):
+        raise ValueError("a tap outside [-2^23, 2^23) does not split into "
+                         "three byte limbs")
+    return np.stack([t & 255, (t >> 8) & 255, (t >> 16) & 255]
+                    ).astype(np.uint8)
+
+
+def _band(first: np.ndarray, count: np.ndarray, taps: np.ndarray,
+          tile: int):
+    """Per tile of ``tile`` outputs: the first source index its taps reach,
+    rounded down to 4 (the band's base), the end of what they reach, and the
+    taps as a dense band [n_tiles, tile, 32 * ks] from the base (zero
+    outside each output's own taps), ks k-steps of 32."""
+    n = len(first)
+    n_t = -(-n // tile)
+    last = np.minimum(np.arange(n_t) * tile + tile, n) - 1
+    base = first[::tile].astype(np.int64) // 4 * 4    # first is monotone
+    end = (first[last] + count[last]).astype(np.int64)
+    ks = int(-(-int((end - base).max()) // 32))
+    dense = np.zeros((n_t, tile, 32 * ks), np.int64)
+    for o in range(n):
+        i, m = divmod(o, tile)
+        off = int(first[o] - base[i])
+        dense[i, m, off:off + int(count[o])] = taps[o, :int(count[o])]
+    return base, end, ks, dense
+
+
+def _a_fragments(dense: np.ndarray) -> np.ndarray:
+    """Dense bands [n, 16, 32 ks] -> their limbs as the A operand of
+    ``mma.sync.m16n8k32`` (.u8 / .s8, row) loads them: uint32 [n, ks, 3
+    limbs, 32 lanes, 4]; lane = 4 g + t, word 2 kw + mw holds row g + 8 mw,
+    k = 32 s + 16 kw + 4 t + (0..3), byte i element i."""
+    n, _, k = dense.shape
+    a = limbs(dense).reshape(3, n, 2, 8, k // 32, 2, 4, 4)
+    a = np.ascontiguousarray(a.transpose(1, 4, 0, 3, 6, 5, 2, 7))
+    return a.view(np.uint32).reshape(n, k // 32, 3, 32, 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class MmaTables:
+    """R1's taps as its tensor-core passes take them, for one geometry: per
+    tile of 16 output columns (horizontal) or rows (vertical), the band's
+    first source column or row ``kb_*`` (a multiple of 4) and the taps as a
+    dense band ``band_*`` [n_t, 16, 32 ks_*] from it; ``xend_h``: the end of
+    the columns a tile's taps reach; [``ylo``, ``yhi``): the rows an
+    m-tile's taps reach. A pass is three products, one per byte limb
+    (:func:`limbs`), of the band with the pixels (int32 sums, exact),
+    recombined as ``S0 + 2^8 S1 + 2^16 S2``."""
+
+    kb_h: np.ndarray
+    xend_h: np.ndarray
+    ks_h: int
+    band_h: np.ndarray
+    kb_v: np.ndarray
+    ylo: np.ndarray
+    yhi: np.ndarray
+    ks_v: int
+    band_v: np.ndarray
+
+    def fragments(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Both bands' limbs as A fragments (:func:`_a_fragments`)."""
+        return _a_fragments(self.band_h), _a_fragments(self.band_v)
+
+    def packed(self) -> np.ndarray:
+        """int32 [kb_h, xend_h, kb_v, ylo, yhi, pad to 4, horizontal and
+        vertical fragments], the kernel's layout."""
+        head = np.concatenate([self.kb_h, self.xend_h, self.kb_v, self.ylo,
+                               self.yhi]).astype(np.int32)
+        head = np.concatenate([head, np.zeros(-len(head) % 4, np.int32)])
+        ah, av = self.fragments()
+        return np.concatenate([head, ah.ravel().view(np.int32),
+                               av.ravel().view(np.int32)])
+
+
+@functools.lru_cache(maxsize=64)
+def mma_tables(w: int, h: int, res: int) -> MmaTables:
+    """:func:`crop_tables` as banded limb fragments, cached per size."""
+    t = crop_tables(w, h, res)
+    kb_h, xend_h, ks_h, band_h = _band(t.x_first, t.x_count, t.x_taps, 16)
+    kb_v, yhi, ks_v, band_v = _band(t.y_first, t.y_count, t.y_taps, 16)
+    return MmaTables(kb_h, xend_h, ks_h, band_h, kb_v,
+                     t.y_first[::16].astype(np.int64), yhi, ks_v, band_v)
 
 
 def _gather_taps(first: np.ndarray, taps: np.ndarray, limit: int,
@@ -321,23 +398,175 @@ def _library() -> ctypes.CDLL:
     lib = kernel_build.load("resize_crop")
     lib.hmmc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.hmmc_cuda_error_string.restype = ctypes.c_char_p
+    lib.hmmc_resize_crop_ctas.argtypes = [ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
+    lib.hmmc_resize_crop_ctas.restype = ctypes.c_int
     lib.hmmc_resize_crop.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     lib.hmmc_resize_crop.restype = ctypes.c_int
     return lib
 
 
-_device_tables: Dict[Tuple[int, int, int, int], torch.Tensor] = {}
+_device_tables: Dict[tuple, torch.Tensor] = {}
 
 
-def _tables_on(device: torch.device, t: CropTables) -> torch.Tensor:
-    key = (device.index, t.w, t.h, t.res)
+def tables_on(device: torch.device, key: tuple,
+              packed: Callable[[], np.ndarray]) -> torch.Tensor:
+    """A geometry's int32 table on ``device``, uploaded once and kept:
+    launches point into it. The upload is synchronous, so a launch on any
+    stream may read the table."""
+    key = (device.type, device.index, *key)
     dev = _device_tables.get(key)
     if dev is None:
-        dev = torch.from_numpy(t.packed()).to(device)
+        dev = torch.from_numpy(packed()).to(device)
         _device_tables[key] = dev
     return dev
+
+
+def upload(head: np.ndarray, rows: np.ndarray, device: torch.device
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A launch's descriptor (``head`` then ``rows``) on the card without
+    stalling the host: written into pinned memory and copied on the current
+    stream (PyTorch's caching host allocator keeps the pinned block until
+    the copy is done). Returns the host and device copies."""
+    host = torch.empty(head.size + rows.size, dtype=torch.int64,
+                       pin_memory=True)
+    words = host.numpy()
+    words[:head.size] = head
+    words[head.size:] = rows.ravel()
+    return host, host.to(device, non_blocking=True)
+
+
+def _roundup(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _pitch16(x: int) -> int:
+    """The least pitch >= x that is 16 mod 32 bytes: eight rows of 32-bit
+    loads at one column fall in eight banks apart."""
+    p = _roundup(x, 16)
+    return p if p % 32 == 16 else p + 16
+
+
+def raw_bound(fmt: int, four: bool, rows: int, cols: int) -> int:
+    """Bytes of stage 0's buffer for ``rows`` x ``cols`` luma pixels of a
+    frame of format ``fmt`` (with a fourth plane where ``four``), as
+    ``csrc/jpeg_planes.cuh``'s layout bounds them: a plane of S bytes a row
+    takes roundup(S, 16) + 16 (16-byte aligned copies), chroma (rows >> vs)
+    + 4 rows of (cols >> hs) + 7 samples; 16 bytes beyond the last row
+    (the 4:2:0 path reads chroma a word past a row's end)."""
+    def plane(r, nbytes):
+        return r * (_roundup(nbytes, 16) + 16)
+
+    if fmt in (FORMATS["rgb"], FORMATS["gray"]):
+        return plane(rows, cols * (3 if fmt == FORMATS["rgb"] else 1)) + 16
+    hf, vf = SAMPLING[fmt]
+    return (plane(rows, cols) * (2 if four else 1)
+            + 2 * plane((rows >> (vf >> 1)) + 4, (cols >> (hf >> 1)) + 7)
+            + 16)
+
+
+def frame_kinds(batch: "PlaneBatch") -> Tuple[Tuple[int, bool], ...]:
+    """The (format, fourth plane) pairs the batch's real slots hold."""
+    codes = batch.fmt + 1                  # padded slots count at 0
+    if batch.color is not None:
+        codes = codes + 8 * (batch.color >= COLORS["cmyk"])
+    found = np.flatnonzero(np.bincount(codes, minlength=17)[1:])
+    return tuple((int(c % 8), bool(c >= 8)) for c in found)
+
+
+def geometries(batch: "PlaneBatch") -> Tuple[tuple, np.ndarray]:
+    """The distinct (w, h) of the batch's real slots and each slot's index
+    among them (0 for padded slots)."""
+    keys = batch.w * 65536 + batch.h       # 0 for padded slots
+    lo, hi = keys.min(), keys.max()
+    if hi == 0:
+        return (), np.zeros(len(keys), np.int64)
+    if lo == hi or (lo == 0 and (keys[keys != 0] == hi).all()):
+        uniq, geom = [hi], np.zeros(len(keys), np.int64)   # one size
+    else:
+        real = batch.fmt != PADDED
+        uniq, inv = np.unique(keys[real], return_inverse=True)
+        geom = np.zeros(len(keys), np.int64)
+        geom[real] = inv
+    return tuple((int(k // 65536), int(k % 65536)) for k in uniq), geom
+
+
+def frame_rows(batch: "PlaneBatch", geom: np.ndarray) -> np.ndarray:
+    """The kernels' 10 int64 words a slot (``csrc/jpeg_planes.cuh``)."""
+    zero = np.zeros(len(batch.fmt), np.int64)
+    return np.stack([batch.p0, batch.pitch0, geom, batch.fmt, batch.p1,
+                     batch.p2, batch.pitch1, batch.sampling,
+                     zero if batch.color is None else batch.color,
+                     zero if batch.p3 is None else batch.p3], axis=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch shape's layout: 16-column tiles per strip, the ring of
+    intermediate rows and its pitch, the pitches of the RGB planes and of
+    the output tile's interleaved rows, shared-memory regions (stage 0's
+    buffer, twice; the RGB planes, twice, either also the output tile; the
+    ring) and their sum."""
+
+    strip_ct: int
+    n_strips: int
+    ring: int
+    ring_pitch: int
+    rgb_pitch: int
+    tile_pitch: int
+    raw_bytes: int
+    rgb_bytes: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(sizes: tuple, res: int, kinds: tuple) -> Plan:
+    """The layout for frames of ``sizes`` and ``kinds`` at ``res``: column
+    strips as wide as a CTA of at most :data:`SMEM_LIMIT` bytes allows; the
+    ring holds an m-tile's rows and a chunk besides (and a k-window)."""
+    tabs = [mma_tables(w, h, res) for w, h in sizes]
+    n_t = -(-res // 16)
+    span = max([int((t.yhi - t.ylo).max()) for t in tabs] + [0])
+    ks_v = max([t.ks_v for t in tabs] + [1])
+    ring = _roundup(max(span + CHUNK - 1, 32 * ks_v), 4)
+    ring_pitch = _pitch16(ring)
+    strip_ct = n_t
+    while True:
+        n_strips = -(-n_t // strip_ct)
+        reach, cols = 16, 0
+        for t, (w, _) in zip(tabs, sizes):
+            for j0 in range(0, n_t, strip_ct):
+                j1 = min(j0 + strip_ct, n_t)
+                xo = int(t.kb_h[j0]) & ~15
+                xe = min(int(t.xend_h[j1 - 1]), w)
+                # the taps' k-windows, and the 8-pixel units stage 0 writes
+                reach = max(reach, int(t.kb_h[j1 - 1]) + 32 * t.ks_h - xo,
+                            _roundup(xe, 8) - xo)
+                cols = max(cols, xe - xo)
+        rgb_pitch = _pitch16(reach)
+        tile_pitch = _pitch16(3 * 16 * strip_ct)      # interleaved RGB
+        raw = max([raw_bound(f, four, CHUNK, cols) for f, four in kinds]
+                  + [0])
+        rgb_bytes = _roundup(max(3 * CHUNK * rgb_pitch,
+                                 16 * tile_pitch + 16), 16)
+        smem = 2 * raw + 2 * rgb_bytes + 3 * 16 * strip_ct * ring_pitch
+        if smem <= SMEM_LIMIT or strip_ct == 1:
+            return Plan(strip_ct, n_strips, ring, ring_pitch, rgb_pitch,
+                        tile_pitch, raw, rgb_bytes, smem)
+        strip_ct = -(-strip_ct // 2)
+
+
+def bands(items: int, n_tiles: int, ctas: int) -> int:
+    """Tiles of output rows per band (R1's m-tiles, R2's tiles): whole
+    frames, unless ``items`` (frames, or frames x strips) would leave CTAs
+    of the persistent grid idle; then halved bands until they do not, or a
+    band is one tile."""
+    n = 1
+    while items * n < ctas and n < n_tiles:
+        n *= 2
+    return -(-n_tiles // n)
 
 
 @dataclasses.dataclass
@@ -359,12 +588,22 @@ class PlaneBatch:
     keep: list
     color: Optional[np.ndarray] = None     # COLORS; None: every slot YCbCr
     p3: Optional[np.ndarray] = None        # the fourth plane (y's pitch)
+    # what every launch over the batch reads, made once with the batch: the
+    # distinct (w, h) (:func:`geometries`), the (format, fourth plane) pairs
+    # (:func:`frame_kinds`) and the kernels' 10 words a slot
+    sizes: tuple = dataclasses.field(init=False)
+    kinds: tuple = dataclasses.field(init=False)
+    rows: np.ndarray = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.sizes, geom = geometries(self)
+        self.kinds = frame_kinds(self)
+        self.rows = frame_rows(self, geom)
 
     @property
     def sampling(self) -> np.ndarray:
         """The kernel's word for each slot's chroma factors, hf + 16 vf."""
-        return np.array([hf + 16 * vf for hf, vf in (
-            SAMPLING.get(int(f), (0, 0)) for f in self.fmt)], np.int64)
+        return _SAMPLING_WORD[self.fmt + 1]
 
 
 Frame = Union[torch.Tensor, YccFrame, None]
@@ -443,60 +682,71 @@ def plane_batch(frames: Sequence[Frame]) -> PlaneBatch:
     return PlaneBatch(fmt=fmt, keep=keep, **a)
 
 
-def descriptor(batch: PlaneBatch, res: int, device: torch.device):
+def descriptor(batch: PlaneBatch, res: int, device: torch.device,
+               ctas: Callable[[int], int] = lambda smem: 0):
     """The kernel's launch arguments for ``batch`` (layout in
-    ``csrc/resize_crop.cu``): the int64 descriptor, G geometries of 8 words
-    then N frames of 10; the tap tables it points to, on ``device``, which
-    must outlive the launch; the output rows per CTA and the shared memory
-    the largest tile stages."""
+    ``csrc/resize_crop.cu``): the int64 descriptor's head (16 words, then G
+    geometries of 8), whose frame rows (10 words a slot) are
+    ``batch.rows``; the tables it points to on ``device`` (which must
+    outlive the launch), the work items and the :class:`Plan`.
+    ``ctas(smem)`` gives the persistent grid's size, which sets the bands
+    (:func:`bands`)."""
     n = len(batch.fmt)
-    valid = batch.fmt != PADDED
-    keys = batch.w * 65536 + batch.h
-    uniq, inv = np.unique(keys[valid], return_inverse=True)
-    geoms = [crop_tables(int(k // 65536), int(k % 65536), res) for k in uniq]
-    tile = TILE_ROWS
-    while tile > 1 and any(g.smem_bytes(tile) > SMEM_LIMIT for g in geoms):
-        tile //= 2
-    smem = max([g.smem_bytes(tile) for g in geoms] + [0])
-    head = np.zeros((len(geoms), 8), np.int64)
+    p = plan(batch.sizes, res, batch.kinds)
+    n_t = -(-res // 16)
+    band_mt = bands(n * p.n_strips, n_t, ctas(p.smem))
+    n_bands = -(-n_t // band_mt)
+    head = np.zeros((HEAD_WORDS + GEOM_WORDS * len(batch.sizes),), np.int64)
+    head[:13] = (len(batch.sizes), n, res, p.strip_ct, p.n_strips, band_mt,
+                 n_bands, p.ring, p.ring_pitch, p.rgb_pitch, p.raw_bytes,
+                 p.rgb_bytes, p.tile_pitch)
     tabs = []
-    for j, g in enumerate(geoms):
-        tabs.append(_tables_on(device, g))
-        head[j, :7] = (tabs[-1].data_ptr(), g.x_taps.shape[1],
-                       g.y_taps.shape[1], g.w, g.h, *g.staged_cols)
-    rows = np.zeros((n, 10), np.int64)
-    geom = np.zeros(n, np.int64)
-    geom[valid] = inv
-    rows[:, 0], rows[:, 1], rows[:, 2] = batch.p0, batch.pitch0, geom
-    rows[:, 3], rows[:, 4], rows[:, 5] = batch.fmt, batch.p1, batch.p2
-    rows[:, 6], rows[:, 7] = batch.pitch1, batch.sampling
-    if batch.color is not None:
-        rows[:, 8], rows[:, 9] = batch.color, batch.p3
-    return (np.concatenate([head.ravel(), rows.ravel()]), tabs, tile,
-            smem)
+    for j, (w, h) in enumerate(batch.sizes):
+        t = mma_tables(w, h, res)
+        tabs.append(tables_on(device, ("r1", w, h, res), t.packed))
+        at = HEAD_WORDS + GEOM_WORDS * j
+        head[at:at + 5] = (tabs[-1].data_ptr(), w, h, t.ks_h, t.ks_v)
+    return head, tabs, n * p.n_strips * n_bands, p
+
+
+def persistent_ctas(smem: int) -> int:
+    """CTAs of the kernel's persistent grid on the current device."""
+    lib = _library()
+    ctas = ctypes.c_int()
+    err = lib.hmmc_resize_crop_ctas(smem, ctypes.byref(ctas))
+    if err != 0:
+        raise RuntimeError(
+            f"resize_crop: no CTA of {smem} bytes of shared memory fits: "
+            f"CUDA error {err} ({lib.hmmc_cuda_error_string(err).decode()})")
+    return ctas.value
 
 
 def launch(batch: PlaneBatch, res: int, device: torch.device) -> torch.Tensor:
     """One launch of the kernel over ``batch`` -> uint8 [N, res, res, 3] on
-    ``device`` (a CUDA device)."""
+    ``device`` (a CUDA device). Nothing here waits for the card."""
     n = len(batch.fmt)
     out = torch.empty((n, res, res, 3), dtype=torch.uint8, device=device)
     if n == 0:
         return out
-    # one table per geometry; each stays alive over the launch
-    words, tabs, tile, smem = descriptor(batch, res, device)
-    desc = torch.from_numpy(words).to(device)
     lib = _library()
+    grid = ctypes.c_int()
     with torch.cuda.device(device):
+        head, tabs, items, p = descriptor(batch, res, device,
+                                          persistent_ctas)
+        host, desc = upload(head, batch.rows, device)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.hmmc_resize_crop(desc.data_ptr(), len(tabs), n,
-                                   out.data_ptr(), res, tile, smem, stream)
+        err = lib.hmmc_resize_crop(desc.data_ptr(), host.data_ptr(), items,
+                                   p.smem, out.data_ptr(), stream,
+                                   ctypes.byref(grid))
     if err != 0:
         raise RuntimeError(
             f"resize_crop kernel launch failed: CUDA error {err} "
             f"({lib.hmmc_cuda_error_string(err).decode()}) for {n} frames "
-            f"at res {res}, tile {tile}, {smem} bytes of shared memory")
+            f"at res {res}: {items} items (strips of {p.strip_ct} 16-column "
+            f"tiles), {p.smem} bytes of shared memory")
     resize_crop.launches += 1
+    resize_crop.last_launch = dict(items=items, grid=grid.value,
+                                   smem=p.smem)
     return out
 
 
@@ -529,3 +779,4 @@ def resize_crop(frames: Sequence[Frame], res: int,
 
 
 resize_crop.launches = 0
+resize_crop.last_launch = {}

@@ -48,6 +48,7 @@ from hmmc_tpu_torch.ops.resize_crop import (FORMATS, SAMPLING, YccFrame,
                                             output_size, resize_crop,
                                             resize_crop_reference,
                                             ycc_to_rgb_reference)
+from hmmc_tpu_torch.testing import aligned_and_odd_layouts
 from hmmc_tpu_torch.train import checkpoint as pckpt
 
 try:  # the reference; the card's machine has no JAX and runs the gpu tests
@@ -179,9 +180,11 @@ def test_ycc_to_rgb_reference_equals_libjpeg(w, h, sampling):
 
 
 def test_resize_crop_descriptor_layout():
-    """The kernel's descriptor as ``csrc/resize_crop.cu`` reads it: 8 words
-    per geometry, then 10 per frame, the colour and the fourth plane
-    last."""
+    """The kernel's descriptor as ``csrc/resize_crop.cu`` reads it: a head
+    of 16 words (the plan), 8 words per geometry, then 10 per frame, the
+    colour and the fourth plane last; bands shrink only where frames would
+    leave CTAs of the persistent grid idle."""
+    from hmmc_tpu_torch.ops import resize_crop as rc
     from hmmc_tpu_torch.ops.resize_crop import (COLORS, PADDED, descriptor,
                                                 plane_batch)
 
@@ -196,17 +199,163 @@ def test_resize_crop_descriptor_layout():
               YccFrame(u8(30, 40), u8(30, 40), u8(30, 40), k, "cmyk"),
               YccFrame(u8(24, 24), u8(24, 24), u8(24, 24), None, "rgb")]
     batch = plane_batch(frames)
-    words, tabs, tile, smem = descriptor(batch, 16, torch.device("cpu"))
-    assert len(tabs) == 2 and words.shape == (8 * 2 + 10 * len(frames),)
-    rows = words[16:].reshape(len(frames), 10)
+    head, tabs, items, plan = descriptor(batch, 16, torch.device("cpu"))
+    words = np.concatenate([head, batch.rows.ravel()])
+    assert len(tabs) == 2 and words.shape == (16 + 8 * 2 + 10 * 5,)
+    head = words[:16]
+    assert list(head[:3]) == [2, 5, 16]
+    assert list(head[3:13]) == [plan.strip_ct, plan.n_strips, 1, 1,
+                                plan.ring, plan.ring_pitch, plan.rgb_pitch,
+                                plan.raw_bytes, plan.rgb_bytes,
+                                plan.tile_pitch]
+    assert items == 5 * plan.n_strips
+    geoms = words[16:32].reshape(2, 8)
+    assert geoms[0, 0] == tabs[0].data_ptr()
+    assert geoms[0, 1:3].tolist() == [24, 24]
+    t = rc.mma_tables(24, 24, 16)
+    assert geoms[0, 3:5].tolist() == [t.ks_h, t.ks_v]
+    rows = words[32:].reshape(5, 10)
     assert list(rows[:, 3]) == [FORMATS["rgb"], PADDED, FORMATS["ycc420"],
                                 FORMATS["ycc444"], FORMATS["ycc444"]]
+    assert list(rows[:, 7]) == [0, 0, 2 + 16 * 2, 1 + 16, 1 + 16]
     assert list(rows[:, 8]) == [0, 0, COLORS["ycc"], COLORS["cmyk"],
                                 COLORS["rgb"]]
     assert rows[3, 9] == k.data_ptr() and rows[4, 9] == 0
     assert list(rows[:, 2]) == [1, 0, 1, 1, 0]     # geometries by size
-    assert words[0] == tabs[0].data_ptr() and words[3:5].tolist() == [24, 24]
-    assert tile >= 1 and smem > 0
+    # the table the geometry points to: the bands' heads, then fragments
+    np.testing.assert_array_equal(tabs[0].numpy(), t.packed())
+    # the shared memory of every region within the plan's sum, and the
+    # path's geometry within two CTAs an SM
+    assert plan.smem == (2 * plan.raw_bytes + 2 * plan.rgb_bytes
+                         + 48 * plan.strip_ct * plan.ring_pitch)
+    assert plan.rgb_bytes >= 16 * plan.tile_pitch + 16
+    path = rc.plan(((341, 256),), 224, ((FORMATS["ycc420"], False),))
+    assert path.strip_ct == 14 and 2 * (path.smem + 1024) <= 228 * 1024
+    assert path.ring_pitch % 32 == 16 and path.rgb_pitch % 32 == 16
+    assert path.tile_pitch % 32 == 16
+    # bands: whole frames when frames fill the grid, else narrower
+    assert rc.bands(768, 14, 396) == 14 and rc.bands(3, 14, 396) == 1
+    assert rc.bands(100, 14, 396) == 4
+
+
+def test_resize_area_descriptor_layout_and_copy_dispatch():
+    """R2's descriptor as ``csrc/resize_area.cu`` reads it: a head of 16
+    words (the plan), 12 words per geometry, 10 per frame (R1's rows). The
+    pretrain's 341x256 store frames (and any geometry cv2 copies) take mode
+    3, the copy path: the plan holds no RGB planes and no 4-byte sums, only
+    stage 0's buffers and the output tile; any other path in the batch
+    brings them back."""
+    from hmmc_tpu_torch.ops import resize_area as r2
+    from hmmc_tpu_torch.ops.resize_crop import plane_batch
+
+    rng = np.random.default_rng(4)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, np.uint8))
+
+    store = [YccFrame(u8(256, 341), u8(128, 171), u8(128, 171)), None,
+             u8(341, 256, 3)]
+    batch = plane_batch(store)
+    head, tabs, items, plan = r2.descriptor(batch, 256, torch.device("cpu"))
+    words = np.concatenate([head, batch.rows.ravel()])
+    assert [r2.area_tables(341, 256, 256).copy,
+            r2.area_tables(256, 341, 256).copy] == [True, True]
+    assert words.shape == (16 + 12 * 2 + 10 * 3,)
+    assert list(words[:13]) == [2, 3, 256, plan.tile_rows, plan.n_tiles,
+                                plan.rows, 0, plan.raw_bytes, 0, 0,
+                                plan.tile_pitch, 9, 1]
+    # copy tiles of 30 rows: 15 block rows x 33 units of 8 x 2 pixels fill
+    # two passes of 256 threads
+    assert plan.tile_rows == 30 and items == 3 and plan.rows == 30
+    # a batch too small for the persistent grid: bands of fewer tiles
+    head, _, items, _ = r2.descriptor(batch, 256, torch.device("cpu"),
+                                      lambda smem: 20)
+    assert list(head[11:13]) == [2, 5] and items == 15
+    geoms = words[16:40].reshape(2, 12)
+    assert geoms[:, 7].tolist() == [r2.MODES["copy"]] * 2
+    assert geoms[0, 3:7].tolist() == [256, 341, 0, 256]     # (256, 341)
+    assert geoms[1, 3:7].tolist() == [341, 256, 42, 298]    # crop at 42
+    np.testing.assert_array_equal(
+        tabs[1].numpy(), r2.area_tables(341, 256, 256).packed())
+    assert plan.smem == 2 * plan.raw_bytes + 30 * plan.tile_pitch + 16
+    path = r2.plan(((341, 256),), 256, ((FORMATS["ycc420"], False),))
+    assert 2 * (path.smem + 1024) <= 228 * 1024     # two CTAs an SM
+    # an area frame beside them: planes and sums come back, tiles shrink
+    mixed = plane_batch(store + [u8(360, 640, 3), u8(120, 160, 3)])
+    head, tabs, items, plan = r2.descriptor(mixed, 256, torch.device("cpu"))
+    words = np.concatenate([head, mixed.rows.ravel()])
+    geoms = words[16:16 + 12 * 4].reshape(4, 12)
+    assert sorted(geoms[:, 7].tolist()) == sorted(
+        [r2.MODES["copy"]] * 2 + [r2.MODES["area"], r2.MODES["linear"]])
+    assert plan.rgb_bytes > 0 and plan.tmp_bytes == 12 * plan.rows * 256
+    assert plan.smem <= r2.SMEM_LIMIT and items == 5
+    assert list(words[-20:-10][[3, 8]]) == [FORMATS["rgb"], 0]
+
+
+R1_LIMB_SIZES = [(341, 256), (1280, 720), (160, 120), (161, 121)]
+
+
+def _limbs_signed(limb_bytes):
+    """uint8 [3, ...] limbs as their values: the third is signed."""
+    out = limb_bytes.astype(np.int64)
+    out[2] = limb_bytes[2].view(np.int8)
+    return out
+
+
+@pytest.mark.parametrize("w,h", R1_LIMB_SIZES)
+def test_resize_crop_limb_tables_equal_reference(w, h):
+    """R1's tensor-core passes, read back from the fragments the kernel
+    loads (byte limbs, lane layout of mma.m16n8k32), multiplied in numpy
+    int64 and recombined as S0 + 2^8 S1 + 2^16 S2 + 2^21, equal
+    resize_crop_reference (Pillow's taps) bit for bit; every limb sum and
+    every recombined sum fits in int32, as the kernel's do."""
+    from hmmc_tpu_torch.ops.resize_crop import mma_tables
+
+    res = 224
+    t = mma_tables(w, h, res)
+    ah, av = t.fragments()
+    n_t, ks_h = ah.shape[:2]
+    ks_v = av.shape[1]
+
+    def bands(frags):
+        # lane = 4 g + t; word 2 kw + mw holds row g + 8 mw, k = 32 s +
+        # 16 kw + 4 t + byte
+        n, ks = frags.shape[:2]
+        a = frags.view(np.uint8).reshape(n, ks, 3, 8, 4, 2, 2, 4)
+        return _limbs_signed(a.transpose(2, 0, 6, 3, 1, 5, 4, 7).reshape(
+            3, n, 16, 32 * ks))
+
+    a_h, a_v = bands(ah), bands(av)
+    scale = np.array([1, 1 << 8, 1 << 16], np.int64)
+    # the limbs recombine into the dense bands
+    np.testing.assert_array_equal(np.einsum("l,lijk->ijk", scale, a_h),
+                                  t.band_h)
+    np.testing.assert_array_equal(np.einsum("l,lijk->ijk", scale, a_v),
+                                  t.band_v)
+
+    def finish(s):                      # s: [3 limbs, ...] int64 sums
+        assert np.abs(s).max() < 2 ** 31
+        v = np.einsum("l,l...->...", scale, s) + (1 << 21)
+        assert np.abs(v).max() < 2 ** 31
+        return np.clip(v >> 22, 0, 255)
+
+    rng = np.random.default_rng(w * h)
+    img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    k_h, k_v = 32 * ks_h, 32 * ks_v
+    src = np.zeros((h, w + k_h, 3), np.int64)
+    src[:, :w] = img
+    tmp = np.zeros((h + k_v, 16 * n_t, 3), np.int64)
+    for j in range(n_t):                # A = the tap band, B = the pixels
+        x = src[:, t.kb_h[j]:t.kb_h[j] + k_h]                # [h, K, 3]
+        tmp[:h, 16 * j:16 * j + 16] = finish(np.einsum("lmk,hkc->lhmc",
+                                                       a_h[:, j], x))
+    out = np.zeros((16 * n_t, 16 * n_t, 3), np.int64)
+    for i in range(n_t):
+        y = tmp[t.kb_v[i]:t.kb_v[i] + k_v]                   # [K, cols, 3]
+        out[16 * i:16 * i + 16] = finish(np.einsum("lmk,knc->lmnc",
+                                                   a_v[:, i], y))
+    ref = resize_crop_reference(torch.from_numpy(img)[None], res)[0]
+    np.testing.assert_array_equal(out[:res, :res], ref.numpy())
 
 
 def test_resize_crop_batches_sizes_and_padded_slots():
@@ -1137,9 +1286,30 @@ def cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def persistent_grid_edges(run, plain, make, wrapper, ctas):
+    """The work list's two edges on the card: fewer items than the
+    persistent grid has CTAs, and a count that is not a multiple of it (the
+    last pass ragged); bitwise against ``plain`` both times. ``run(frames)``
+    launches ``wrapper`` (whose ``last_launch`` holds items, grid and shared
+    memory), ``make(n)`` gives n frames of one size, ``ctas(smem)`` the
+    grid's CTAs."""
+    few = make(2)
+    assert torch.equal(run(few), plain(few))
+    last = wrapper.last_launch
+    grid = ctas(last["smem"])
+    assert last["items"] < grid and last["grid"] == last["items"]
+    many = make(grid + 5)
+    assert torch.equal(run(many), plain(many))
+    last = wrapper.last_launch
+    assert last["grid"] == grid and last["items"] > grid
+    assert last["items"] % grid != 0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("res", [32, 224])
 def test_resize_crop_kernel_equals_plain_on_card(cuda, res):
+    from hmmc_tpu_torch.ops import resize_crop as rc
+
     gen = torch.Generator(device=cuda).manual_seed(res)
 
     def u8(*shape):
@@ -1147,7 +1317,7 @@ def test_resize_crop_kernel_equals_plain_on_card(cuda, res):
                              generator=gen)
 
     for w, h in R1_SWEEP:
-        src = u8(3, h, w, 3)
+        src = u8(4, h, w, 3)
         ycc = [YccFrame(u8(h, w), u8(-(-h // vf), -(-w // hf)),
                         u8(-(-h // vf), -(-w // hf)))
                for hf, vf in SAMPLING.values()]
@@ -1158,18 +1328,34 @@ def test_resize_crop_kernel_equals_plain_on_card(cuda, res):
                 u8(h, w), u8(-(-h // vf), -(-w // hf)),
                 u8(-(-h // vf), -(-w // hf)),
                 u8(h, w) if color != "rgb" else None, color))
-        frames = [src[0], None, src[1], *ycc, src[2]]
+        # 4:2:0 planes at 16-byte aligned bases and pitches (stage 0's fast
+        # path) and at odd ones (staged with a row skew); RGB at an aligned
+        # pitch and at an odd base and pitch (src[0..2] are views at the
+        # unaligned pitch w * 3)
+        y, c = u8(h, w), u8(2, -(-h // 2), -(-w // 2))
+        rgb_aligned, rgb_odd, *planes = aligned_and_odd_layouts(
+            src[3], y, c[0], c[1])
+        ycc += planes
+        frames = [src[0], None, src[1], *ycc, src[2], rgb_aligned, rgb_odd]
         before = resize_crop.launches
         out = resize_crop(frames, res)
         again = resize_crop(frames, res)
         assert resize_crop.launches == before + 2
         assert torch.equal(out, again)
-        ref = torch.cat([resize_crop_reference(src, res)] + [
+        rgb_ref = resize_crop_reference(src, res)
+        ref = torch.cat([rgb_ref[:3]] + [
             resize_crop_reference(ycc_to_rgb_reference(f)[None], res)
-            for f in ycc])
-        got = torch.cat([out[[0, 2, len(frames) - 1]], out[3:-1]])
+            for f in ycc] + [rgb_ref[3:], rgb_ref[3:]])
+        got = torch.cat([out[[0, 2, len(ycc) + 3]], out[3:len(ycc) + 3],
+                         out[-2:]])
         assert torch.equal(got, ref), f"{w}x{h} -> {res}"
         assert int(out[1].sum()) == 0
+    if res == 32:
+        persistent_grid_edges(
+            lambda fs: resize_crop(fs, res),
+            lambda fs: resize_crop_reference(torch.stack(fs), res),
+            lambda n: list(u8(n, 45, 61, 3).unbind(0)), resize_crop,
+            rc.persistent_ctas)
 
 
 @pytest.mark.gpu

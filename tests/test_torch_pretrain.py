@@ -50,6 +50,7 @@ from hmmc_tpu_torch.factory import build_model
 from hmmc_tpu_torch.ops import image_ops
 from hmmc_tpu_torch.ops import resize_area as r2
 from hmmc_tpu_torch.ops.resize_crop import YccFrame
+from hmmc_tpu_torch.testing import aligned_and_odd_layouts
 from hmmc_tpu_torch.train import checkpoint as pckpt
 from hmmc_tpu_torch.config import ClipArch, CrossConfig
 from hmmc_tpu_torch.models.heads import BatchNorm, ProjectorMLP
@@ -610,8 +611,12 @@ def test_aug_decode_equals_jax_cv2_route_and_fixture(tmp_path):
 
 @pytest.mark.gpu
 def test_resize_area_kernel_equals_plain_on_card():
-    """R2 on the card against its plain version, bitwise, at the fixture's
-    decoded frames (RGB rows) and at random sizes of every path."""
+    """R2 on the card against its plain version, bitwise: random RGB rows at
+    sizes of every path (at the unaligned pitch w * 3), then RGB at an
+    aligned pitch and at an odd base and pitch, and 4:2:0 planes at aligned
+    and odd bases and pitches (cp.async and byte staging), and the work
+    list's two edges (fewer items than the persistent grid has CTAs; a
+    count that is not a multiple of it)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(13)
@@ -622,6 +627,35 @@ def test_resize_area_kernel_equals_plain_on_card():
                          256)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), ref)
+
+    def u8(*shape):
+        return torch.tensor(rng.integers(0, 256, shape, dtype=np.uint8))
+
+    host, card = [], []
+    for w, h in ((341, 256), (343, 259), (640, 360), (160, 120), (257, 193),
+                 (512, 512)):
+        img = u8(h, w, 3)
+        y, cb, cr = u8(h, w), u8(-(-h // 2), -(-w // 2)), u8(-(-h // 2),
+                                                              -(-w // 2))
+        host += [img] * 2 + [YccFrame(y, cb, cr)] * 2
+        card += aligned_and_odd_layouts(img.cuda(), y.cuda(), cb.cuda(),
+                                        cr.cuda())
+    got = r2.resize_area(card, 256)
+    assert torch.equal(got.cpu(), r2.resize_area(host, 256, device="cpu"))
+    # the work list's edges, at the pretrain's store size (the copy path)
+    few = [u8(256, 341, 3).cuda() for _ in range(2)]
+    assert torch.equal(r2.resize_area(few, 256).cpu(), r2.resize_area(
+        [f.cpu() for f in few], 256, device="cpu"))
+    last = r2.resize_area.last_launch
+    grid = r2.persistent_ctas(last["smem"])
+    assert last["items"] < grid and last["grid"] == last["items"]
+    many = list(torch.randint(0, 256, (grid + 5, 256, 341, 3),   # an item
+                              dtype=torch.uint8, device="cuda").unbind(0))
+    got = r2.resize_area(many, 256)
+    last = r2.resize_area.last_launch
+    assert last["grid"] == grid and last["items"] > grid
+    assert last["items"] % grid != 0
+    assert torch.equal(got, r2.resize_area_reference(torch.stack(many), 256))
 
 
 @pytest.mark.gpu
