@@ -108,6 +108,20 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             launches against the prediction, decode routes, wall per step,
             the checkpoint's keys; pytorch_model.bin.0 loads as a
             fine-tune's --init_model;
+   ddp      data parallelism and train-state checkpoints: (i) 2 fine-tune
+            steps at full width (batch 256 in 4 micro-batches) in a world
+            of 1 over NCCL through init_distributed, against the same steps
+            without a process group and phase train's first two; the
+            state's save (sync, async) and resume times; (ii) two ranks on
+            the one card over gloo (this script again, --ddp_worker): 2
+            fine-tune and 2 pretrain steps against world 1 (losses, grad
+            norm, largest parameter difference, queues, ptr), both again in
+            fp32 at 2 layers a tower to 1e-5, peak memory per rank; (iv) in
+            the same group the sharded --do_eval of cli's 1000 clips
+            against cli's reload metrics; (v) meanwhile in this process the
+            CLI fine-tune cut by SIGTERM after step 1 (--save_steps 1) and
+            --resume'd, against an uncut run and its rerun; (iii) two cards
+            over NCCL where the machine has them, else a row saying so;
 6. result   the nvidia-smi line as it prints it, the kernel table as one
             JSON line, then ``{"ok": true, "device": {...}}`` as the last.
 
@@ -121,6 +135,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -135,6 +150,7 @@ from hmmc_tpu_torch.config import (ClipArch, CrossConfig, TaskConfig,
                                    load_cross_config)
 from hmmc_tpu_torch.data import jpeg
 from hmmc_tpu_torch.data.framepack import FramePackWriter
+from hmmc_tpu_torch.data.loader import rank_rows
 from hmmc_tpu_torch.data.registry import get_factory
 from hmmc_tpu_torch.data.sampling import sample_frame_indices
 from hmmc_tpu_torch.data.text import encode_text
@@ -153,6 +169,7 @@ from hmmc_tpu_torch.ops.fused_attention import (
     MAX_LEN_BWD, MAX_LEN_BWD_FP32, fused_attention, fused_attention_backward,
     fused_attention_backward_reference, fused_attention_reference,
     kernel_bwd_smem_bytes, kernel_smem_bytes)
+from hmmc_tpu_torch.parallel import distributed
 from hmmc_tpu_torch.ops.resize_crop import (
     FORMATS, SAMPLING, YccFrame, crop_tables, launch, output_size,
     plane_batch, resize_crop, resize_crop_reference, ycc_to_rgb_reference)
@@ -1765,6 +1782,7 @@ def train_slice(cross, arch, seed, smi):
     losses = on["losses"]
     finite = all(math.isfinite(x) for x in losses + on["grad_norms"]) and \
         all(math.isfinite(x) for x in run.best_metrics.values())
+    run_displayed = run.displayed
     row = dict(phase="train", model="ViT-B/32 BirdModel", steps=TRAIN_STEPS,
                batch_size=task.batch_size,
                micro_batch=task.micro_batch_size,
@@ -1821,7 +1839,9 @@ def train_slice(cross, arch, seed, smi):
     torch.cuda.empty_cache()
     grad_reference_check(cross, arch, seed)
     return dict(k1=row["k1_launches"], k2=row["k2_launches"],
-                eval_k1=row["eval_k1_launches"])
+                eval_k1=row["eval_k1_launches"],
+                first_steps=[dict(loss=r["loss"], grad_norm=r["grad_norm"])
+                             for r in run_displayed[:DDP_STEPS]])
 
 
 # ---------------------------------------------------------------------------
@@ -2637,6 +2657,626 @@ def serve_phase(root, ckpt, eval_metrics, seed, smi):
 
 
 
+# ---------------------------------------------------------------------------
+# phase ddp: data parallelism over ranks and train-state checkpoints
+# ---------------------------------------------------------------------------
+
+DDP_STEPS = 2
+DDP_SPAWN_TIMEOUT_S = 420
+# the fp32 check: ViT-B/32's widths at 2 layers a tower, 16 clips in 2
+# micro-batches (4 rows a rank each), 1024 negatives
+DDP_FP32_BATCH = 16
+DDP_FP32_ATOL = 1e-5
+DDP_FP32_REASON = (
+    "fp32 with TF32 off: world 2 sums two partial gradients in one "
+    "all-reduce and takes the BatchNorm sums over ranks, where world 1 sums "
+    "every row at once; the last fp32 bits differ, and an Adam step turns "
+    "that into at most a few ulps of lr. Losses, parameters and queues "
+    "within 1e-5 absolute; the grad norm (~220, a square root of a sum over "
+    "every gradient) within 1e-5 of itself, as fp32 sums of that size keep "
+    "~7 digits")
+DDP_BF16_LOSS_ATOL = TRAIN_LOSS_ON_OFF_ATOL
+DDP_BF16_GRAD_REL = 0.05
+DDP_BF16_PARAM_ATOL = 8e-4       # 8 lr: one update, its sign flipped
+DDP_BF16_QUEUE_ATOL = 0.05
+DDP_BF16_REASON = (
+    "bf16 compute: each rank runs micro-batches of 32 clips where world 1 "
+    "runs 64, so the products tile and round otherwise (bf16 keeps 8 bits; "
+    "phase train's kernel-on-vs-off losses differ by up to 0.1 the same "
+    "way); the parameters have taken one update (step 0's is multiplied by "
+    "0), BertAdam's first, about 4 lr a weight, so a near-zero gradient "
+    "whose sign differs moves a weight by at most 8 lr = 8e-4; the queues "
+    "hold unit keys from the bf16 key towers")
+RESUME_CLIPS = 128            # the resume runs' epoch-end eval
+
+
+def ddp_args(**kw):
+    base = dict(tp_size=1, sp_size=1, dp_size=0, dcn_dp_size=1,
+                multihost=False)
+    return argparse.Namespace(**dict(base, **kw))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+DDP_ENV = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE",
+           "MASTER_ADDR", "MASTER_PORT")
+
+
+def ddp_env(rank, world, port, local_rank):
+    return dict(RANK=str(rank), LOCAL_RANK=str(local_rank),
+                WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+
+
+def _cpu_state(sd):
+    return {k: v.detach().float().cpu() for k, v in sd.items()}
+
+
+def max_diff(got, want):
+    """The largest |got - want| over matching tensors (on got's device)."""
+    worst = 0.0
+    for k, ref in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        t = got[k]
+        worst = max(worst, float((t.detach().float()
+                                  - ref.detach().to(t.device).float()
+                                  ).abs().max()))
+    return worst
+
+
+def ddp_finetune(seed, fp32=False, host=None, host_dir=None):
+    """Phase ddp's fine-tune steps on this process's rank (or alone
+    without a process group): the ViT-B/32 BirdModel from the seed (fp32:
+    its widths at 2 layers a tower), BertAdam, DDP_STEPS steps of phase
+    train's global batch (256 clips in 4 micro-batches, or 16 in 2), this
+    rank's rows. Returns per-step loss, grad norm and ms, the launches,
+    the peak memory and the state."""
+    arch = ClipArch.by_name("ViT-B/32")
+    if fp32:
+        arch = dataclasses.replace(arch, vision_layers=2,
+                                   transformer_layers=2)
+        cross = CrossConfig(temporal_hidden_layers=2)
+        task = TaskConfig(seed=seed, compute_dtype="float32",
+                          batch_size=DDP_FP32_BATCH,
+                          gradient_accumulation_steps=2)
+    else:
+        cross, task = CrossConfig(), train_task(seed)
+    if host is None and host_dir and not fp32:
+        host = {k: np.load(os.path.join(host_dir, f"{k}.npy"), mmap_mode="r")
+                for k in ("query_ids", "query_mask", "video")}
+    if host is None:
+        host = next(iter(SyntheticClips(
+            task.batch_size, task.batch_size, task.max_frames,
+            arch.image_resolution, task.max_words, seed + 3)))
+    rows = rank_rows(task.batch_size, task.gradient_accumulation_steps,
+                     distributed.rank(), distributed.world_size())
+    model = build_model(task, cross, arch=arch)
+    distributed.broadcast_module(model)
+    state = FinetuneState(model, runner._optimizer(task, model, 10))
+    step = make_finetune_step(cross, n_accum=task.gradient_accumulation_steps)
+    batch = runner.prepare_finetune_batch(
+        {k: v[rows] for k, v in host.items()}, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = []
+    for _ in range(DDP_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out.append(dict(loss=float(m["loss"]),
+                        grad_norm=float(m["grad_norm"]),
+                        step_ms=(time.perf_counter() - t0) * 1e3))
+    return dict(steps=out, launches=launch_counts(),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                state=state, host=host)
+
+
+def ddp_pretrain(seed, fp32=False):
+    """Phase ddp's pretrain steps on this process's rank: the
+    BirdPretrainModel from the seed (fp32: ViT-B/32's widths at 2 layers a
+    tower), 1024 negatives, DDP_STEPS steps of 256 clips in 4
+    micro-batches (16 in 2) of synthetic uint8 frames at 256, augmented
+    with the global batch's draws at this rank's rows."""
+    tok = ClipTokenizer()
+    arch = ClipArch.by_name("ViT-B/32")
+    if fp32:
+        arch = dataclasses.replace(arch, vision_layers=2,
+                                   transformer_layers=2)
+        cross = CrossConfig(temporal_hidden_layers=2)
+        task = pretrain_task(seed, compute_dtype="float32").replace(
+            batch_size=DDP_FP32_BATCH, gradient_accumulation_steps=2)
+    else:
+        cross, task = CrossConfig(), pretrain_task(seed)
+    b, f, n_accum = task.batch_size, task.max_frames, \
+        task.gradient_accumulation_steps
+    model = build_model(task, cross, arch=arch, pretrain=True,
+                        vocab_size=tok.vocab_size)
+    state = runner.pretrain_state(task, model, 10)
+    for module in (state.model, state.towers):
+        distributed.broadcast_module(module)
+    distributed.broadcast_([getattr(state.queues, n)
+                            for n in MoCoQueues.NAMES])
+    step_fn = make_pretrain_step(
+        cross, tok.mask_token_id, tok.pad_token_id, tok.cls_token_id,
+        temperature=task.contrast_temperature,
+        momentum=task.contrast_momentum, n_accum=n_accum)
+    rows = rank_rows(b, n_accum, distributed.rank(),
+                     distributed.world_size())
+    positions = torch.from_numpy(
+        (rows[:, None] * f + np.arange(f)).reshape(-1)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    frames = torch.randint(0, 256, (b * f, AUG, AUG, 3), dtype=torch.uint8,
+                           device="cuda", generator=gen)[positions]
+    titles = torch.from_numpy(pretrain_titles(b, task.max_words, seed)[
+        rows]).cuda().long()
+    res = arch.image_resolution
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = []
+    for s in range(DDP_STEPS):
+        t0 = time.perf_counter()
+        video = image_ops.simclr_augment(
+            runner.stream(seed, runner.AUG_STREAM, s, "cuda"), frames,
+            out=res, positions=positions, total=b * f).view(
+            len(rows), f, res, res, 3)
+        state, m = step_fn(state, {"video": video, "title_ids": titles},
+                           runner.stream(seed, runner.STEP_STREAM, s,
+                                         "cuda"))
+        torch.cuda.synchronize()
+        out.append(dict({k: float(v) for k, v in m.items()},
+                        ptr=state.queues.ptr,
+                        step_ms=(time.perf_counter() - t0) * 1e3))
+    return dict(steps=out, launches=launch_counts(),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                state=state)
+
+
+def _pretrain_tensors(state):
+    q = state.queues
+    return dict(model=state.model.state_dict(),
+                towers=state.towers.state_dict(),
+                queues={n: getattr(q, n) for n in MoCoQueues.NAMES})
+
+
+def _worker_compare(kind, run, ref_path):
+    """This rank's run against world 1's saved tensors."""
+    ref = torch.load(ref_path, map_location="cpu", weights_only=True)
+    row = dict(steps=run["steps"], launches=run["launches"],
+               max_memory_allocated=run["max_memory_allocated"])
+    if kind == "finetune":
+        row["param_max_abs_diff"] = max_diff(
+            dict(run["state"].model.named_parameters()), ref["params"])
+    else:
+        got = _pretrain_tensors(run["state"])
+        for part in ("model", "towers", "queues"):
+            row[f"{part}_max_abs_diff"] = max_diff(got[part], ref[part])
+    return row
+
+
+def ddp_worker(spec_path):
+    """One rank of phase ddp's groups (``chip_smoke.py --ddp_worker
+    SPEC``): join the group the environment names over the spec's
+    backend, run the spec's scenarios, write what they give."""
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    world = int(os.environ["WORLD_SIZE"])
+    device, _ = distributed.init_distributed(ddp_args(dp_size=world),
+                                             device, spec["backend"])
+    seed = spec["seed"]
+    out = dict(rank=distributed.rank(), device=str(device),
+               backend=spec["backend"], world=distributed.world_size())
+    for name in spec["scenarios"]:
+        t0 = time.perf_counter()
+        if name == "eval":
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            metrics = runner.main(cli.get_args(argv=spec["eval_argv"]),
+                                  device=device)
+            out[name] = dict(metrics=metrics, launches=launch_counts(),
+                             max_memory_allocated=(
+                                 torch.cuda.max_memory_allocated()))
+        else:
+            kind, fp32 = name.split("_")[0], name.endswith("fp32")
+            kw = dict(host_dir=spec["host_dir"]) if kind == "finetune" else {}
+            run = (ddp_finetune if kind == "finetune" else ddp_pretrain)(
+                seed, fp32=fp32, **kw)
+            out[name] = _worker_compare(kind, run, spec["refs"][name])
+            del run
+        out[name]["wall_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    with open(spec["out"] % distributed.rank(), "w") as fh:
+        json.dump(out, fh)
+    distributed.shutdown()
+
+
+class DdpGroup:
+    """``world`` ranks of this script's :func:`ddp_worker` on
+    ``local_ranks``' cards, started at construction; :meth:`results`
+    waits (at most DDP_SPAWN_TIMEOUT_S from the start) and kills every
+    rank on failure or timeout."""
+
+    def __init__(self, tmp, name, world, backend, scenarios, local_ranks,
+                 **spec):
+        self.name, self.world = name, world
+        self.out = os.path.join(tmp, f"{name}_rank%d.json")
+        path = os.path.join(tmp, f"{name}_spec.json")
+        with open(path, "w") as fh:
+            json.dump(dict(spec, backend=backend, scenarios=scenarios,
+                           out=self.out), fh)
+        port = free_port()
+        env = {k: v for k, v in os.environ.items() if k not in DDP_ENV}
+        self.procs, self.logs = [], []
+        self.deadline = time.monotonic() + DDP_SPAWN_TIMEOUT_S
+        for r in range(world):
+            log = open(os.path.join(tmp, f"{name}_rank{r}.log"), "w+")
+            self.logs.append(log)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ddp_worker",
+                 path],
+                env=dict(env, **ddp_env(r, world, port, local_ranks[r])),
+                stdout=log, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+
+    def results(self):
+        try:
+            for p in self.procs:
+                p.wait(timeout=max(1.0, self.deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+            for p in self.procs:
+                p.wait(timeout=30)
+        tails = []
+        for r, log in enumerate(self.logs):
+            log.seek(0)
+            tails.append(f"rank {r} rc={self.procs[r].returncode}:\n"
+                         + log.read()[-4000:])
+            log.close()
+        if any(p.returncode for p in self.procs):
+            raise AssertionError(f"ddp group {self.name} failed:\n"
+                                 + "\n".join(tails))
+        results = []
+        for r in range(self.world):
+            with open(self.out % r) as fh:
+                results.append(json.load(fh))
+        return results
+
+
+def checkpoint_times(state, root):
+    """The fine-tune state's save (sync; async: until ``save`` returns
+    and until the write is done) and its resume (load and restore), by the
+    host clock, on the full-width state."""
+    from hmmc_tpu_torch.train import state_io
+
+    d = os.path.join(root, "ddp_ckpt")
+    meta = dict(epoch=0, batch_in_epoch=DDP_STEPS, steps_per_epoch=10,
+                epoch_end=False)
+    t0 = time.perf_counter()
+    payload = state_io.snapshot(state)
+    snap_ms = (time.perf_counter() - t0) * 1e3
+    sync = state_io.CheckpointWriter(d)
+    t0 = time.perf_counter()
+    sync.save(state.step, payload, meta)
+    sync_ms = snap_ms + (time.perf_counter() - t0) * 1e3
+    del payload
+    nbytes = os.path.getsize(state_io.state_path(d, state.step))
+    writer = state_io.CheckpointWriter(d, async_save=True)
+    t0 = time.perf_counter()
+    writer.save(state.step + 1, state_io.snapshot(state), meta)
+    async_return_ms = (time.perf_counter() - t0) * 1e3
+    writer.close()
+    async_done_ms = (time.perf_counter() - t0) * 1e3
+    before = {n: p.detach().clone() for n, p in
+              state.model.named_parameters()}
+    t0 = time.perf_counter()
+    state_io.restore(state, state_io.load_state(d, state.step))
+    torch.cuda.synchronize()
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    equal = all(torch.equal(p, before[n]) for n, p in
+                state.model.named_parameters())
+    shutil.rmtree(d)
+    return dict(state_bytes=nbytes, snapshot_ms=snap_ms, save_sync_ms=sync_ms,
+                save_async_return_ms=async_return_ms,
+                save_async_done_ms=async_done_ms, resume_ms=resume_ms,
+                restored_equal=equal)
+
+
+def resume_layout(root):
+    """Phase cli's FramePack and train split, with the first RESUME_CLIPS
+    test clips (the resume runs' epoch-end eval)."""
+    data = os.path.join(root, "ddp_data")
+    m = os.path.join(data, "msrvtt")
+    os.makedirs(m)
+    os.symlink(os.path.join(root, "frames.fpk"),
+               os.path.join(data, "frames.fpk"))
+    for name in ("MSRVTT_train.9k.csv", "MSRVTT_data.json"):
+        os.symlink(os.path.join(root, "msrvtt", name), os.path.join(m, name))
+    with open(os.path.join(root, "msrvtt", "MSRVTT_JSFUSION_test.1k.csv")) \
+            as src:
+        lines = src.readlines()[:RESUME_CLIPS + 1]
+    with open(os.path.join(m, "MSRVTT_JSFUSION_test.1k.csv"), "w") as dst:
+        dst.writelines(lines)
+    return data
+
+
+def resume_check(root, seed, smi):
+    """(v): through the CLI in this process, the fine-tune (2 steps of
+    256, then the eval of RESUME_CLIPS clips) uncut twice, then cut by a
+    SIGTERM after step 1 with ``--save_steps 1``, then ``--resume``d. The
+    resumed run's parameters, losses and metrics against the uncut run's,
+    within what the rerun of the uncut run gives."""
+    import signal
+
+    data = resume_layout(root)
+    runs, walls = {}, {}
+    make = runner.make_finetune_step
+
+    def signalling(*a, **kw):
+        fn = make(*a, **kw)
+
+        def step(state, batch):
+            state, metrics = fn(state, batch)
+            if state.step == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return state, metrics
+
+        return step
+
+    reset_launch_counts()
+    for name, extra in (("uncut", []), ("rerun", []),
+                        ("cut", ["--save_steps", "1"]),
+                        ("resumed", ["--resume"])):
+        out = os.path.join(root, "ddp_resume",
+                           "cut" if name in ("cut", "resumed") else name)
+        if name == "cut":
+            runner.make_finetune_step = signalling
+        t0 = time.perf_counter()
+        try:
+            runs[name] = runner.main(cli.get_args(argv=cli_argv(
+                data, out, ["--seed", str(seed), *extra])))
+        finally:
+            runner.make_finetune_step = make
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    counts = launch_counts()
+
+    def params(run):
+        return dict(run.state.model.named_parameters())
+
+    def losses(run):
+        return [r["loss"] for r in run.displayed]
+
+    uncut = runs["uncut"]
+    rerun_diff = max_diff(params(runs["rerun"]), params(uncut))
+    resumed_diff = max_diff(params(runs["resumed"]), params(uncut))
+    rerun_loss = max(abs(a - b) for a, b in zip(losses(runs["rerun"]),
+                                                losses(uncut)))
+    resumed_loss = abs(losses(runs["resumed"])[-1] - losses(uncut)[-1])
+    row = dict(phase="ddp_resume", what="CLI fine-tune, 2 steps of 256 in 4 "
+               f"micro-batches then the eval of {RESUME_CLIPS} clips: uncut, "
+               "rerun, cut by SIGTERM after step 1 (--save_steps 1), "
+               "--resume", steps=[r.state.step for r in runs.values()],
+               displayed_steps={k: [r["step"] for r in v.displayed]
+                                for k, v in runs.items()},
+               losses={k: losses(v) for k, v in runs.items()},
+               metrics={k: v.best_metrics for k, v in runs.items()},
+               param_max_abs_diff_rerun=rerun_diff,
+               param_max_abs_diff_resumed=resumed_diff,
+               last_loss_abs_diff_rerun=rerun_loss,
+               last_loss_abs_diff_resumed=resumed_loss,
+               tolerance="the rerun's", wall_s=walls, launches=counts,
+               card=smi)
+    emit(row)
+    ok = (runs["cut"].state.step == 1 and runs["resumed"].state.step == 2
+          and [r["step"] for r in runs["resumed"].displayed] == [2]
+          and resumed_diff <= rerun_diff and resumed_loss <= rerun_loss
+          and runs["resumed"].best_metrics == uncut.best_metrics)
+    shutil.rmtree(os.path.join(root, "ddp_resume"))
+    shutil.rmtree(data)
+    if not ok:
+        raise AssertionError(f"ddp resume check failed: {row}")
+    return counts
+
+
+def ddp_phase(root, seed, smi, train_ref, eval_ref):
+    """Phase ddp: (i) world 1 over NCCL through init_distributed, against
+    the same steps without a process group and phase train's first two;
+    the state's save and resume times; (ii) world 2 on the one card over
+    gloo (fine-tune, pretrain, both again in fp32 at 2 layers a tower) and
+    (iv) the sharded eval of phase cli's 1000 clips, in one 2-rank group,
+    while this process runs (v), a CLI run cut by SIGTERM and resumed;
+    (iii) world 2 over NCCL where a second card exists. Returns the
+    launches by path."""
+    tmp = os.path.join(root, "ddp")
+    os.makedirs(tmp)
+    refs, launches = {}, {}
+
+    # (i) without a group, then world 1 over NCCL
+    alone = ddp_finetune(seed)
+    host = alone.pop("host")
+    host_dir = os.path.join(tmp, "host_batch")
+    os.makedirs(host_dir)
+    for k, v in host.items():
+        np.save(os.path.join(host_dir, f"{k}.npy"), v)
+    alone_params = _cpu_state(dict(alone.pop("state").model
+                                   .named_parameters()))
+    torch.cuda.empty_cache()
+    os.environ.update(ddp_env(0, 1, free_port(), 0))
+    try:
+        device, created = distributed.init_distributed(ddp_args(), "cuda")
+        backend = torch.distributed.get_backend()
+        one = ddp_finetune(seed, host=host)
+        del host
+        state = one.pop("state")
+        one.pop("host")
+        param_diff = max_diff(dict(state.model.named_parameters()),
+                              alone_params)
+        # the step's one added piece of device work: the flat all-reduce
+        # of its gradients (one rank: the sum leaves them as they are)
+        grads = [p.grad for p in state.model.parameters()
+                 if p.grad is not None]
+        grad_reduce_ms = cuda_ms(
+            lambda: distributed.all_reduce_grads(grads), iters=5, warmup=1)
+        del grads
+        torch.save({"params": _cpu_state(dict(
+            state.model.named_parameters()))},
+            os.path.join(tmp, "ref_finetune.pt"))
+        refs["finetune"] = os.path.join(tmp, "ref_finetune.pt")
+        times = checkpoint_times(state, root)
+        del state, alone_params
+        torch.cuda.empty_cache()
+        row = dict(phase="ddp_world1", backend=backend, device=str(device),
+                   what="2 fine-tune steps, ViT-B/32, batch 256 in 4 "
+                        "micro-batches, world 1 over NCCL against the same "
+                        "steps without a process group",
+                   nccl=one["steps"], no_group=alone["steps"],
+                   phase_train_first_steps=train_ref,
+                   param_max_abs_diff_vs_no_group=param_diff,
+                   step_ms_nccl=[s["step_ms"] for s in one["steps"]],
+                   step_ms_no_group=[s["step_ms"] for s in alone["steps"]],
+                   grad_all_reduce_ms=grad_reduce_ms,
+                   launches=one["launches"],
+                   max_memory_allocated=one["max_memory_allocated"],
+                   checkpoint=times, card=smi)
+        emit(row)
+        same = all(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+                   for a, b in zip(one["steps"], alone["steps"]))
+        as_train = all(abs(s["loss"] - t["loss"]) <= 1e-6 * abs(t["loss"])
+                       for s, t in zip(one["steps"], train_ref))
+        if not (created and backend == "nccl" and same and as_train
+                and param_diff == 0.0 and times["restored_equal"]):
+            raise AssertionError(f"ddp world 1: {row}")
+        launches["ddp_world1_finetune"] = one["launches"]
+        for name, fp32 in (("pretrain", False), ("finetune_fp32", True),
+                           ("pretrain_fp32", True)):
+            kind = name.split("_")[0]
+            run = (ddp_finetune if kind == "finetune" else ddp_pretrain)(
+                seed, fp32=fp32)
+            path = os.path.join(tmp, f"ref_{name}.pt")
+            if kind == "finetune":
+                torch.save({"params": _cpu_state(dict(
+                    run["state"].model.named_parameters()))}, path)
+            else:
+                torch.save({k: _cpu_state(v) for k, v in
+                            _pretrain_tensors(run["state"]).items()}, path)
+            refs[name] = path
+            run.pop("state")
+            run.pop("host", None)
+            refs[name + "_run"] = run
+            launches[f"ddp_world1_{name}"] = run["launches"]
+            torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+        for k in DDP_ENV:
+            os.environ.pop(k, None)
+    refs["finetune_run"] = one
+
+    # (ii) + (iv): two ranks on the one card over gloo, while this process
+    # takes (v) on the same card (neither is timed as a speed figure)
+    scenarios = ["finetune", "pretrain", "finetune_fp32", "pretrain_fp32",
+                 "eval"]
+    eval_argv = cli_argv(root, os.path.join(root, "ddp_eval"),
+                         ["--seed", str(seed), "--init_model",
+                          eval_ref["ckpt"]])[1:]
+    t0 = time.perf_counter()
+    group = DdpGroup(tmp, "gloo", 2, "gloo", scenarios, [0, 0], seed=seed,
+                     refs={k: v for k, v in refs.items()
+                           if not k.endswith("_run")},
+                     eval_argv=eval_argv, host_dir=host_dir)
+    # (v) cut and resumed through the CLI
+    launches["ddp_resume_cli"] = resume_check(root, seed, smi)
+    two = group.results()
+    group_s = time.perf_counter() - t0
+    problems = []
+    for name in scenarios[:-1]:
+        ref_steps = refs[name + "_run"]["steps"]
+        fp32 = name.endswith("fp32")
+        for r in two:
+            got = r[name]
+            for a, b in zip(got["steps"], ref_steps):
+                for k in ("loss", "loss_FAM", "loss_VTM", "loss_FTM",
+                          "loss_MLM"):
+                    if k in b and abs(a[k] - b[k]) > (
+                            DDP_FP32_ATOL if fp32 else DDP_BF16_LOSS_ATOL):
+                        problems.append((name, r["rank"], k, a[k], b[k]))
+                g_tol = (DDP_FP32_ATOL if fp32 else DDP_BF16_GRAD_REL
+                         ) * b["grad_norm"]
+                if abs(a["grad_norm"] - b["grad_norm"]) > g_tol:
+                    problems.append((name, r["rank"], "grad_norm"))
+                if a.get("ptr") != b.get("ptr"):
+                    problems.append((name, r["rank"], "ptr"))
+            for k, v in got.items():
+                if k.endswith("_max_abs_diff"):
+                    tol = (DDP_FP32_ATOL if fp32 else DDP_BF16_QUEUE_ATOL
+                           if k.startswith("queues") else DDP_BF16_PARAM_ATOL)
+                    if v > tol:
+                        problems.append((name, r["rank"], k, v, tol))
+        launches[f"ddp_world2_gloo_{name}"] = [r[name]["launches"]
+                                               for r in two]
+    eval_rows = [r["eval"] for r in two]
+    launches["ddp_world2_gloo_eval"] = [e["launches"] for e in eval_rows]
+    eval_equal = all(e["metrics"] == eval_ref["eval_metrics"]
+                     for e in eval_rows)
+    row = dict(phase="ddp_world2_gloo", what="2 ranks on one card over gloo "
+               "(a correctness run: gloo copies through the host, and phase "
+               "ddp's resume check shares the card meanwhile, so its times "
+               "are not a speed figure)", group_s=group_s,
+               world1={k: refs[k + "_run"]["steps"] for k in scenarios[:-1]},
+               ranks=two, eval_world1_metrics=eval_ref["eval_metrics"],
+               eval_equal=eval_equal, fp32_atol=DDP_FP32_ATOL,
+               fp32_reason=DDP_FP32_REASON,
+               bf16_tolerances=dict(loss=DDP_BF16_LOSS_ATOL,
+                                    grad_norm_rel=DDP_BF16_GRAD_REL,
+                                    params=DDP_BF16_PARAM_ATOL,
+                                    queues=DDP_BF16_QUEUE_ATOL),
+               bf16_reason=DDP_BF16_REASON, problems=problems, card=smi)
+    emit(row)
+    if problems or not eval_equal:
+        raise AssertionError(f"ddp world 2: {problems}, eval equal "
+                             f"{eval_equal}")
+
+    # (iii) two cards over NCCL
+    if torch.cuda.device_count() >= 2:
+        nccl = DdpGroup(tmp, "nccl", 2, "nccl", ["finetune"], [0, 1],
+                        seed=seed, refs={"finetune": refs["finetune"]},
+                        host_dir=host_dir).results()
+        emit(dict(phase="ddp_world2_nccl", ranks=nccl, card=smi))
+        launches["ddp_world2_nccl_finetune"] = [r["finetune"]["launches"]
+                                                for r in nccl]
+        for r in nccl:
+            if r["finetune"]["param_max_abs_diff"] > DDP_BF16_PARAM_ATOL:
+                raise AssertionError(f"ddp world 2 over NCCL: {r}")
+    else:
+        emit(dict(phase="ddp_world2_nccl", run=False,
+                  reason=f"{torch.cuda.device_count()} card: NCCL takes "
+                         "one rank a card", card=smi))
+
+    shutil.rmtree(tmp)
+    return launches
+
+
+def launches_of(by_path, kernel):
+    """One kernel's launches over phase ddp's paths (a list per group
+    holds each rank's counts)."""
+    return {path: (sum(c[kernel] for c in v) if isinstance(v, list)
+                   else v[kernel]) for path, v in by_path.items()}
+
+
 def kernels_phase(gen):
     """Phase 3: K1 at the eval path's shapes (64-clip video block,
     512-query text block) and the serve path's (one query), K2 at the
@@ -2742,7 +3382,11 @@ def main(argv=None) -> int:
     ap.add_argument("--clips", type=int, default=1000,
                     help="eval clips (MSR-VTT's 1k-A test split has 1000)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ddp_worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.ddp_worker:               # one rank of phase ddp's groups
+        ddp_worker(args.ddp_worker)
+        return 0
 
     # 1. device
     if not torch.cuda.is_available():
@@ -2783,6 +3427,8 @@ def main(argv=None) -> int:
                                    cli_counts["eval_metrics"], args.seed,
                                    smi)
         cli_pre = cli_pretrain_phase(root, args.seed, smi)
+        ddp = ddp_phase(root, args.seed, smi, train["first_steps"],
+                        cli_counts)
 
     # result
     def kernel_row(name, replaces, rows, launches, by_path):
@@ -2812,6 +3458,10 @@ def main(argv=None) -> int:
                 "cli_finetune": cli_counts["k2"],
                 "pretrain_steps": pretrain["k2"],
                 "cli_pretrain": cli_pre["k2"]}
+    # phase ddp's paths; a 2-rank group's entry sums its ranks' launches
+    k1_paths.update(launches_of(ddp, "k1"))
+    k2_paths.update(launches_of(ddp, "k2"))
+    r1_ddp = {k: v for k, v in launches_of(ddp, "r1").items() if v}
     r2_row = r2_rows["path"]
     print(smi, flush=True)
     emit({"kernels": [
@@ -2825,10 +3475,12 @@ def main(argv=None) -> int:
              replaces="hmmc_tpu/data/datasets.py:36 (_decode_eval's PIL "
                       "bicubic resize and centre crop: a host PIL step, "
                       "not a Pallas kernel)",
-             launches=cli_counts["r1"] + serve_counts["r1"] + cli_pre["r1"],
+             launches=(cli_counts["r1"] + serve_counts["r1"] + cli_pre["r1"]
+                       + sum(r1_ddp.values())),
              launches_by_path={"cli_finetune_and_evals": cli_counts["r1"],
                                "serve_extract": serve_counts["r1"],
-                               "cli_pretrain_eval": cli_pre["r1"]},
+                               "cli_pretrain_eval": cli_pre["r1"],
+                               **r1_ddp},
              max_abs_err=r1_row["max_abs_err"], ms=r1_row["launch_ms"],
              kernel_device_ms=r1_row["kernel_device_ms"],
              wrapper_from_frame_list_ms=r1_row["ms"],

@@ -8,14 +8,19 @@
 main_task_retrieval.py:33-97), so launch commands carry over. What the port
 does not run is still accepted where its default asks for nothing:
 - the reference's DDP flags (--local_rank/--rank/--world_size/--n_gpu),
-  --enable_amp and --cache_dir are ignored, as in the JAX package;
-- the TPU's mesh and program flags (--dp_size, --tp_size, --sp_size,
-  --dcn_dp_size, --zero_opt, --multihost, --fused_ema) raise with the flag's
-  name when set away from their defaults;
+  --enable_amp and --cache_dir are ignored, as in the JAX package (the
+  ranks come from torchrun's environment);
+- --tp_size and --sp_size above 1 and --fused_ema raise with the flag's
+  name and their ROADMAP.md item;
 - so do the modes and options not ported yet, each naming its ROADMAP.md
-  item: --resume, --save_steps, --async_save, --profile_dir,
-  --eval_dual_softmax, --token_filter_keep, --use_randaugment and
+  item: --eval_dual_softmax, --token_filter_keep, --use_randaugment and
   --task retrieval_VT, and a pretrain over another dataset than VATEX.
+Data parallelism (``torchrun --nproc_per_node N -m hmmc_tpu_torch``):
+--dp_size (0 or the world size), --dcn_dp_size (divides it), --multihost
+(a multi-node torchrun) and --zero_opt (ZeRO-1), checked against the world
+by ``parallel.distributed.init_distributed``. Train-state checkpoints:
+--resume, --save_steps, --async_save, and --profile_dir (torch.profiler
+over the first 10 steps).
 --do_pretrain (VATEX, English), --do_extract (with --quantize_bank),
 --do_params and --clip_model run as in the JAX package; any mode alone is
 a run.
@@ -36,6 +41,7 @@ from typing import Optional
 import numpy as np
 
 from hmmc_tpu_torch.config import TaskConfig
+from hmmc_tpu_torch.parallel import distributed
 
 logger = logging.getLogger(__name__)
 
@@ -127,15 +133,8 @@ def get_args(description: str = "HMMC on Retrieval Task (PyTorch port)",
 
 
 # flag -> its default; any other value raises
-_TPU_ONLY = {"dp_size": 0, "tp_size": 1, "sp_size": 1, "dcn_dp_size": 1,
-             "zero_opt": False, "multihost": False, "fused_ema": False}
 # flag -> (its default, the ROADMAP.md item that ports it)
-_CHECKPOINTS = "Queue A 4, train-state checkpoints"
-_NOT_PORTED = {"resume": (False, _CHECKPOINTS),
-               "save_steps": (0, _CHECKPOINTS),
-               "async_save": (False, _CHECKPOINTS),
-               "profile_dir": (None, _CHECKPOINTS),
-               "eval_dual_softmax": (False, "Queue A 9, retrieval_VT"),
+_NOT_PORTED = {"eval_dual_softmax": (False, "Queue A 9, retrieval_VT"),
                "token_filter_keep": (0, "Queue A 11, token filter"),
                "use_randaugment": (False, "Queue A 7, RandAugment"),
                "task": ("retrieval", "Queue A 9, retrieval_VT")}
@@ -144,14 +143,10 @@ PRETRAIN_DATASETS = ("vatex",)
 
 
 def to_task_config(args: argparse.Namespace) -> TaskConfig:
-    for flag, default in _TPU_ONLY.items():
-        if getattr(args, flag) != default:
-            where = ("the pretrain's --fused_ema is ROADMAP.md Queue A 7, "
-                     "fused EMA" if flag == "fused_ema" else
-                     "multi-GPU is ROADMAP.md Queue A 6")
-            raise ValueError(
-                f"--{flag} {getattr(args, flag)!r}: a TPU mesh/program flag; "
-                f"the port runs on one card ({where})")
+    distributed.check_parallel_flags(args)
+    if args.fused_ema:
+        raise ValueError("--fused_ema: a TPU program flag the port does not "
+                         "run (ROADMAP.md Queue A 7, fused EMA)")
     for flag, (default, item) in _NOT_PORTED.items():
         if getattr(args, flag) != default:
             raise NotImplementedError(
@@ -178,14 +173,16 @@ def to_task_config(args: argparse.Namespace) -> TaskConfig:
 
 
 def setup_logging(output_dir: Optional[str]) -> logging.Logger:
-    """util.get_logger parity (util.py:64-75): console + output_dir/log.txt."""
+    """util.get_logger parity (util.py:64-75): console + output_dir/log.txt
+    on rank 0; the other ranks log warnings to the console only."""
     handlers = [logging.StreamHandler()]
-    if output_dir:
+    main = distributed.is_main()
+    if output_dir and main:
         os.makedirs(output_dir, exist_ok=True)
         handlers.append(logging.FileHandler(
             os.path.join(output_dir, "log.txt")))
     logging.basicConfig(
-        level=logging.INFO,
+        level=logging.INFO if main else logging.WARNING,
         format="%(asctime)s - %(levelname)s: %(message)s",
         handlers=handlers, force=True)
     return logging.getLogger("hmmc_tpu_torch")
@@ -208,11 +205,11 @@ def make_tokenizer(task: TaskConfig):
 
 class MetricsWriter:
     """Scalar logging to ``logdir/scalars.jsonl`` (the JAX package's JSONL
-    fallback; no TensorBoard writer)."""
+    fallback; no TensorBoard writer), by rank 0 only."""
 
     def __init__(self, logdir: Optional[str]):
         self._jsonl = None
-        if logdir:
+        if logdir and distributed.is_main():
             os.makedirs(logdir, exist_ok=True)
             self._jsonl = open(os.path.join(logdir, "scalars.jsonl"), "a")
 

@@ -259,6 +259,14 @@ class TaskConfig:
     # the reference's temporal attention mask is all ones even over padded
     # frames (module_cross.py:201-203); True masks padded frames
     use_frame_mask: bool = False
+    # ZeRO-1: BertAdam's m/v sharded over the ranks by whole parameters
+    zero_opt: bool = False
+    # train-state checkpoints (train/state_io.py) under output_dir/ckpt
+    resume: bool = False
+    save_steps: int = 0
+    async_save: bool = False
+    # torch.profiler trace of the first 10 train steps
+    profile_dir: Optional[str] = None
 
     def validate(self) -> None:
         if self.gradient_accumulation_steps < 1:

@@ -4,8 +4,14 @@ DataLoader + DistributedSampler stack, dataloaders/dataloader.py:9-177).
 
 - The loader thinks in GLOBAL batches: the index order comes from
   (seed, epoch) identically on every process, and each process reads only
-  its contiguous 1/process_count shard of every global batch
-  (DistributedSampler semantics, dataloaders/dataloader.py:14).
+  its shard of every global batch (DistributedSampler semantics,
+  dataloaders/dataloader.py:14). With ``n_accum`` micro-batches a step,
+  the shard is this process's contiguous 1/process_count of EVERY global
+  micro-batch (:func:`rank_rows`): the JAX step splits the global batch
+  into contiguous micro-batches (``hmmc_tpu/train/trainer.py:89-91``), so
+  the rows the processes gather for local micro-batch i are the JAX
+  package's micro-batch i, in order. A final partial batch is wrap-padded
+  to a multiple of ``n_accum * process_count`` first.
 - Samples are read in a thread pool; here they carry compressed frames
   (``video_blobs``), which the consumer decodes on its device.
 - ``prefetch`` keeps N batches in flight so host reads overlap device work.
@@ -21,9 +27,22 @@ import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, List
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
+
+
+def rank_rows(batch: int, n_accum: int, rank: int, world: int) -> np.ndarray:
+    """The rows of a global batch of ``batch`` that rank ``rank`` of
+    ``world`` holds, in its order: its contiguous 1/world of each of the
+    ``n_accum`` contiguous micro-batches."""
+    if batch % (n_accum * world):
+        raise ValueError(f"global batch {batch} is not divisible into "
+                         f"{n_accum} micro-batches x {world} processes")
+    m = batch // n_accum
+    q = m // world
+    return (np.arange(n_accum)[:, None] * m + rank * q
+            + np.arange(q)[None, :]).reshape(-1)
 
 
 def _stack_samples(samples: List[Dict]) -> Dict:
@@ -46,15 +65,18 @@ class BatchLoader:
         prefetch: int = 2,
         process_index: int = 0,
         process_count: int = 1,
+        n_accum: int = 1,
     ):
         """``batch_size`` is the GLOBAL batch; with process_count > 1 each
-        process yields its contiguous batch_size/process_count shard of
-        every global batch (shards concatenate, in process order, to the
-        exact single-process batch)."""
-        if process_count > 1 and batch_size % process_count:
+        process yields its batch_size/process_count shard of every global
+        batch, :func:`rank_rows` of it (with ``n_accum`` 1 the shards
+        concatenate, in process order, to the exact single-process
+        batch)."""
+        if process_count > 1 and batch_size % (n_accum * process_count):
             raise ValueError(
                 f"global batch_size {batch_size} must divide by "
-                f"process_count {process_count}")
+                f"gradient_accumulation_steps x process_count = "
+                f"{n_accum} x {process_count}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -64,6 +86,7 @@ class BatchLoader:
         self.prefetch = max(1, prefetch)
         self.process_index = process_index
         self.process_count = process_count
+        self.n_accum = n_accum
         self._epoch = 0
         self._skip_next = 0
         # seed the frame-sampling RNG for epoch 0 even if the caller never
@@ -84,6 +107,15 @@ class BatchLoader:
         (the (seed, epoch) order is deterministic). One-shot: cleared when
         iteration starts."""
         self._skip_next = int(n)
+
+    def global_rows(self) -> Optional[np.ndarray]:
+        """Where this process's rows of a full batch sit in the global
+        batch (None for one process): the samplers that draw over the
+        global batch apply their draws at these rows."""
+        if self.process_count == 1:
+            return None
+        return rank_rows(self.batch_size, self.n_accum, self.process_index,
+                         self.process_count)
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -109,15 +141,14 @@ class BatchLoader:
                    for i in range(0, limit, self.batch_size)]
         if self.process_count > 1:
             p, count = self.process_index, self.process_count
+            unit = count * self.n_accum
 
             def local_shard(bidx: np.ndarray) -> np.ndarray:
-                if len(bidx) % count:
+                if len(bidx) % unit:
                     # final partial batch: wrap-pad so every process holds
                     # an equal shard (DistributedSampler pads the same way)
-                    need = count - len(bidx) % count
-                    bidx = np.concatenate([bidx, bidx[:need]])
-                per = len(bidx) // count
-                return bidx[p * per:(p + 1) * per]
+                    bidx = np.resize(bidx, -(-len(bidx) // unit) * unit)
+                return bidx[rank_rows(len(bidx), self.n_accum, p, count)]
 
             batches = [local_shard(b) for b in batches]
         if self._skip_next:

@@ -26,6 +26,7 @@ from hmmc_tpu_torch.config import TaskConfig
 from hmmc_tpu_torch.data.datasets import (FrameSource, MsrvttEvalDataset,
                                           MsrvttTrainDataset, VatexDataset)
 from hmmc_tpu_torch.data.loader import BatchLoader
+from hmmc_tpu_torch.parallel import distributed
 
 
 def _store_path(task: TaskConfig, sub: str) -> str:
@@ -48,20 +49,12 @@ def _source(task: TaskConfig, sub: str, mode: str = "eval") -> FrameSource:
                        aug_size=task.aug_size)
 
 
-def process_index_count():
-    """(rank, world size) from ``torch.distributed`` when it is
-    initialised, else (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 def _loader(dataset, task: TaskConfig, train: bool) -> BatchLoader:
-    # Train loaders shard each global batch across processes; eval stays
-    # global per process (the evaluator needs every feature anyway).
-    pi, pc = process_index_count() if train else (0, 1)
+    # Train loaders shard each global batch across processes, by
+    # micro-batch; eval loaders stay global on every process (the
+    # Evaluator shards its blocks and gathers the features).
+    pi, pc = ((distributed.rank(), distributed.world_size()) if train
+              else (0, 1))
     # The eval batch only sets the host feed's granularity (the Evaluator
     # re-blocks on the device), so it is capped: the reference default
     # --batch_size_val 3500 would stack ~6 GB of frames.
@@ -69,7 +62,8 @@ def _loader(dataset, task: TaskConfig, train: bool) -> BatchLoader:
     return BatchLoader(
         dataset, batch_size=bs, shuffle=train, drop_last=train,
         num_workers=max(1, task.num_thread_reader), seed=task.seed,
-        process_index=pi, process_count=pc)
+        process_index=pi, process_count=pc,
+        n_accum=task.gradient_accumulation_steps if train else 1)
 
 
 def msrvtt_train(task: TaskConfig, tokenizer):

@@ -18,6 +18,15 @@ Two phases on one device, under ``torch.inference_mode()``:
    R@1/5/10, MedR and MeanR (t2v and v2t) by
    :func:`hmmc_tpu_torch.metrics.logging_rank`.
 
+Over several ranks (:mod:`hmmc_tpu_torch.parallel.distributed`) every
+rank iterates the same global loader, and the fixed-size blocks are dealt
+out round-robin: block k is encoded by rank k % world, which decodes only
+that block's clips. The blocks hold the rows a single process would put
+in them, so each feature equals the single process's; the features are
+all-gathered in block order, rank 0 computes the similarity and the
+metrics (as the JAX package's process 0 does, ``hmmc_tpu/evaluation.py:
+146-152``) and broadcasts the metrics.
+
 Not ported yet: dual-softmax reweighting, the retrieval_VT title mix and
 token filtering.
 """
@@ -35,6 +44,7 @@ from hmmc_tpu_torch.data.jpeg import decode_video_blobs
 from hmmc_tpu_torch.factory import resolve_device
 from hmmc_tpu_torch.metrics import logging_rank
 from hmmc_tpu_torch.ops import image_ops
+from hmmc_tpu_torch.parallel import distributed
 
 logger = logging.getLogger(__name__)
 
@@ -73,6 +83,38 @@ def auto_video_block(arch, frames: int, budget_bytes: float = 2.5e9) -> int:
     while b > 1 and b * frames * heads * seq * seq * 4.0 > budget_bytes:
         b //= 2
     return b
+
+
+def _owned(start: int, n: int, block: int) -> list:
+    """Of the rows [start, start + n), the offsets of those in this
+    rank's blocks (block k belongs to rank k % world)."""
+    world, me = distributed.world_size(), distributed.rank()
+    if world == 1:
+        return list(range(n))
+    return [i for i in range(n) if (start + i) // block % world == me]
+
+
+def _gather_blocks(local, width: int, total: int, block: int, device):
+    """This rank's block outputs (``width`` arrays over its blocks' rows,
+    or ``()``) -> the same arrays over all ``total`` rows in block order,
+    on every rank."""
+    world = distributed.world_size()
+    if world == 1:
+        return local
+    n_blocks = -(-total // block)
+    out = []
+    for i in range(width):
+        parts = distributed.all_gather_arrays(
+            local[i] if local else None, device)
+        taken = [0] * world
+        rows = []
+        for k in range(n_blocks):
+            r = k % world
+            size = min(block, total - k * block)
+            rows.append(parts[r][taken[r]:taken[r] + size])
+            taken[r] += size
+        out.append(np.concatenate(rows, axis=0))
+    return tuple(out)
 
 
 class _BlockedEncoder:
@@ -189,27 +231,39 @@ class Evaluator:
 
     @torch.inference_mode()
     def cache_features(self, loader, dataset=None):
-        """-> (q [Q, D], v [V, D], f [V, F, D], multi, cut_off), numpy."""
+        """-> (q [Q, D], v [V, D], f [V, F, D], multi, cut_off), numpy (on
+        every rank; each rank encodes its blocks, see the module
+        docstring)."""
         multi = bool(getattr(dataset, "multi_sentence_per_video", False))
         cut_off = ([c - 1 for c in dataset.cut_off_points] if multi else [])
         q_enc = _BlockedEncoder(self._encode_text, self.text_block)
         v_enc = _BlockedEncoder(self._encode_video, self.video_block)
-        total_video = 0
+        total_video = n_queries = n_videos = 0
         for batch in loader:
             n = batch["query_ids"].shape[0]
-            q_enc.add(batch["query_ids"])
+            mine = _owned(n_queries, n, self.text_block)
+            if mine:
+                ids = batch["query_ids"]
+                q_enc.add(ids if len(mine) == n else ids[mine])
+            n_queries += n
             if multi:
                 # encode only the videos at the cut-off indices
                 s_ = total_video
                 keep = [i - s_ for i in cut_off if s_ <= i < s_ + n]
-                if keep:
-                    v_enc.add(self.frames(batch, keep))
                 total_video += n
             else:
-                v_enc.add(self.frames(batch))
-        (q,) = q_enc.finish()
-        v, f = v_enc.finish()
-        return q, v, f, multi, cut_off
+                keep = list(range(n))
+            own = [keep[i] for i in _owned(n_videos, len(keep),
+                                           self.video_block)]
+            n_videos += len(keep)
+            if own:
+                v_enc.add(self.frames(batch, None if len(own) == n
+                                      else own))
+        q = _gather_blocks(q_enc.finish(), 1, n_queries, self.text_block,
+                           self.device)
+        vf = _gather_blocks(v_enc.finish(), 2, n_videos, self.video_block,
+                            self.device)
+        return q[0], vf[0], vf[1], multi, cut_off
 
     @torch.inference_mode()
     def similarity(self, q: np.ndarray, v: np.ndarray,
@@ -233,6 +287,10 @@ class Evaluator:
     def run(self, loader, dataset=None,
             log: Optional[logging.Logger] = None) -> Dict[str, float]:
         q, v, f, multi, cut_off = self.cache_features(loader, dataset)
-        logger.info("eval features: %d queries, %d videos", len(q), len(v))
-        sim = self.similarity(q, v, f)
-        return logging_rank(sim, multi, cut_off, log or logger)
+        metrics = None
+        if distributed.is_main():
+            logger.info("eval features: %d queries, %d videos", len(q),
+                        len(v))
+            sim = self.similarity(q, v, f)
+            metrics = logging_rank(sim, multi, cut_off, log or logger)
+        return distributed.broadcast_object(metrics, self.device)

@@ -10,7 +10,12 @@
   the unbiased batch variance, momentum 0.1, eps 1e-5: the semantics the
   JAX package's ``TorchBatchNorm`` copies), with the train flag an
   argument, as the JAX module takes it, and its arithmetic in fp32 under
-  any compute dtype.
+  any compute dtype. Over several ranks its train-mode statistics are the
+  GLOBAL batch's (:func:`global_batch_norm`): the JAX heads normalise
+  over the global batch ("plain BatchNorm over the batch axis IS
+  sync-BN", ``hmmc_tpu/models/heads.py:6-9``). ``torch.nn.SyncBatchNorm``
+  is not used: it refuses CPU tensors, where the tests hold the port to
+  JAX.
 - :class:`ProjectorMLP`: the SimSiam-style projector / predictor
   (modeling.py:788-807): ``num_layers - 1`` blocks of Linear -> BatchNorm
   -> ReLU, then a Linear. Its names are the reference ``nn.Sequential``'s:
@@ -28,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hmmc_tpu_torch.models.layers import LayerNorm, Linear, lecun_normal_
+from hmmc_tpu_torch.parallel import distributed
 
 
 class MLMHead(nn.Module):
@@ -58,10 +64,32 @@ class MLMHead(nn.Module):
                         self.bias.to(x.dtype))
 
 
+def global_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
+    """Train-mode batch norm of ``x`` [n, C] (fp32) with the statistics of
+    the rows of every rank: the count and the sum, then the sum of squared
+    deviations from the global mean, each summed over ranks by
+    :func:`distributed.all_reduce_sum`, whose backward sums the two
+    gradient reductions over ranks. Moves ``bn``'s running mean and its
+    running variance (unbiased over the global count) by its momentum."""
+    stats = distributed.all_reduce_sum(torch.cat(
+        [x.sum(dim=0), x.new_full((1,), x.shape[0])]))
+    count = stats[-1]
+    mean = stats[:-1] / count
+    centred = x - mean
+    var = distributed.all_reduce_sum((centred * centred).sum(dim=0)) / count
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+        bn.running_var.mul_(1 - m).add_(
+            var.detach() * (count / (count - 1)), alpha=m)
+    return centred * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
+
+
 class BatchNorm(nn.BatchNorm1d):
     """``nn.BatchNorm1d`` called with an explicit ``train`` flag: in train
     mode it normalises with the biased batch variance and moves the running
-    mean and the running (unbiased) variance by momentum 0.1; otherwise it
+    mean and the running (unbiased) variance by momentum 0.1 (over several
+    ranks, of the global batch: :func:`global_batch_norm`); otherwise it
     normalises with the running statistics. Computes in fp32 (or wider)
     and returns ``dtype``."""
 
@@ -77,6 +105,8 @@ class BatchNorm(nn.BatchNorm1d):
             self.num_batches_tracked.add_(1)
         if x.dtype in (torch.bfloat16, torch.float16):
             x = x.float()
+        if train and distributed.world_size() > 1:
+            return global_batch_norm(x, self).to(self.dtype)
         y = F.batch_norm(x, self.running_mean, self.running_var,
                          self.weight, self.bias, train, self.momentum,
                          self.eps)

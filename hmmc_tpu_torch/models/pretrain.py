@@ -269,12 +269,18 @@ def mask_tokens(generator: torch.Generator, input_ids: torch.Tensor,
                                 cls_token_id)
 
 
-def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def mlm_loss(logits: torch.Tensor, labels: torch.Tensor,
+             count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean cross entropy over the labels that are not -100, in fp32 (0
     when there are none; modeling.py:173-180). One fused
-    ``F.cross_entropy``: at full width the logits are [64, 32, 49408]."""
+    ``F.cross_entropy``: at full width the logits are [64, 32, 49408].
+    ``count`` replaces the number of labels as the divisor: over several
+    ranks, the global count of masked tokens (which differs between
+    ranks), so that the ranks' results sum to the global mean."""
     vocab = logits.shape[-1]
     labels = labels.reshape(-1)
     total = F.cross_entropy(logits.reshape(-1, vocab).float(), labels,
                             ignore_index=-100, reduction="sum")
-    return total / (labels != -100).sum().clamp(min=1)
+    if count is None:
+        count = (labels != -100).sum()
+    return total / count.clamp(min=1)

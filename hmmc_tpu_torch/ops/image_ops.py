@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -236,14 +236,24 @@ def simclr_apply(frames: torch.Tensor, d: SimclrDecisions, out: int = 224,
 
 
 def simclr_augment(generator: torch.Generator, frames: torch.Tensor,
-                   out: int = 224, chunk: int = 768) -> torch.Tensor:
+                   out: int = 224, chunk: int = 768,
+                   positions: Optional[torch.Tensor] = None,
+                   total: Optional[int] = None) -> torch.Tensor:
     """:func:`sample_simclr` then :func:`simclr_apply` over uint8 frames
     [N, H, W, 3] on their device, ``chunk`` images at a time (a full-width
     step augments 3072 frames; each apply holds several float copies).
-    ``torch.profiler`` sees it as the range ``simclr_augment``."""
+    With ``positions`` (N indices into ``total``) the draws are made for
+    ``total`` images, the global batch's frames, and those at
+    ``positions`` are applied: a rank augments its frames as the
+    single-process run does. ``torch.profiler`` sees it as the range
+    ``simclr_augment``."""
     n, h, w = frames.shape[:3]
     with torch.profiler.record_function("simclr_augment"):
-        d = sample_simclr(generator, n, h, w, frames.device)
+        d = sample_simclr(generator, n if total is None else total, h, w,
+                          frames.device)
+        if positions is not None:
+            d = SimclrDecisions(*(getattr(d, f.name)[positions]
+                                  for f in dataclasses.fields(d)))
         parts = []
         for s in range(0, n, chunk):
             sl = slice(s, s + chunk)

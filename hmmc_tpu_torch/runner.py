@@ -39,10 +39,20 @@ ctypes call. It counts matrix products and convolutions only, where the
 JAX package's XLA cost analysis counts elementwise work too.
 
 Batches carry compressed frames (``video_blobs``: decoded on the device,
-nvJPEG and R1 on the card) or host uint8 ``video``. Not ported yet
-(ROADMAP.md Queue A): Orbax state checkpoints, ``--resume`` and preemption
-saves, the profiler hook, the mesh, the bird pretrain, retrieval_VT. It
-runs on the card unless the caller passes ``device="cpu"``.
+nvJPEG and R1 on the card) or host uint8 ``video``.
+
+:func:`main` runs the mode data-parallel over torchrun's ranks
+(``torchrun --nproc_per_node N -m hmmc_tpu_torch ...``;
+:mod:`hmmc_tpu_torch.parallel.distributed`): the loaders shard each
+global batch by micro-batch, the steps compute the global batch's losses
+and gradients, the eval deals its blocks out to the ranks, and rank 0
+alone writes ``log.txt``, ``scalars.jsonl``, the state files and
+``pytorch_model.bin.{epoch}``. :class:`TrainControl` gives both train
+loops their train-state checkpoints (``--resume`` exact mid-epoch,
+``--save_steps``, ``--async_save``, the SIGTERM save) and
+``--profile_dir``. Not ported yet (ROADMAP.md Queue A): the bird
+pretrain, retrieval_VT. It runs on the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -51,7 +61,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,12 +77,15 @@ from hmmc_tpu_torch.evaluation import Evaluator
 from hmmc_tpu_torch.factory import build_model, resolve_device
 from hmmc_tpu_torch.ops import image_ops
 from hmmc_tpu_torch.ops.quant import quantize_bank
+from hmmc_tpu_torch.parallel import distributed
+from hmmc_tpu_torch.train import state_io
 from hmmc_tpu_torch.train.checkpoint import save_reference_checkpoint
 from hmmc_tpu_torch.train.optimization import build_optimizer, scheduled_lr
 from hmmc_tpu_torch.models.pretrain import MoCoQueues, init_key_params
 from hmmc_tpu_torch.train.trainer import (FinetuneState, PretrainState,
                                           make_finetune_step,
                                           make_pretrain_step)
+from hmmc_tpu_torch.utils.preemption import PreemptionWatcher
 
 logger = logging.getLogger(__name__)
 
@@ -113,6 +126,153 @@ def log_lrs(task: TaskConfig, step: int, t_total: int,
     return "-".join("%.9f" % lr for lr in lrs)
 
 
+def _optimizer(task: TaskConfig, model, t_total: int):
+    return build_optimizer(
+        model.named_parameters(), lr=task.lr, text_lr=task.text_lr,
+        coef_lr=task.coef_lr, weight_decay=task.weight_decay,
+        warmup_proportion=task.warmup_proportion, t_total=t_total,
+        state_dtype=torch.bfloat16 if task.optim_bf16_state else None,
+        zero=task.zero_opt)
+
+
+class Profiler:
+    """``torch.profiler`` over the first ``steps`` train steps of a run,
+    one Chrome trace per rank under ``profile_dir``
+    (``trace_rank{r}.json``; the counterpart of the JAX runner's
+    ``_Profiler``, ``hmmc_tpu/runner.py:651-676``). :meth:`step` is called
+    before each step."""
+
+    def __init__(self, profile_dir: Optional[str], device, steps: int = 10):
+        self.dir = profile_dir
+        self.device = torch.device(device)
+        self.steps = steps
+        self._seen = 0
+        self._prof = None
+
+    def step(self) -> None:
+        if not self.dir:
+            return
+        if self._seen == 0:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.start()
+        self._seen += 1
+        if self._seen > self.steps:
+            self.close()
+
+    def close(self) -> None:
+        if self._prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._prof = self._prof, None
+        prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.dir, f"trace_rank{distributed.rank()}.json"))
+
+
+class TrainControl:
+    """What a train loop does around its steps (``hmmc_tpu/runner.py:
+    150-175, 247-341, 435-561``): ``--resume`` from the newest state
+    under ``output_dir/ckpt`` (exact mid-epoch: the loader skips the
+    batches the cut run trained), a save every ``--save_steps`` steps and
+    at each epoch's end (``--async_save``: on a thread), and on SIGTERM
+    seen by any rank a save at the same step on every rank and a stop;
+    ``--profile_dir``'s profiler. Without ``task.output_dir`` nothing is
+    saved or resumed. A context manager: the signal handler and the writer
+    live while it is entered."""
+
+    def __init__(self, task: TaskConfig, steps_per_epoch: int, device,
+                 log: logging.Logger, pretrain: bool = False):
+        self.task = task
+        self.steps_per_epoch = steps_per_epoch
+        self.device = device
+        self.log = log
+        self.pretrain = pretrain
+        self.dir = (os.path.join(task.output_dir, "ckpt")
+                    if task.output_dir else None)
+        self.writer = state_io.CheckpointWriter(
+            self.dir, async_save=task.async_save,
+            enabled=distributed.is_main() and self.dir is not None)
+        self.preempt = PreemptionWatcher()
+        self.profiler = Profiler(task.profile_dir, device)
+        self.last_saved = None
+
+    def __enter__(self) -> "TrainControl":
+        self.preempt.install()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.preempt.uninstall()
+        self.profiler.close()
+        self.writer.close()
+        return False
+
+    def resume(self, state) -> Tuple[int, int]:
+        """Load the newest state into ``state``; (start epoch, batches of
+        it to skip)."""
+        if not (self.task.resume and self.dir):
+            return 0, 0
+        latest = state_io.latest_step(self.dir)
+        if latest is None:
+            self.log.info("--resume: no state under %s; starting fresh",
+                          self.dir)
+            return 0, 0
+        meta = state_io.load_progress_meta(self.dir, latest) or {}
+        if self.pretrain and meta.get("fused_ema", False):
+            # the JAX package's --fused_ema saves params_k one EMA ahead
+            # (hmmc_tpu/runner.py:436-450); the port never fuses
+            raise ValueError(
+                f"{self.dir} (step {latest}) was saved with fused_ema=True; "
+                "its params_k convention differs by one EMA application "
+                "and the port runs without --fused_ema")
+        state_io.restore(state, state_io.load_state(self.dir, latest))
+        if meta.get("epoch_end", True):
+            self.log.info("resumed at epoch %d from %s (step %d)",
+                          meta.get("epoch", -1) + 1, self.dir, latest)
+            return meta.get("epoch", -1) + 1, 0
+        self.log.info("resumed MID-EPOCH at epoch %d batch %d/%d from %s "
+                      "(step %d)", meta["epoch"], meta["batch_in_epoch"],
+                      meta["steps_per_epoch"], self.dir, latest)
+        return meta["epoch"], meta["batch_in_epoch"]
+
+    def save(self, state, epoch: int, batch_in_epoch: int,
+             epoch_end: bool = False) -> None:
+        if self.dir is None:
+            return
+        meta = {"epoch": epoch, "batch_in_epoch": batch_in_epoch,
+                "steps_per_epoch": self.steps_per_epoch,
+                "epoch_end": epoch_end, "world_size":
+                distributed.world_size(), "zero_opt": self.task.zero_opt}
+        if self.pretrain:
+            meta["fused_ema"] = False
+        if self.last_saved == state.step:
+            self.writer.refresh_meta(state.step, meta)
+            return
+        self.writer.save(state.step, state_io.snapshot(state), meta)
+        self.last_saved = state.step
+
+    def after_step(self, state, epoch: int, batch_in_epoch: int) -> bool:
+        """The save at ``--save_steps``; on a preemption signal that any
+        rank saw, the save and True (the loop returns)."""
+        every = self.task.save_steps
+        if every and state.step % every == 0:
+            self.save(state, epoch, batch_in_epoch)
+        if distributed.any_rank(self.preempt.triggered, self.device):
+            self.save(state, epoch, batch_in_epoch,
+                      epoch_end=batch_in_epoch == self.steps_per_epoch)
+            self.writer.wait()
+            self.log.warning(
+                "preemption signal: exact state saved at step %d (epoch %d, "
+                "batch %d/%d); rerun with --resume to continue", state.step,
+                epoch, batch_in_epoch, self.steps_per_epoch)
+            return True
+        return False
+
+
 @dataclasses.dataclass
 class FinetuneRun:
     best_metrics: Dict[str, float]
@@ -127,25 +287,23 @@ def finetune(task: TaskConfig, cross: CrossConfig, train_loader,
              writer: Optional[MetricsWriter] = None) -> FinetuneRun:
     """The fine-tune loop. ``train_loader``: a sized iterable of host
     batches (``query_ids``, ``query_mask``, ``video_blobs`` or uint8
-    ``video`` [B, F, H, W, 3], optional ``nframes``), one batch per
-    optimizer step, iterated once per epoch (``set_epoch(epoch)`` first
-    where it has one). ``eval_loader`` / ``eval_dataset``: as for
-    ``Evaluator.run``. ``task.init_model`` overlays a checkpoint;
-    ``task.output_dir`` receives ``pytorch_model.bin.{epoch}``."""
+    ``video`` [B, F, H, W, 3], optional ``nframes``; over several ranks,
+    this rank's shard), one batch per optimizer step, iterated once per
+    epoch (``set_epoch(epoch)`` first where it has one; ``skip_batches``
+    where a resume starts mid-epoch). ``eval_loader`` / ``eval_dataset``:
+    as for ``Evaluator.run``. ``task.init_model`` overlays a checkpoint;
+    ``task.output_dir`` receives ``pytorch_model.bin.{epoch}`` and the
+    train states under ``ckpt/`` (rank 0 writes)."""
     log = log or logger
     device = resolve_device(device)
     model = build_model(task, cross, arch=arch, device=device,
                         init_model_path=task.init_model,
                         clip_model_path=task.clip_model)
+    distributed.broadcast_module(model)
     resolution = task.image_resolution or model.arch.image_resolution
     steps_per_epoch = len(train_loader)
     t_total = steps_per_epoch * task.epochs
-    optimizer = build_optimizer(
-        model.named_parameters(), lr=task.lr, text_lr=task.text_lr,
-        coef_lr=task.coef_lr, weight_decay=task.weight_decay,
-        warmup_proportion=task.warmup_proportion, t_total=t_total,
-        state_dtype=torch.bfloat16 if task.optim_bf16_state else None)
-    state = FinetuneState(model, optimizer)
+    state = FinetuneState(model, _optimizer(task, model, t_total))
     step_fn = make_finetune_step(
         cross, use_frame_fea=task.use_frame_fea,
         n_accum=task.gradient_accumulation_steps,
@@ -154,43 +312,55 @@ def finetune(task: TaskConfig, cross: CrossConfig, train_loader,
 
     best_r1, best_metrics = -1.0, {}
     epoch_metrics, displayed = [], []
-    for epoch in range(task.epochs):
-        if hasattr(train_loader, "set_epoch"):
-            train_loader.set_epoch(epoch)
-        t_data, t_step = 0.0, 0.0
-        t0 = time.time()
-        for batch in train_loader:
-            t1 = time.time()
-            state, metrics = step_fn(state, prepare_finetune_batch(
-                batch, device, resolution))
-            t2 = time.time()
-            t_data += t1 - t0
-            t_step += t2 - t1
-            if state.step % task.n_display == 0:
-                names = sorted(metrics)
-                values = torch.stack([metrics[k].float() for k in names])
-                row = dict(zip(names, values.tolist()))
-                if writer is not None:
-                    writer.scalar("loss", row["loss"], state.step)
-                lrs = log_lrs(task, state.step, t_total, writer)
-                log.info("epoch %d step %d lr %s loss %.4f "
-                         "(data %.3fs step %.3fs)", epoch, state.step, lrs,
-                         row["loss"], t_data, t_step)
-                displayed.append(dict(row, epoch=epoch, step=state.step,
-                                      lr=lrs, data_s=t_data, step_s=t_step))
-                t_data = t_step = 0.0
+    with TrainControl(task, steps_per_epoch, device, log) as control:
+        start_epoch, skip = control.resume(state)
+        for epoch in range(start_epoch, task.epochs):
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            batch_in_epoch, skip = skip, 0
+            if batch_in_epoch:
+                train_loader.skip_batches(batch_in_epoch)
+            t_data, t_step = 0.0, 0.0
             t0 = time.time()
-        if task.output_dir:
-            save_reference_checkpoint(
-                os.path.join(task.output_dir, f"pytorch_model.bin.{epoch}"),
-                model)
-        metrics = evaluator.run(eval_loader, eval_dataset, log)
-        if writer is not None:
-            writer.scalar("R1", metrics["R1"], epoch)
-        epoch_metrics.append(metrics)
-        if metrics["R1"] > best_r1:
-            best_r1, best_metrics = metrics["R1"], metrics
-            log.info("new best R@1 %.1f at epoch %d", best_r1, epoch)
+            for batch in train_loader:
+                control.profiler.step()
+                t1 = time.time()
+                state, metrics = step_fn(state, prepare_finetune_batch(
+                    batch, device, resolution))
+                t2 = time.time()
+                t_data += t1 - t0
+                t_step += t2 - t1
+                batch_in_epoch += 1
+                if control.after_step(state, epoch, batch_in_epoch):
+                    return FinetuneRun(best_metrics, epoch_metrics,
+                                       displayed, state)
+                if state.step % task.n_display == 0:
+                    names = sorted(metrics)
+                    values = torch.stack([metrics[k].float() for k in names])
+                    row = dict(zip(names, values.tolist()))
+                    if writer is not None:
+                        writer.scalar("loss", row["loss"], state.step)
+                    lrs = log_lrs(task, state.step, t_total, writer)
+                    log.info("epoch %d step %d lr %s loss %.4f "
+                             "(data %.3fs step %.3fs)", epoch, state.step,
+                             lrs, row["loss"], t_data, t_step)
+                    displayed.append(dict(row, epoch=epoch, step=state.step,
+                                          lr=lrs, data_s=t_data,
+                                          step_s=t_step))
+                    t_data = t_step = 0.0
+                t0 = time.time()
+            control.save(state, epoch, batch_in_epoch, epoch_end=True)
+            if task.output_dir and distributed.is_main():
+                save_reference_checkpoint(
+                    os.path.join(task.output_dir,
+                                 f"pytorch_model.bin.{epoch}"), model)
+            metrics = evaluator.run(eval_loader, eval_dataset, log)
+            if writer is not None:
+                writer.scalar("R1", metrics["R1"], epoch)
+            epoch_metrics.append(metrics)
+            if metrics["R1"] > best_r1:
+                best_r1, best_metrics = metrics["R1"], metrics
+                log.info("new best R@1 %.1f at epoch %d", best_r1, epoch)
     log.info("best t2v R@1: %.1f", best_r1)
     return FinetuneRun(best_metrics, epoch_metrics, displayed, state)
 
@@ -223,18 +393,31 @@ def stream(seed: int, purpose: int, position: int,
 
 
 def prepare_pretrain_batch(batch: Dict, device, generator: torch.Generator,
-                           resolution: int = 224, aug_size: int = 256
+                           resolution: int = 224, aug_size: int = 256,
+                           rows: Optional[np.ndarray] = None,
+                           global_batch: Optional[int] = None
                            ) -> Dict[str, torch.Tensor]:
     """A VATEX loader batch -> the pretrain step's device batch
     (``_prepare_pretrain_batch`` and ``place``, ``hmmc_tpu/runner.py:54-76,
     493-505``): the ``video_blobs`` decoded on the device in aug mode at
     ``aug_size``, then :func:`image_ops.simclr_augment` over the flattened
-    frames from ``generator``; the captions serve as the titles."""
+    frames from ``generator``; the captions serve as the titles. Over
+    several ranks ``rows`` says where this rank's clips sit in the global
+    batch of ``global_batch`` clips (``BatchLoader.global_rows``): the
+    draws are made for the global batch's frames and this rank's applied,
+    as the single-process run applies them."""
     video = decode_video_blobs(batch["video_blobs"], aug_size, device,
                                mode="aug")
     b, f = video.shape[:2]
+    positions = total = None
+    if rows is not None:
+        positions = torch.from_numpy(
+            (np.asarray(rows)[:, None] * f + np.arange(f)).reshape(-1)
+        ).to(device)
+        total = global_batch * f
     aug = image_ops.simclr_augment(
-        generator, video.reshape(b * f, *video.shape[2:]), out=resolution)
+        generator, video.reshape(b * f, *video.shape[2:]), out=resolution,
+        positions=positions, total=total)
     ids = torch.from_numpy(np.ascontiguousarray(batch["query_ids"]))
     return {"video": aug.view(b, f, resolution, resolution, 3),
             "title_ids": ids.to(device).long()}
@@ -276,12 +459,8 @@ def pretrain_state(task: TaskConfig, model, t_total: int,
             log.warning("checkpoint queue shapes do not match "
                         "--contrast_num_negative/--max_frames; queues start "
                         "fresh")
-    optimizer = build_optimizer(
-        model.named_parameters(), lr=task.lr, text_lr=task.text_lr,
-        coef_lr=task.coef_lr, weight_decay=task.weight_decay,
-        warmup_proportion=task.warmup_proportion, t_total=t_total,
-        state_dtype=torch.bfloat16 if task.optim_bf16_state else None)
-    return PretrainState(model, towers, queues, optimizer)
+    return PretrainState(model, towers, queues,
+                         _optimizer(task, model, t_total))
 
 
 LOSS_NAMES = ("loss", "loss_FAM", "loss_VTM", "loss_FTM", "loss_MLM")
@@ -304,6 +483,10 @@ def run_pretrain(args, log=None, device=None) -> PretrainRun:
     steps_per_epoch = len(loader)
     t_total = steps_per_epoch * task.epochs
     state = pretrain_state(task, model, t_total, log)
+    for module in (state.model, state.towers):
+        distributed.broadcast_module(module)
+    distributed.broadcast_([getattr(state.queues, f)
+                            for f in MoCoQueues.NAMES])
     step_fn = make_pretrain_step(
         cross, tokenizer.mask_token_id, tokenizer.pad_token_id,
         tokenizer.cls_token_id,
@@ -311,46 +494,60 @@ def run_pretrain(args, log=None, device=None) -> PretrainRun:
         momentum=task.contrast_momentum, use_frame_fea=task.use_frame_fea,
         n_accum=task.gradient_accumulation_steps)
     resolution = task.image_resolution or model.arch.image_resolution
+    rows = loader.global_rows()
     displayed, epoch_metrics = [], []
     try:
-        for epoch in range(task.epochs):
-            loader.set_epoch(epoch)
-            position = epoch * steps_per_epoch
+        with TrainControl(task, steps_per_epoch, device, log,
+                          pretrain=True) as control:
+            start_epoch, skip = control.resume(state)
+            for epoch in range(start_epoch, task.epochs):
+                loader.set_epoch(epoch)
+                batch_in_epoch, skip = skip, 0
+                if batch_in_epoch:
+                    loader.skip_batches(batch_in_epoch)
+                position = epoch * steps_per_epoch + batch_in_epoch
 
-            def place(batch):
-                nonlocal position
-                gen = stream(task.seed, AUG_STREAM, position, device)
-                position += 1
-                return prepare_pretrain_batch(batch, device, gen, resolution,
-                                              task.aug_size)
+                def place(batch):
+                    nonlocal position
+                    gen = stream(task.seed, AUG_STREAM, position, device)
+                    position += 1
+                    return prepare_pretrain_batch(
+                        batch, device, gen, resolution, task.aug_size, rows,
+                        task.batch_size)
 
-            t0 = time.time()
-            for dev_batch in device_prefetch(iter(loader), place):
-                state, metrics = step_fn(
-                    state, dev_batch,
-                    stream(task.seed, STEP_STREAM, state.step, device))
-                if state.step % task.n_display == 0:
-                    values = torch.stack([metrics[k].float()
-                                          for k in LOSS_NAMES]).tolist()
-                    row = dict(zip(LOSS_NAMES, values))
-                    for k, v in row.items():
-                        writer.scalar(k, v, state.step)
-                    lrs = log_lrs(task, state.step, t_total, writer)
-                    wall = time.time() - t0
-                    log.info("epoch %d step %d lr %s loss %.4f (FAM %.3f VTM "
-                             "%.3f FTM %.3f MLM %.3f) %.3fs", epoch,
-                             state.step, lrs, *values, wall)
-                    displayed.append(dict(row, epoch=epoch, step=state.step,
-                                          lr=lrs, wall_s=wall,
-                                          ptr=state.queues.ptr))
-                    t0 = time.time()
-            if task.output_dir:
-                save_reference_checkpoint(
-                    os.path.join(task.output_dir,
-                                 f"pytorch_model.bin.{epoch}"),
-                    model, pretrain_state=state)
-            epoch_metrics.append(_pretrain_eval(task, tokenizer, model,
-                                                device, log, writer, epoch))
+                t0 = time.time()
+                for dev_batch in device_prefetch(iter(loader), place):
+                    control.profiler.step()
+                    state, metrics = step_fn(
+                        state, dev_batch,
+                        stream(task.seed, STEP_STREAM, state.step, device))
+                    batch_in_epoch += 1
+                    if control.after_step(state, epoch, batch_in_epoch):
+                        return PretrainRun(displayed, epoch_metrics, state)
+                    if state.step % task.n_display == 0:
+                        values = torch.stack([metrics[k].float()
+                                              for k in LOSS_NAMES]).tolist()
+                        row = dict(zip(LOSS_NAMES, values))
+                        for k, v in row.items():
+                            writer.scalar(k, v, state.step)
+                        lrs = log_lrs(task, state.step, t_total, writer)
+                        wall = time.time() - t0
+                        log.info("epoch %d step %d lr %s loss %.4f (FAM %.3f "
+                                 "VTM %.3f FTM %.3f MLM %.3f) %.3fs", epoch,
+                                 state.step, lrs, *values, wall)
+                        displayed.append(dict(row, epoch=epoch,
+                                              step=state.step, lr=lrs,
+                                              wall_s=wall,
+                                              ptr=state.queues.ptr))
+                        t0 = time.time()
+                control.save(state, epoch, batch_in_epoch, epoch_end=True)
+                if task.output_dir and distributed.is_main():
+                    save_reference_checkpoint(
+                        os.path.join(task.output_dir,
+                                     f"pytorch_model.bin.{epoch}"),
+                        model, pretrain_state=state)
+                epoch_metrics.append(_pretrain_eval(
+                    task, tokenizer, model, device, log, writer, epoch))
     finally:
         writer.close()
     return PretrainRun(displayed, epoch_metrics, state)
@@ -443,9 +640,10 @@ def run_extract(args, log=None, device=None) -> str:
     if args.quantize_bank == "int8":
         payload = quantize_bank(payload)
     out = os.path.join(task.output_dir or ".", "features.npz")
-    np.savez(out, **payload)
-    log.info("wrote %d query / %d video features to %s", len(q), len(v),
-             out)
+    if distributed.is_main():
+        np.savez(out, **payload)
+        log.info("wrote %d query / %d video features to %s", len(q),
+                 len(v), out)
     return out
 
 
@@ -481,7 +679,19 @@ def main(args, device=None):
     :class:`PretrainRun`), then ``--do_train`` (with its
     epoch-end evals; returns the :class:`FinetuneRun`), else
     ``--do_extract`` (returns the bank's path), else ``--do_eval``
-    (returns its metrics)."""
+    (returns its metrics). Under torchrun (or in a process group the
+    caller made) the run is data-parallel over the ranks
+    (:func:`distributed.init_distributed`; a group made here is destroyed
+    at the end)."""
+    device, created = distributed.init_distributed(args, device)
+    try:
+        return _dispatch(args, device)
+    finally:
+        if created:
+            distributed.shutdown()
+
+
+def _dispatch(args, device):
     out = None
     if args.do_params:
         out = run_params(args, device=device)

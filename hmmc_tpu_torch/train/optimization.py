@@ -16,6 +16,18 @@ the grouping of main_task_retrieval.py:171-212).
   never gets a gradient, is shrunk by its weight decay every step.
 - ``state_dtype`` (``optim_bf16_state``) stores m and v in that dtype; the
   moment and parameter updates compute in fp32.
+- Over several ranks the gradients reach :meth:`BertAdam.step` already
+  summed over ranks (``trainer.reduce_gradients``), so the global clip
+  reads the norm of the full gradient on every rank. ``--zero_opt``
+  (:meth:`BertAdam.shard`) is ZeRO-1 by WHOLE parameters: each parameter's
+  m and v live on one rank (:func:`zero_owners`), which clips and updates
+  it (the per-parameter clip stays local) and then broadcasts it. The JAX
+  package shards each moment's first dp-divisible axis instead
+  (``hmmc_tpu/parallel/mesh.py:230-266``); either is a placement and
+  changes no result. :meth:`BertAdam.moments` / :meth:`BertAdam.
+  load_moments` move the moments by parameter name, gathered from their
+  owners, so a ZeRO run's state resumes without ZeRO and the other way
+  round.
 
 Groups by state_dict name: ``visual_encoder.visual.*`` (the CLIP ViT) take
 ``lr * coef_lr``, ``text_encoder.*`` take ``text_lr``, ``t_projector.*``
@@ -35,6 +47,8 @@ import math
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
+
+from hmmc_tpu_torch.parallel import distributed
 
 # ---------------------------------------------------------------------------
 # schedules (multiplier over progress = step / t_total)
@@ -102,6 +116,18 @@ def lr_tree(names: Iterable[str], lr: float, text_lr: float,
 # ---------------------------------------------------------------------------
 
 
+def zero_owners(sizes: List[int], world: int) -> List[int]:
+    """The rank that holds each parameter's moments under ZeRO-1: the
+    largest first, each to the least loaded rank (the lowest on a tie)."""
+    load = [0] * world
+    owner = [0] * len(sizes)
+    for i in sorted(range(len(sizes)), key=lambda i: (-sizes[i], i)):
+        r = min(range(world), key=lambda r: (load[r], r))
+        owner[i] = r
+        load[r] += sizes[i]
+    return owner
+
+
 class BertAdam(torch.optim.Optimizer):
     """Each param group carries ``lr`` and ``weight_decay``. ``t_total=-1``
     turns the schedule off (multiplier 1); ``global_clip_norm > 0`` clips
@@ -124,6 +150,29 @@ class BertAdam(torch.optim.Optimizer):
         self.max_grad_norm = max_grad_norm
         self.state_dtype = state_dtype
         self.global_clip_norm = global_clip_norm
+        self.names: Dict[torch.nn.Parameter, str] = {}
+        self.owner: Optional[Dict[torch.nn.Parameter, int]] = None
+
+    def params(self) -> List[torch.nn.Parameter]:
+        return [p for g in self.param_groups for p in g["params"]]
+
+    def shard(self) -> None:
+        """ZeRO-1 over the process group's ranks: from now on this rank
+        keeps and updates the moments of its own parameters only."""
+        params = self.params()
+        owners = zero_owners([p.numel() for p in params],
+                             distributed.world_size())
+        self.owner = dict(zip(params, owners))
+        me = distributed.rank()
+        for p in params:
+            if self.owner[p] != me:
+                self.state.pop(p, None)
+
+    def _owns(self, p) -> bool:
+        return self.owner is None or self.owner[p] == distributed.rank()
+
+    def _owned_by(self, r: int) -> List[torch.nn.Parameter]:
+        return [p for p in self.params() if self.owner[p] == r]
 
     def multiplier(self, step: int) -> float:
         if self.t_total == -1:
@@ -141,6 +190,8 @@ class BertAdam(torch.optim.Optimizer):
         b1, b2 = self.b1, self.b2
         for group in self.param_groups:
             for p in group["params"]:
+                if not self._owns(p):
+                    continue
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
                 if coef is not None:
                     g = g * coef.to(g.dtype)
@@ -165,6 +216,54 @@ class BertAdam(torch.optim.Optimizer):
                 mult = self.multiplier(state["step"])
                 p.add_((u * -(group["lr"] * mult)).to(p.dtype))
                 state["step"] += 1
+        if self.owner is not None:
+            for r in range(distributed.world_size()):
+                distributed.broadcast_(self._owned_by(r), src=r)
+
+    @torch.no_grad()
+    def moments(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """``{"m": {name: tensor}, "v": {...}}`` for every parameter that
+        has taken a step, as CPU copies; under ZeRO each rank's moments
+        are broadcast from their owner first (a collective: every rank
+        calls it)."""
+        out: Dict[str, Dict[str, torch.Tensor]] = {"m": {}, "v": {}}
+        params = [p for p in self.params()
+                  if self.owner is not None or p in self.state]
+        if self.owner is not None:
+            for r in range(distributed.world_size()):
+                mine = self._owned_by(r)
+                bufs = []
+                for p in mine:
+                    if p not in self.state:
+                        dtype = self.state_dtype or p.dtype
+                        self.state[p] = {"m": torch.empty_like(p, dtype=dtype),
+                                         "v": torch.empty_like(p, dtype=dtype)}
+                    bufs += [self.state[p]["m"], self.state[p]["v"]]
+                distributed.broadcast_(bufs, src=r)
+        for p in params:
+            for k in ("m", "v"):
+                out[k][self.names[p]] = self.state[p][k].to("cpu", copy=True)
+        if self.owner is not None:
+            for p in params:
+                if not self._owns(p):
+                    del self.state[p]
+        return out
+
+    @torch.no_grad()
+    def load_moments(self, moments: Dict[str, Dict[str, torch.Tensor]],
+                     step: int) -> None:
+        """The inverse of :meth:`moments`: each parameter of this rank
+        takes its saved m and v (cast to the state dtype) and ``step``."""
+        by_name = {n: p for p, n in self.names.items()}
+        for name, m in moments["m"].items():
+            p = by_name[name]
+            if not self._owns(p):
+                continue
+            dtype = self.state_dtype or p.dtype
+            self.state[p] = {
+                "step": int(step),
+                "m": m.to(p.device, dtype),
+                "v": moments["v"][name].to(p.device, dtype)}
 
 
 def build_optimizer(named_params: Iterable[Tuple[str, torch.nn.Parameter]],
@@ -172,11 +271,13 @@ def build_optimizer(named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                     weight_decay: float, warmup_proportion: float,
                     t_total: int, schedule: str = "warmup_cosine",
                     global_clip_norm: float = 1.0,
-                    state_dtype: Optional[torch.dtype] = None) -> BertAdam:
+                    state_dtype: Optional[torch.dtype] = None,
+                    zero: bool = False) -> BertAdam:
     """The reference chain: global clip by norm ``global_clip_norm`` ->
     BertAdam(b2 .98, eps 1e-6, per-parameter clip 1.0) over the groups of
     :func:`lr_tree` x :func:`decay_mask` (``named_params``: e.g.
-    ``model.named_parameters()``)."""
+    ``model.named_parameters()``); ``zero``: ZeRO-1 over the process
+    group (:meth:`BertAdam.shard`)."""
     named = list(named_params)
     names = [n for n, _ in named]
     lrs = lr_tree(names, lr, text_lr, coef_lr)
@@ -187,8 +288,12 @@ def build_optimizer(named_params: Iterable[Tuple[str, torch.nn.Parameter]],
     param_groups = [dict(params=ps, lr=base,
                          weight_decay=weight_decay if dec else 0.0)
                     for (base, dec), ps in groups.items()]
-    return BertAdam(param_groups, lr=lr, schedule=schedule,
-                    warmup=warmup_proportion, t_total=t_total, b1=0.9,
-                    b2=0.98, eps=1e-6, weight_decay=weight_decay,
-                    max_grad_norm=1.0, state_dtype=state_dtype,
-                    global_clip_norm=global_clip_norm)
+    opt = BertAdam(param_groups, lr=lr, schedule=schedule,
+                   warmup=warmup_proportion, t_total=t_total, b1=0.9,
+                   b2=0.98, eps=1e-6, weight_decay=weight_decay,
+                   max_grad_norm=1.0, state_dtype=state_dtype,
+                   global_clip_norm=global_clip_norm)
+    opt.names = {p: n for n, p in named}
+    if zero:
+        opt.shard()
+    return opt

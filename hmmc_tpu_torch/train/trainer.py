@@ -13,6 +13,23 @@ fp32 and the towers compute in their compute dtype; gradients arrive in
 fp32. Metrics are device tensors (the mean over micro-batches) so the step
 never waits for the card; the caller reads them when it logs.
 
+Over several ranks (:mod:`hmmc_tpu_torch.parallel.distributed`) each rank
+holds its share of every global micro-batch (``BatchLoader``'s rank
+shard), so the steps compute what the JAX package computes on the global
+batch: the fine-tune gathers the query, video and frame features of the
+micro-batch (``all_gather_rows``, one collective) and takes the CrossEn
+over the global similarity, identical on every rank; the pretrain's MoCo,
+FAM and frame losses are per-row means, so each rank takes its rows' share
+of the global mean (its mean over the world size) and the MLM loss divides
+by the global count of masked tokens, and the metrics are summed over
+ranks. After the micro-batches one flat all-reduce sums the gradients, so
+every rank holds the single-process gradient before ``grad_norm`` is read
+and the optimizer steps; the projectors' BatchNorm takes the global
+batch's statistics, the mask and augmentation draws are made for the
+global batch and applied to this rank's rows, and each micro-batch's keys
+are gathered before the enqueue, so the queues, ``ptr`` and the key
+towers stay identical on every rank.
+
 ``torch.profiler`` sees the step as two ranges, ``finetune_step.grads`` and
 ``finetune_step.optimizer``.
 
@@ -37,6 +54,7 @@ import torch
 
 from hmmc_tpu_torch import losses
 from hmmc_tpu_torch.config import CrossConfig
+from hmmc_tpu_torch.parallel import distributed
 from hmmc_tpu_torch.models.pretrain import (BirdPretrainModel, MaskDecisions,
                                             MoCoQueues, MomentumTowers,
                                             apply_mask_decisions,
@@ -65,6 +83,33 @@ def split_microbatches(batch: Batch, n: int) -> List[Batch]:
             for i in range(n)]
 
 
+def gather_rows(*xs: Optional[torch.Tensor]) -> List[Optional[torch.Tensor]]:
+    """The ranks' rows of each tensor (fp32), concatenated in rank order
+    by one differentiable all-gather; None stays None; without a process
+    group the tensors as they are."""
+    if not distributed.is_initialized():
+        return list(xs)
+    present = [x for x in xs if x is not None]
+    flat = distributed.all_gather_rows(torch.cat(
+        [x.float().reshape(x.shape[0], -1) for x in present], dim=1))
+    parts = iter(flat.split([x[0].numel() for x in present], dim=1))
+    return [None if x is None
+            else next(parts).reshape(flat.shape[0], *x.shape[1:])
+            for x in xs]
+
+
+def reduce_gradients(model: torch.nn.Module, n_accum: int) -> List:
+    """The accumulated gradients summed over ranks (one flat all-reduce)
+    and divided by ``n_accum``: the mean of the global micro-batches'
+    gradients, on every rank."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    distributed.all_reduce_grads(grads)
+    if n_accum > 1:
+        for g in grads:
+            g.div_(n_accum)
+    return grads
+
+
 def make_finetune_step(cross_config: CrossConfig, use_frame_fea: bool = True,
                        n_accum: int = 1, use_frame_mask: bool = False
                        ) -> Callable[[FinetuneState, Batch],
@@ -88,9 +133,9 @@ def make_finetune_step(cross_config: CrossConfig, use_frame_fea: bool = True,
     def loss_fn(model, batch: Batch) -> Metrics:
         q = model.encode_text(batch["query_ids"])
         v, f = model.encode_video(batch["video"], frame_mask(batch))
+        q, v, f = gather_rows(q, v, f if use_frame_fea else None)
         scale = model.logit_scale().detach()
-        return losses.finetune_retrieval_loss(
-            q, v, f if use_frame_fea else None, scale, w_vtm, w_ftm)
+        return losses.finetune_retrieval_loss(q, v, f, scale, w_vtm, w_ftm)
 
     def step(state: FinetuneState, batch: Batch
              ) -> Tuple[FinetuneState, Metrics]:
@@ -103,10 +148,7 @@ def make_finetune_step(cross_config: CrossConfig, use_frame_fea: bool = True,
                 out["loss"].backward()
                 for k, v in out.items():
                     sums[k] = sums[k] + v.detach() if k in sums else v.detach()
-            grads = [p.grad for p in model.parameters() if p.grad is not None]
-            if n_accum > 1:
-                for g in grads:
-                    g.div_(n_accum)
+            grads = reduce_gradients(model, n_accum)
             metrics = {k: v / n_accum for k, v in sums.items()}
             metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
         with torch.profiler.record_function("finetune_step.optimizer"):
@@ -148,12 +190,13 @@ def make_pretrain_step(cross_config: CrossConfig, mask_token_id: int,
                        n_accum: int = 1) -> Callable:
     """Returns ``step(state, batch, generator, decisions=None) -> (state,
     metrics)``. batch: ``title_ids`` [B, L], ``video`` [B, F, H, W, 3]
-    normalized floats, and with ``use_tag`` (the bird datasets) ``tag_ids``.
-    ``generator`` draws the MLM masks on the batch's device; ``decisions``
-    (one dict per micro-batch of :class:`MaskDecisions` by
-    :data:`MLM_STREAMS` name) replaces those draws. metrics: ``loss``,
-    ``loss_FAM``, ``loss_VTM``, ``loss_FTM``, ``loss_MLM`` (means over the
-    micro-batches) and ``grad_norm``."""
+    normalized floats, and with ``use_tag`` (the bird datasets) ``tag_ids``
+    (this rank's rows). ``generator`` draws the MLM masks on the batch's
+    device, for the global micro-batch; ``decisions`` (one dict per
+    micro-batch of :class:`MaskDecisions` by :data:`MLM_STREAMS` name, at
+    the global micro-batch's shape) replaces those draws. metrics:
+    ``loss``, ``loss_FAM``, ``loss_VTM``, ``loss_FTM``, ``loss_MLM`` (means
+    over the micro-batches) and ``grad_norm``."""
     w = cross_config
     t = temperature
 
@@ -165,8 +208,11 @@ def make_pretrain_step(cross_config: CrossConfig, mask_token_id: int,
                     frame_proj_k=towers.project_frames_key(frame_k, True))
 
     def loss_fn(model: BirdPretrainModel, mb: Batch, keys: Batch,
-                queues: MoCoQueues, dec: Dict[str, MaskDecisions]
-                ) -> Metrics:
+                queues: MoCoQueues, dec: Dict[str, MaskDecisions],
+                share: float) -> Metrics:
+        """This rank's share of the micro-batch's losses: the per-row
+        means times ``share`` (1 / world), the MLM sum over the global
+        count of masked tokens."""
         v_fea, frame_fea = model.encode_video(mb["video"])
         title_fea = model.encode_text(mb["title_ids"])
         tag_fea = model.encode_text(mb["tag_ids"]) if use_tag else title_fea
@@ -198,11 +244,16 @@ def make_pretrain_step(cross_config: CrossConfig, mask_token_id: int,
                     keys["tag_k"], queues.tag_cross, t)
                 loss_ftm = (f_tag + loss_ftm) / 2
 
+        loss_fam, loss_vtm, loss_ftm = (share * loss_fam, share * loss_vtm,
+                                        share * loss_ftm)
+
         # MLM (modeling.py:416-421)
         def one_mlm(ids, d):
             masked, labels = apply_mask_decisions(
                 ids, d, mask_token_id, pad_token_id, cls_token_id)
-            return mlm_loss(model.mlm_logits(masked), labels)
+            count = (labels != -100).sum()
+            distributed.all_reduce_([count])
+            return mlm_loss(model.mlm_logits(masked), labels, count)
 
         loss_mlm = one_mlm(mb["title_ids"], dec["title"])
         if use_tag:
@@ -212,18 +263,31 @@ def make_pretrain_step(cross_config: CrossConfig, mask_token_id: int,
         return {"loss": loss, "loss_FAM": loss_fam, "loss_VTM": loss_vtm,
                 "loss_FTM": loss_ftm, "loss_MLM": loss_mlm}
 
-    def draw(generator, mb: Batch, vocab: int
+    def draw(generator, mb: Batch, vocab: int, world: int
              ) -> Dict[str, MaskDecisions]:
-        return {name: sample_mask_decisions(
-                    generator, mb[f"{name}_ids"].shape, vocab,
-                    w.mlm_probability, mb[f"{name}_ids"].device)
-                for name in MLM_STREAMS if f"{name}_ids" in mb}
+        out = {}
+        for name in MLM_STREAMS:
+            if f"{name}_ids" in mb:
+                ids = mb[f"{name}_ids"]
+                out[name] = sample_mask_decisions(
+                    generator, (ids.shape[0] * world, *ids.shape[1:]), vocab,
+                    w.mlm_probability, ids.device)
+        return out
+
+    def own_rows(dec: Dict[str, MaskDecisions], n: int
+                 ) -> Dict[str, MaskDecisions]:
+        """This rank's ``n`` rows of the global micro-batch's draws."""
+        lo = distributed.rank() * n
+        return {name: MaskDecisions(*(getattr(d, f.name)[lo:lo + n]
+                                      for f in dataclasses.fields(d)))
+                for name, d in dec.items()}
 
     def step(state: PretrainState, batch: Batch,
              generator: Optional[torch.Generator] = None,
              decisions: Optional[List[Dict[str, MaskDecisions]]] = None
              ) -> Tuple[PretrainState, Metrics]:
         model, towers, queues = state.model, state.towers, state.queues
+        world = distributed.world_size()
         with torch.profiler.record_function("pretrain_step.grads"):
             model.zero_grad(set_to_none=True)
             sums: Metrics = {}
@@ -233,18 +297,22 @@ def make_pretrain_step(cross_config: CrossConfig, mask_token_id: int,
                     momentum_update(model, towers, momentum, state.pairs)
                     keys = key_forwards(towers, mb)
                 dec = (decisions[i] if decisions is not None
-                       else draw(generator, mb, model.vocab_size))
-                out = loss_fn(model, mb, keys, queues, dec)
+                       else draw(generator, mb, model.vocab_size, world))
+                n = len(mb["title_ids"])
+                out = loss_fn(model, mb, keys, queues, own_rows(dec, n),
+                              1.0 / world)
                 out["loss"].backward()
-                queues.enqueue(keys["v_k"], keys["tag_k"], keys["title_k"],
-                               keys["frame_k"], keys["frame_proj_k"])
+                with torch.no_grad():
+                    queues.enqueue(*gather_rows(
+                        keys["v_k"], keys["tag_k"], keys["title_k"],
+                        keys["frame_k"], keys["frame_proj_k"]))
                 for k, v in out.items():
                     sums[k] = sums[k] + v.detach() if k in sums else v.detach()
-            grads = [p.grad for p in model.parameters() if p.grad is not None]
-            if n_accum > 1:
-                for g in grads:
-                    g.div_(n_accum)
-            metrics = {k: v / n_accum for k, v in sums.items()}
+            names = sorted(sums)
+            totals = torch.stack([sums[k] for k in names])
+            distributed.all_reduce_([totals])
+            grads = reduce_gradients(model, n_accum)
+            metrics = {k: v / n_accum for k, v in zip(names, totals)}
             metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
         with torch.profiler.record_function("pretrain_step.optimizer"):
             state.optimizer.step()

@@ -908,10 +908,13 @@ def test_cli_flags(tmp_path):
     assert task("--use_pallas_attention").use_fused_attention == "on"
     assert task("--use_pallas_attention", "off").use_fused_attention == "off"
     assert task("--n_gpu", "4", "--local_rank", "1").dataset == "bird"
-    for flag in (["--dp_size", "2"], ["--zero_opt"], ["--multihost"],
-                 ["--sp_size", "2"], ["--fused_ema"]):
+    for flag in (["--tp_size", "2"], ["--sp_size", "2"], ["--fused_ema"]):
         with pytest.raises(ValueError, match=flag[0]):
             task(*flag)
+    # data parallelism is ported (ROADMAP Queue A 6): the world size is
+    # checked when the ranks join (parallel.distributed.init_distributed)
+    assert task("--zero_opt").zero_opt
+    task("--dp_size", "2", "--dcn_dp_size", "2", "--multihost")
     assert task("--clip_model", "x.pt").clip_model == "x.pt"
     for mode in ("--do_extract", "--do_params"):      # alone, as in JAX
         assert pcli.to_task_config(pcli.get_args(argv=[

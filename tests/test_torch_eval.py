@@ -231,7 +231,10 @@ def test_port_imports_nothing_of_jax():
     for name in ("serve.py", "retrieve.py", os.path.join("ops", "quant.py"),
                  os.path.join("models", "heads.py"),
                  os.path.join("models", "pretrain.py"),
-                 os.path.join("ops", "resize_area.py")):
+                 os.path.join("ops", "resize_area.py"),
+                 os.path.join("parallel", "distributed.py"),
+                 os.path.join("train", "state_io.py"),
+                 os.path.join("utils", "preemption.py")):
         assert os.path.join(REPO, "hmmc_tpu_torch", name) in files, name
     for path in files:
         with open(path, encoding="utf-8") as fh:

@@ -34,6 +34,7 @@ import functools
 import io
 import json
 import os
+import signal
 
 import numpy as np
 import pytest
@@ -832,9 +833,10 @@ def test_pretrain_flags_and_device(layout, monkeypatch, tmp_path):
             data_dir, cross, str(tmp_path), extra)))
 
     assert task().do_pretrain and task().aug_size == 256
+    # train-state checkpoints are ported (ROADMAP Queue A 4)
+    assert task("--resume").resume and task("--save_steps", "5").save_steps \
+        == 5
     for flag, item in ((["--use_randaugment"], "Queue A 7"),
-                       (["--resume"], "Queue A 4"),
-                       (["--save_steps", "5"], "Queue A 4"),
                        (["--dataset", "bird"], "Queue A 8"),
                        (["--language", "chinese"], "Queue A 8")):
         with pytest.raises(NotImplementedError, match=item):
@@ -845,3 +847,55 @@ def test_pretrain_flags_and_device(layout, monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         prunner.main(pcli.get_args(argv=_pretrain_argv(
             data_dir, cross, str(tmp_path))))
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_pretrain_resume_after_sigterm_equals_uncut_run(layout, tmp_path,
+                                                        async_save):
+    """A SIGTERM after step 2 of 4 saves the exact state (model, key
+    towers with their BatchNorm statistics, queues, ptr, moments, step);
+    --resume trains steps 3 and 4 to the uncut run's losses and state, bit
+    for bit (the augmentation and mask streams come from (seed, purpose,
+    position), so the resumed run draws what the uncut one drew)."""
+    from hmmc_tpu_torch.train import state_io
+
+    data_dir, cross = layout
+    extra = ("--async_save",) if async_save else ()
+    uncut = prunner.main(pcli.get_args(argv=_pretrain_argv(
+        data_dir, cross, str(tmp_path / "uncut"))), device="cpu")
+    out = str(tmp_path / "cut")
+    make = prunner.make_pretrain_step
+
+    def signalling(*a, **kw):
+        fn = make(*a, **kw)
+
+        def step(state, *args, **kwargs):
+            state, metrics = fn(state, *args, **kwargs)
+            if state.step == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return state, metrics
+
+        return step
+
+    prunner.make_pretrain_step = signalling
+    try:
+        cut = prunner.main(pcli.get_args(argv=_pretrain_argv(
+            data_dir, cross, out, extra)), device="cpu")
+    finally:
+        prunner.make_pretrain_step = make
+    assert cut.state.step == 2 and [r["step"] for r in cut.displayed] == [1]
+    meta = state_io.load_progress_meta(os.path.join(out, "ckpt"), 2)
+    assert meta["batch_in_epoch"] == 2 and not meta["fused_ema"]
+    resumed = prunner.main(pcli.get_args(argv=_pretrain_argv(
+        data_dir, cross, out, ("--resume",) + extra)), device="cpu")
+    assert [r["step"] for r in resumed.displayed] == [3, 4]
+    for got, want in zip(resumed.displayed, uncut.displayed[2:]):
+        for k in prunner.LOSS_NAMES + ("ptr",):
+            assert got[k] == want[k], k
+    _assert_state(resumed.state, {
+        "model": uncut.state.model.state_dict(),
+        "towers": uncut.state.towers.state_dict(),
+        "queues": {f: getattr(uncut.state.queues, f)
+                   for f in MoCoQueues.NAMES},
+        "ptr": uncut.state.queues.ptr})
+    assert resumed.epoch_metrics == uncut.epoch_metrics

@@ -30,8 +30,13 @@ Tolerances, each with its reason:
 The ``gpu`` test runs a tiny fine-tune step on the card against the CPU.
 """
 
+import contextlib
 import functools
+import io
+import json
 import logging
+import os
+import signal
 
 import numpy as np
 import pytest
@@ -452,6 +457,169 @@ def test_run_finetune_needs_a_card_or_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         finetune(TaskConfig(), CrossConfig(**CROSS_KW), [], [],
                  arch=ClipArch(**ARCH_KW))
+
+
+# ---------------------------------------------------------------------------
+# train-state checkpoints: a run cut by SIGTERM and resumed
+# ---------------------------------------------------------------------------
+
+RESUME_ARCH = "ViT-ResumeTest/16"
+
+
+def _jpeg(arr):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="JPEG", quality=75)
+    return buf.getvalue()
+
+
+@pytest.fixture(scope="module")
+def resume_layout(tmp_path_factory):
+    """An MSR-VTT FramePack layout (12 videos of 4 JPEGs, two train
+    captions each: 24 samples, 3 steps of 8) at the tiny arch."""
+    from hmmc_tpu_torch import config as pconfig
+    from hmmc_tpu_torch.data.framepack import FramePackWriter
+
+    pconfig.CLIP_ARCH[RESUME_ARCH] = dict(ARCH_KW, vocab_size=49408,
+                                          context_length=64)
+    root = tmp_path_factory.mktemp("resume_data")
+    rng = np.random.default_rng(0)
+    vids = [f"video{i}" for i in range(12)]
+    with FramePackWriter(str(root / "frames.fpk")) as w:
+        for v in vids:
+            w.add_video(v, [_jpeg(rng.integers(0, 255, (40, 40, 3),
+                                               dtype=np.uint8))
+                            for _ in range(4)])
+    m = root / "msrvtt"
+    m.mkdir()
+    (m / "MSRVTT_JSFUSION_test.1k.csv").write_text(
+        "video_id,sentence\n" + "".join(f"{v},test sentence {i}\n"
+                                        for i, v in enumerate(vids)))
+    (m / "MSRVTT_train.9k.csv").write_text("video_id\n" + "\n".join(vids))
+    (m / "MSRVTT_data.json").write_text(json.dumps({
+        "sentences": [{"video_id": v, "caption": f"a clip about {v} {j}"}
+                      for v in vids for j in range(2)]}))
+    cross = root / "cross-tiny.json"
+    cross.write_text(json.dumps({"pretrained_clip_name": RESUME_ARCH,
+                                 **CROSS_KW}))
+    yield str(root), str(cross)
+    pconfig.CLIP_ARCH.pop(RESUME_ARCH, None)
+
+
+def _resume_args(layout, out, *extra):
+    from hmmc_tpu_torch import cli
+
+    return cli.get_args(argv=[
+        "--do_train", "--output_dir", out, "--data_dir", layout[0],
+        "--cross_model", layout[1], "--dataset", "msrvtt",
+        "--language", "english", "--use_temp", "--use_frame_fea",
+        "--max_words", "16", "--max_frames", str(FRAMES), "--batch_size",
+        "8", "--gradient_accumulation_steps", "2", "--batch_size_val", "8",
+        "--epochs", "1", "--n_display", "1", "--lr", "1e-3",
+        "--compute_dtype", "float32", *extra])
+
+
+@contextlib.contextmanager
+def sigterm_after(runner_module, factory: str, step: int):
+    """Wrap ``runner_module.<factory>`` so the step function it makes
+    sends this process SIGTERM once the state reaches ``step``."""
+    make = getattr(runner_module, factory)
+
+    def wrapped(*a, **kw):
+        fn = make(*a, **kw)
+
+        def step_fn(state, *args, **kwargs):
+            state, metrics = fn(state, *args, **kwargs)
+            if state.step == step:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return state, metrics
+
+        return step_fn
+
+    setattr(runner_module, factory, wrapped)
+    try:
+        yield
+    finally:
+        setattr(runner_module, factory, make)
+
+
+@pytest.fixture(scope="module")
+def uncut_run(resume_layout, tmp_path_factory):
+    from hmmc_tpu_torch import runner
+
+    out = str(tmp_path_factory.mktemp("uncut"))
+    return runner.main(_resume_args(resume_layout, out), device="cpu")
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_resume_after_sigterm_equals_uncut_run(resume_layout, uncut_run,
+                                               tmp_path, async_save):
+    """--save_steps 1 and a SIGTERM after step 1, then --resume: the
+    resumed run's later losses, its parameters, BertAdam's moments and
+    the epoch's eval equal the uncut run's, bit for bit (the same CPU
+    arithmetic on the same inputs: the state round-trips exactly, the
+    loader skips the batch the cut run trained and the schedule reads the
+    restored step). The resumed run also writes a --profile_dir trace."""
+    from hmmc_tpu_torch import runner
+    from hmmc_tpu_torch.train import state_io
+
+    out = str(tmp_path / "cut")
+    extra = ("--async_save",) if async_save else ()
+    with sigterm_after(runner, "make_finetune_step", 1):
+        cut = runner.main(_resume_args(resume_layout, out, "--save_steps",
+                                       "1", *extra), device="cpu")
+    assert cut.state.step == 1 and not cut.epoch_metrics
+    ckpt = os.path.join(out, "ckpt")
+    assert state_io.latest_step(ckpt) == 1
+    meta = state_io.load_progress_meta(ckpt, 1)
+    assert (meta["epoch"], meta["batch_in_epoch"], meta["epoch_end"]) == (
+        0, 1, False)
+    profile = str(tmp_path / "profile")
+    resumed = runner.main(_resume_args(
+        resume_layout, out, "--resume", "--save_steps", "1",
+        "--profile_dir", profile, *extra), device="cpu")
+    assert os.path.getsize(os.path.join(profile, "trace_rank0.json")) > 0
+    assert resumed.state.step == uncut_run.state.step == 3
+    assert [r["step"] for r in resumed.displayed] == [2, 3]
+    for got, want in zip(resumed.displayed, uncut_run.displayed[1:]):
+        assert got["loss"] == want["loss"] and \
+            got["grad_norm"] == want["grad_norm"]
+    want = dict(uncut_run.state.model.named_parameters())
+    for n, p in resumed.state.model.named_parameters():
+        assert torch.equal(p, want[n]), n
+    moments = uncut_run.state.optimizer.moments()
+    for k, tensors in resumed.state.optimizer.moments().items():
+        for n, t in tensors.items():
+            assert torch.equal(t, moments[k][n]), (k, n)
+    assert resumed.epoch_metrics == uncut_run.epoch_metrics
+    assert state_io.latest_step(ckpt) == 3      # steps 1-3 kept (max 5)
+    assert state_io.load_progress_meta(ckpt, 3)["epoch_end"]
+
+
+def test_parallel_flags(tmp_path):
+    """--tp_size / --sp_size > 1 raise naming their ROADMAP item; one
+    process refuses --dp_size 2 and --multihost (no torchrun world)."""
+    from hmmc_tpu_torch import cli
+    from hmmc_tpu_torch.parallel import distributed
+
+    def args(*extra):
+        return cli.get_args(argv=["--do_train", "--output_dir",
+                                  str(tmp_path), "--language", "english",
+                                  *extra])
+
+    for flag in ("--tp_size", "--sp_size"):
+        with pytest.raises(ValueError, match="Queue A 13"):
+            cli.to_task_config(args(flag, "2"))
+        with pytest.raises(ValueError, match="Queue A 13"):
+            distributed.init_distributed(args(flag, "2"), "cpu")
+    with pytest.raises(ValueError, match="world size 1"):
+        distributed.init_distributed(args("--dp_size", "2"), "cpu")
+    with pytest.raises(ValueError, match="torchrun"):
+        distributed.init_distributed(args("--multihost"), "cpu")
+    device, created = distributed.init_distributed(
+        args("--dp_size", "1", "--zero_opt"), "cpu")
+    assert device == "cpu" and not created
 
 
 # ---------------------------------------------------------------------------
