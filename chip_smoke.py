@@ -41,7 +41,12 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             RGB rows and planes at aligned and at odd bases and pitches;
             its kernel, plain and library times and bound at three paths;
             nvJPEG + R2 against the fixture's cv2 crops (max and mean abs
-            difference), decode + R2 of 768 frames;
+            difference), decode + R2 of 768 frames. R1 at 336
+            (ViT-L/14@336px's decode, up-scaling the store's frames): the
+            same checks as at 224 on the towers eval's 384-frame block and
+            16 frames elsewhere; nvJPEG + R1 at 336 against PIL's crops
+            (R1's plain version on PIL's decode), max and mean abs
+            difference;
 4. eval     the full-width ViT-B/32 BirdModel (12 frames at 224 px, 32
             query tokens, temporal transformer, top-3 frame similarity;
             seeded random weights, bf16 compute) evaluated over ``--clips``
@@ -122,6 +127,26 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             CLI fine-tune cut by SIGTERM after step 1 (--save_steps 1) and
             --resume'd, against an uncut run and its rerun; (iii) two cards
             over NCCL where the machine has them, else a row saying so;
+   towers   ViT-B/16, ViT-L/14 and ViT-L/14@336px (L = 197, 257, 577),
+            through the tiled bodies of K1 and K2 (L > 128): each kernel
+            against its plain version at each tower's ViT site (its
+            micro-batch's frames x heads) in bf16 and fp32, bitwise over
+            two launches, kernel / plain / SDPA times and the bound (these
+            rows run right after phase 3's, where the profiler is fresh);
+            one
+            bf16 fine-tune step at full width of ViT-B/16 (16 clips a
+            micro-batch) and of ViT-L/14 (4), launches per body against
+            the block structure; the full-width ViT-L/14@336px BirdModel
+            (12 frames at 336, 32 query tokens, the temporal transformer
+            at 768 with 12 heads) through the CLI: a seeded OpenAI-named
+            state dict as --clip_model, --do_train of 2 steps of 8 clips
+            in micro-batches of 4 over a FramePack cycled from the fixture
+            (40 K1 and 40 K2 launches a micro-batch: 24 tiled, 16 short),
+            the epoch-end eval of 32 clips, --do_eval --init_model the
+            saved file (profiled, the same metrics), --do_extract of a
+            768-wide bank that the retrieval service answers queries from;
+            then the geometry at 2 layers a tower in fp32, card against
+            CPU;
 6. result   the nvidia-smi line as it prints it, the kernel table as one
             JSON line, then ``{"ok": true, "device": {...}}`` as the last.
 
@@ -166,9 +191,10 @@ from hmmc_tpu_torch.ops import image_ops, kernel_build, quant
 from hmmc_tpu_torch.ops import resize_area as r2
 from hmmc_tpu_torch.ops import resize_crop as rc
 from hmmc_tpu_torch.ops.fused_attention import (
-    MAX_LEN_BWD, MAX_LEN_BWD_FP32, fused_attention, fused_attention_backward,
-    fused_attention_backward_reference, fused_attention_reference,
-    kernel_bwd_smem_bytes, kernel_smem_bytes)
+    SHORT_MAX_LEN_BWD, SHORT_MAX_LEN_BWD_FP32, fused_attention,
+    fused_attention_backward, fused_attention_backward_reference,
+    fused_attention_reference, kernel_body, kernel_bwd_smem_bytes,
+    kernel_smem_bytes)
 from hmmc_tpu_torch.parallel import distributed
 from hmmc_tpu_torch.ops.resize_crop import (
     FORMATS, SAMPLING, YccFrame, crop_tables, launch, output_size,
@@ -350,7 +376,19 @@ def attention_bound(b, h, l, d, causal, dtype):
             nbytes, flops)
 
 
-def check_attention(site, b, h, l, causal, dtype, gen):
+def kernel_ctas(bh, l, dtype, backward=False):
+    """CTAs a launch runs: the short bodies take a (batch, head) per CTA
+    (K1 in bf16: two), the tiled ones a 64-row tile of one (fp32: K1's
+    and K2's rows pass 32 rows); K2's tiled pair runs two grids of this
+    size."""
+    if kernel_body(l, dtype, backward) == "short":
+        per = 1 if backward else fa.kernel_heads_per_cta(dtype)
+        return math.ceil(bh / per)
+    return bh * math.ceil(l / (64 if dtype == torch.bfloat16 else 32))
+
+
+def check_attention(site, b, h, l, causal, dtype, gen, iters=50,
+                    host_calls=200):
     """The main path's layout: head views of a packed qkv projection."""
     d = 64
     qkv = torch.randn(b, l, 3 * h * d, device="cuda", generator=gen).to(dtype)
@@ -365,20 +403,23 @@ def check_attention(site, b, h, l, causal, dtype, gen):
     ok = bitwise_repeat and bool(
         (diff <= tol["atol"] + tol["rtol"] * ref.float().abs()).all())
     smem = kernel_smem_bytes(l, dtype)
-    iters = 50
     ms = cuda_ms(lambda: fused_attention(q, k, v, causal), iters)
-    host_us = host_us_per_call(lambda: fused_attention(q, k, v, causal))
+    host_us = host_us_per_call(lambda: fused_attention(q, k, v, causal),
+                               host_calls)
     plain_ms = cuda_ms(lambda: fused_attention_reference(q, k, v, causal), iters)
     def library():
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
     library_ms = cuda_ms(library, iters)
-    kernel_only_ms = kernel_device_ms(lambda: fused_attention(q, k, v, causal))
-    library_kernels_ms = kernel_device_ms(library)
+    prof_iters = min(10, iters)
+    kernel_only_ms = kernel_device_ms(lambda: fused_attention(q, k, v, causal),
+                                      prof_iters)
+    library_kernels_ms = kernel_device_ms(library, prof_iters)
     bound_ms, bound_by, nbytes, flops = attention_bound(b, h, l, d, causal,
                                                         dtype)
     row = dict(phase="kernel", kernel="fused_attention_fwd", site=site,
                shape=[b, h, l, d], causal=causal, dtype=str(dtype),
+               body=kernel_body(l, dtype),
                max_abs_err=float(diff.max()), tolerance=tol,
                bitwise_repeat=bitwise_repeat, ok=ok,
                ms=ms, host_us_per_call=host_us, plain_ms=plain_ms,
@@ -387,7 +428,7 @@ def check_attention(site, b, h, l, causal, dtype, gen):
                library="torch.nn.functional.scaled_dot_product_attention",
                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                flops=flops, share_of_bound=bound_ms / ms,
-               ctas=math.ceil(b * h / fa.kernel_heads_per_cta(dtype)),
+               ctas=kernel_ctas(b * h, l, dtype),
                dynamic_smem_bytes_per_cta=smem)
     emit(row)
     if not ok:
@@ -409,7 +450,8 @@ def attention_bwd_bound(b, h, l, d, causal, dtype):
             nbytes, flops)
 
 
-def check_attention_backward(site, b, h, l, causal, dtype, gen):
+def check_attention_backward(site, b, h, l, causal, dtype, gen, iters=30,
+                             host_calls=200):
     """K2 on the fine-tune path's layout: q, k, v head views of a packed
     qkv projection, the output gradient the transposed view of a
     [B, L, H, 64] tensor (as the merge of heads hands it back)."""
@@ -429,10 +471,9 @@ def check_attention_backward(site, b, h, l, causal, dtype, gen):
         diff = (a.float() - r.float()).abs()
         errs.append(float(diff.max()))
         ok &= bool((diff <= tol["atol"] + tol["rtol"] * r.float().abs()).all())
-    iters = 30
     ms = cuda_ms(lambda: fused_attention_backward(q, k, v, g, causal), iters)
     host_us = host_us_per_call(
-        lambda: fused_attention_backward(q, k, v, g, causal))
+        lambda: fused_attention_backward(q, k, v, g, causal), host_calls)
     plain_ms = cuda_ms(lambda: fused_attention_backward_reference(
         q, k, v, g, causal), iters)
     # the library yardstick: SDPA's backward alone, after one forward
@@ -444,14 +485,16 @@ def check_attention_backward(site, b, h, l, causal, dtype, gen):
         return torch.autograd.grad(out, (lq, lk, lv), g, retain_graph=True)
 
     library_ms = cuda_ms(library, iters)
+    prof_iters = min(10, iters)
     kernel_only_ms = kernel_device_ms(
-        lambda: fused_attention_backward(q, k, v, g, causal))
-    library_kernels_ms = kernel_device_ms(library)
+        lambda: fused_attention_backward(q, k, v, g, causal), prof_iters)
+    library_kernels_ms = kernel_device_ms(library, prof_iters)
     del out, leaf, library
     bound_ms, bound_by, nbytes, flops = attention_bwd_bound(b, h, l, d, causal,
                                                             dtype)
     row = dict(phase="kernel", kernel="fused_attention_bwd", site=site,
                shape=[b, h, l, d], causal=causal, dtype=str(dtype),
+               body=kernel_body(l, dtype, backward=True),
                max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
                tolerance=tol, bitwise_repeat=bitwise_repeat, ok=ok, ms=ms,
                host_us_per_call=host_us, plain_ms=plain_ms,
@@ -461,7 +504,7 @@ def check_attention_backward(site, b, h, l, causal, dtype, gen):
                        "(torch.autograd.grad after one forward)",
                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                flops=flops, share_of_bound=bound_ms / ms,
-               ctas=b * h,
+               ctas=kernel_ctas(b * h, l, dtype, backward=True),
                dynamic_smem_bytes_per_cta=kernel_bwd_smem_bytes(l, dtype))
     emit(row)
     if not ok:
@@ -594,67 +637,68 @@ def random_frames(gen, n, w, h, fmt, color="ycc", pitch_align=1):
         zip(ys.unbind(0), cb.unbind(0), cr.unbind(0)), ks)]
 
 
-def r1_plain(frames):
+def r1_plain(frames, res=RES):
     """R1's plain version over frames of one size."""
     rgb = torch.stack([ycc_to_rgb_reference(f) if isinstance(f, YccFrame)
                        else f for f in frames])
-    return resize_crop_reference(rgb, RES)
+    return resize_crop_reference(rgb, res)
 
 
-def check_resize_crop(gen):
-    """R1 against its plain version at every size of the sweep (the path's
-    768-frame block of 4:2:0 planes at 341x256, 96 frames elsewhere, RGB
-    and 4:2:0), bitwise, and two launches bitwise equal; one launch over
-    mixed sizes, every other sampling (at an odd 161x121), grayscale and
-    padded slots; at the path's size the kernel, plain and library times
-    and the bound."""
+def check_resize_crop(gen, res=RES, block=BLOCK_FRAMES, others=96):
+    """R1 at ``res`` against its plain version at every size of the sweep
+    (the path's ``block`` frames of 4:2:0 planes at 341x256, ``others``
+    frames elsewhere, RGB and 4:2:0), bitwise, and two launches bitwise
+    equal; one launch over mixed sizes, every other sampling (at an odd
+    161x121), grayscale and padded slots; at the path's size the kernel,
+    plain and library times and the bound."""
     rows, timed = [], None
     mixed, mixed_ref = [], []
     for w, h in R1_SIZES:
         for fmt in ("ycc420", "rgb"):
             path = (w, h) == STORE_SIZE and fmt == "ycc420"
-            n = BLOCK_FRAMES if path else 96
+            n = block if path else others
             # planes as the decoder lays them out, RGB rows packed
             frames = random_frames(gen, n, w, h, fmt, pitch_align=(
                 jpeg.PITCH_ALIGN if fmt != "rgb" else 1))
-            out = resize_crop(frames, RES)
-            again = resize_crop(frames, RES)
-            ref = r1_plain(frames)
+            out = resize_crop(frames, res)
+            again = resize_crop(frames, res)
+            ref = r1_plain(frames, res)
             torch.cuda.synchronize()
             row = dict(phase="frames", check="resize_crop", size=[w, h],
-                       format=fmt, frames=n,
+                       format=fmt, frames=n, res=res,
                        bitwise_equal=bool(torch.equal(out, ref)),
                        bitwise_repeat=bool(torch.equal(out, again)),
                        max_abs_err=float((out.int() - ref.int()).abs().max()))
             mixed += [frames[0], None]
             mixed_ref += [ref[0], torch.zeros_like(ref[0])]
             if path:
-                nw, nh = output_size(w, h, RES)
-                left, top = (nw - RES) // 2, (nh - RES) // 2
+                nw, nh = output_size(w, h, res)
+                left, top = (nw - res) // 2, (nh - res) // 2
                 xf = torch.stack([ycc_to_rgb_reference(f) for f in frames]
                                  ).permute(0, 3, 1, 2).float()
 
                 def library():
                     return F.interpolate(
                         xf, size=(nh, nw), mode="bicubic", antialias=True,
-                        align_corners=False)[:, :, top:top + RES,
-                                             left:left + RES]
+                        align_corners=False)[:, :, top:top + res,
+                                             left:left + res]
 
                 batch = plane_batch(frames)
                 dev = torch.device("cuda", torch.cuda.current_device())
-                bound_ms, bound_by, nbytes, ops = resize_bound(n, w, h, RES)
-                ms = cuda_ms(lambda: resize_crop(frames, RES), 20)
+                bound_ms, bound_by, nbytes, ops = resize_bound(n, w, h, res)
+                ms = cuda_ms(lambda: resize_crop(frames, res), 20)
                 launch_w, library_w = [], []
                 row.update(
-                    ms=ms, launch_ms=cuda_ms(lambda: launch(batch, RES, dev),
+                    ms=ms, launch_ms=cuda_ms(lambda: launch(batch, res, dev),
                                              20, windows=3,
                                              per_window=launch_w),
                     launch_ms_windows=launch_w,
                     launch_host_us=host_us_per_call(
-                        lambda: launch(batch, RES, dev), 20),
+                        lambda: launch(batch, res, dev), 20),
                     kernel_device_ms=kernel_device_ms(
-                        lambda: launch(batch, RES, dev)),
-                    plain_ms=cuda_ms(lambda: r1_plain(frames), 3, warmup=1),
+                        lambda: launch(batch, res, dev)),
+                    plain_ms=cuda_ms(lambda: r1_plain(frames, res), 3,
+                                     warmup=1),
                     library_ms=cuda_ms(library, 10, windows=3,
                                        per_window=library_w),
                     library_ms_windows=library_w,
@@ -673,9 +717,9 @@ def check_resize_crop(gen):
                           for f in frames]
                 pbatch = plane_batch(packed)
                 row["kernel_device_ms_packed_rows"] = kernel_device_ms(
-                    lambda: launch(pbatch, RES, dev))
+                    lambda: launch(pbatch, res, dev))
                 row["packed_rows_bitwise_equal"] = bool(torch.equal(
-                    resize_crop(packed, RES), ref))
+                    resize_crop(packed, res), ref))
                 del xf, packed, pbatch
                 timed = row
             emit(row)
@@ -684,22 +728,22 @@ def check_resize_crop(gen):
     for fmt in ("ycc444", "ycc422", "ycc440", "ycc411", "ycc410", "gray"):
         frames = random_frames(gen, 2, 161, 121, fmt)
         mixed += frames
-        mixed_ref += list(r1_plain(frames).unbind(0))
+        mixed_ref += list(r1_plain(frames, res).unbind(0))
     for color in ("rgb", "cmyk", "ycck"):      # planes that are not YCbCr
         for fmt in ("ycc444", "ycc420"):
             frames = random_frames(gen, 2, 161, 121, fmt, color)
             mixed += frames
-            mixed_ref += list(r1_plain(frames).unbind(0))
+            mixed_ref += list(r1_plain(frames, res).unbind(0))
     for w, h in (STORE_SIZE, (161, 121)):     # any base and pitch
         for f in unaligned_frames(gen, w, h):
             mixed.append(f)
-            mixed_ref.append(r1_plain([f])[0])
-    out = resize_crop(mixed, RES)
+            mixed_ref.append(r1_plain([f], res)[0])
+    out = resize_crop(mixed, res)
     torch.cuda.synchronize()
     ok_mixed = bool(torch.equal(out, torch.stack(mixed_ref)))
     emit(dict(phase="frames", check="resize_crop mixed sizes, formats, "
               "padded slots, aligned and unaligned bases and pitches in one "
-              "launch", frames=len(mixed), bitwise_equal=ok_mixed,
+              "launch", frames=len(mixed), res=res, bitwise_equal=ok_mixed,
               **resize_crop.last_launch))
     bad = [r for r in rows if not (r["bitwise_equal"] and r["bitwise_repeat"]
                                    and r.get("packed_rows_bitwise_equal",
@@ -837,6 +881,48 @@ def check_decoder(smi):
             and row["crop_mean_abs_diff"] <= DECODE_MEAN_ABS):
         raise AssertionError(f"nvJPEG decode disagrees with PIL: {row}")
     return row
+
+
+# ---------------------------------------------------------------------------
+# phase frames (R1 at 336): ViT-L/14@336px's eval decode
+# ---------------------------------------------------------------------------
+
+TOWER_RES = 336                 # ViT-L/14@336px's input
+TOWER_EVAL_CLIPS = 32           # the towers CLI run's eval clips
+TOWER_BLOCK_FRAMES = TOWER_EVAL_CLIPS * 12   # its one decode of the eval
+
+
+def check_decoder_336(smi):
+    """The fixture through nvJPEG + R1 at 336 (ViT-L/14@336px's decode,
+    up-scaling the store's frames) against PIL's crops: R1's plain version
+    on PIL's decode, which is PIL's bicubic resize and crop bit for bit
+    (the CPU tests hold it so at 336), with the kernel on PIL's pixels
+    bitwise that; max and mean abs difference."""
+    res, fx = TOWER_RES, load_fixture()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pil = torch.cat([resize_crop_reference(torch.from_numpy(a)[None].to(dev),
+                                           res) for a in fx["rgb"]])
+    pil_r1 = resize_crop([torch.from_numpy(a).to(dev) for a in fx["rgb"]],
+                         res)
+    card = jpeg.decode_frames(fx["blobs"], res, dev)
+    torch.cuda.synchronize()
+    diff = (card.int() - pil.int()).abs()
+    row = dict(phase="frames", check="nvjpeg + resize_crop at 336 against "
+               "PIL's crops (R1's plain version on PIL's decode)",
+               frames=len(fx["blobs"]),
+               r1_on_pil_pixels_bitwise_equal_plain=bool(
+                   torch.equal(pil_r1, pil)),
+               crop_max_abs_diff=float(diff.max()),
+               crop_mean_abs_diff=float(diff.float().mean()),
+               per_frame_max=[float(d.max()) for d in diff],
+               max_abs_tolerance=DECODE_MAX_ABS,
+               mean_abs_tolerance=DECODE_MEAN_ABS, reason=DECODE_REASON,
+               card=smi)
+    emit(row)
+    if (not row["r1_on_pil_pixels_bitwise_equal_plain"]
+            or row["crop_max_abs_diff"] > DECODE_MAX_ABS
+            or row["crop_mean_abs_diff"] > DECODE_MEAN_ABS):
+        raise AssertionError(f"nvJPEG + R1 at 336 disagrees with PIL: {row}")
 
 
 # ---------------------------------------------------------------------------
@@ -1584,13 +1670,13 @@ def profile_eval(model, task, arch, seed, clips=128):
     return row
 
 
-def reference_check(task, cross, arch, seed):
+def reference_check(task, cross, arch, seed, phase="reference"):
     """fp32 model with the kernel on the card against the same weights on
     the CPU (plain attention), on two clips and four captions."""
     task32 = task.replace(compute_dtype="float32")
-    gpu = build_model(task32, cross, device="cuda")
+    gpu = build_model(task32, cross, arch=arch, device="cuda")
     cpu = build_model(task32.replace(use_fused_attention="off"), cross,
-                      device="cpu")
+                      arch=arch, device="cpu")
     loader = SyntheticClips(4, 4, task.max_frames, arch.image_resolution,
                             task.max_words, seed)
     batch = next(iter(loader))
@@ -1603,8 +1689,9 @@ def reference_check(task, cross, arch, seed):
             q = model.encode_text(torch.from_numpy(batch["query_ids"]).long().to(dev))
             out[name] = [t.float().cpu() for t in (q, v, f)]
     errs = [float((a - b).abs().max()) for a, b in zip(out["gpu"], out["cpu"])]
-    row = dict(phase="reference", what="fp32 encode_text / encode_video "
+    row = dict(phase=phase, what="fp32 encode_text / encode_video "
                "(video feature, frame output): card (kernel) vs CPU (plain)",
+               arch=dataclasses.asdict(arch),
                max_abs_err=errs, atol=REFERENCE_ATOL,
                reason=REFERENCE_REASON, ok=max(errs) <= REFERENCE_ATOL)
     emit(row)
@@ -1860,15 +1947,16 @@ CLI_STEPS = 2
 CLI_UPDATE_FRACTIONS = (0.0, 0.01, 1.0)
 
 
-def build_cli_layout(root, seed):
-    """A FramePack of CLI_CLIPS videos x CLI_STORED_FRAMES frames cycled
+def build_cli_layout(root, seed, clips=CLI_CLIPS,
+                     train_videos=CLI_TRAIN_VIDEOS):
+    """A FramePack of ``clips`` videos x CLI_STORED_FRAMES frames cycled
     from the fixture's 341x256 JPEGs (video i, frame j: fixture frame
-    (i + j) mod 8), and an MSR-VTT layout: a CLI_CLIPS-row JSFUSION test
-    CSV, a CLI_TRAIN_VIDEOS-video train CSV, 2 captions per video."""
+    (i + j) mod 8), and an MSR-VTT layout: a ``clips``-row JSFUSION test
+    CSV, a ``train_videos``-video train CSV, 2 captions per video."""
     fx = load_fixture()
     store = [b for b, s in zip(fx["blobs"], fx["sizes"]) if s == STORE_SIZE]
     t0 = time.perf_counter()
-    vids = [f"video{i}" for i in range(CLI_CLIPS)]
+    vids = [f"video{i}" for i in range(clips)]
     with FramePackWriter(os.path.join(root, "frames.fpk")) as w:
         for i, vid in enumerate(vids):
             w.add_video(vid, [store[(i + j) % len(store)]
@@ -1885,7 +1973,7 @@ def build_cli_layout(root, seed):
         for i, vid in enumerate(vids):
             f.write(f"ret{i},msr{i},{vid},{sentence()}\n")
     with open(os.path.join(m, "MSRVTT_train.9k.csv"), "w") as f:
-        f.write("video_id\n" + "\n".join(vids[:CLI_TRAIN_VIDEOS]) + "\n")
+        f.write("video_id\n" + "\n".join(vids[:train_videos]) + "\n")
     with open(os.path.join(m, "MSRVTT_data.json"), "w") as f:
         json.dump({"sentences": [{"video_id": v, "caption": sentence()}
                                  for v in vids for _ in range(2)]}, f)
@@ -1913,7 +2001,7 @@ def launch_counts():
 
 
 def reset_launch_counts():
-    fused_attention.launches = fused_attention_backward.launches = 0
+    fa.reset_launch_counts()
     resize_crop.launches = r2.resize_area.launches = 0
     jpeg.reset_counters()
 
@@ -2180,12 +2268,13 @@ DEVICE_TOP1_AGREEMENT = 0.99
 SCORE_ATOL = 1e-4     # host ranking against similarity_from_bank, fp32
 
 
-def clip_archive(path, seed):
-    """A seeded full-width ViT-B/32 CLIP state dict under OpenAI's names,
-    written as OpenAI ships it: fp16 weights in a TorchScript archive
-    (``torch.jit.save`` of a scripted module whose parameters carry the
-    names), with its three integer entries. Returns the fp16 state dict."""
-    arch = ClipArch.by_name("ViT-B/32")
+def clip_archive(path, seed, name="ViT-B/32", script=True):
+    """A seeded full-width CLIP state dict of tower ``name`` under OpenAI's
+    names, written as OpenAI ships it: fp16 weights in a TorchScript
+    archive (``torch.jit.save`` of a scripted module whose parameters carry
+    the names), with its three integer entries; or, without ``script``, the
+    same dict pickled (``torch.save``). Returns the fp16 state dict."""
+    arch = ClipArch.by_name(name)
     donor = build_model(TaskConfig(compute_dtype="float32"), CrossConfig(),
                         arch=arch, device="cpu",
                         generator=torch.Generator().manual_seed(seed))
@@ -2196,6 +2285,12 @@ def clip_archive(path, seed):
                     "visual_encoder.temporal") and not k.startswith(
                     "visual_encoder.frame_position"):
                 sd[k[len(prefix):]] = v.half()
+    if not script:
+        torch.save(dict(sd, input_resolution=torch.tensor(
+            arch.image_resolution), context_length=torch.tensor(
+            arch.context_length), vocab_size=torch.tensor(arch.vocab_size)),
+            path)
+        return sd
     root = torch.nn.Module()
     for k, v in sd.items():
         *parts, name = k.split(".")
@@ -3270,6 +3365,278 @@ def ddp_phase(root, seed, smi, train_ref, eval_ref):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase towers: ViT-B/16, ViT-L/14 and ViT-L/14@336px (L = 197, 257, 577)
+# through the tiled bodies of K1 and K2
+# ---------------------------------------------------------------------------
+
+# (tower, clips of 12 frames a micro-batch): the micro-batch sets the K1 /
+# K2 sites' B * H; ~0.5 GB of bf16 activations a 336-px frame over 24
+# layers gives 4 clips at ViT-L/14@336px
+TOWERS = (("ViT-B/16", 16), ("ViT-L/14", 4), ("ViT-L/14@336px", 4))
+TOWER_CLI = "ViT-L/14@336px"
+TOWER_STEPS = 2
+TOWER_N_ACCUM = 2
+TOWER_TRAIN_VIDEOS = 8      # 2 captions each: 16 samples, 2 steps of 8
+TOWER_QUERIES = 8           # served from the 768-wide bank
+
+
+def tower_cross(name):
+    """cross-base for tower ``name``: the temporal transformer is as wide
+    as the tower's embed_dim, and at 768 its 12 heads keep head_dim 64 (the
+    kernels'; cross-base's 8 would give 96)."""
+    arch = ClipArch.by_name(name)
+    return dataclasses.replace(
+        CrossConfig(), pretrained_clip_name=name,
+        temporal_hidden_size=arch.embed_dim,
+        temporal_attention_heads=arch.embed_dim // 64)
+
+
+def tower_launch_counts():
+    return {f"{k}_{body}": getattr(fn, f"{body}_launches")
+            for k, fn in (("k1", fused_attention),
+                          ("k2", fused_attention_backward))
+            for body in ("short", "tiled")}
+
+
+def tower_kernels(gen):
+    """K1 and K2 against their plain versions at each tower's ViT site
+    (its micro-batch's frames x heads, L = grid^2 + 1), bf16 and fp32.
+    Run beside phase 3's kernel rows, early: the profiler's device times
+    read "not measured" at the end of a run that has opened many profiler
+    sessions."""
+    rows, bwd_rows = [], []
+    for name, clips in TOWERS:
+        arch = ClipArch.by_name(name)
+        b, h, l = clips * 12, arch.vision_heads, arch.grid_size ** 2 + 1
+        for dtype in (torch.bfloat16, torch.float32):
+            fast = dtype == torch.bfloat16
+            rows.append(check_attention(
+                f"tower {name}", b, h, l, False, dtype, gen,
+                iters=20 if fast else 3, host_calls=50 if fast else 5))
+            bwd_rows.append(check_attention_backward(
+                f"tower {name}", b, h, l, False, dtype, gen,
+                iters=20 if fast else 3, host_calls=50 if fast else 5))
+    return rows, bwd_rows
+
+
+def tower_step(name, clips, seed, smi):
+    """One bf16 fine-tune step at full width (seeded weights, synthetic
+    clips): TOWER_N_ACCUM micro-batches of ``clips``; launches per body
+    against the block structure, finite loss, then a warm step's device ms
+    and the peak memory."""
+    arch, cross = ClipArch.by_name(name), tower_cross(name)
+    task = TaskConfig(seed=seed, batch_size=clips * TOWER_N_ACCUM,
+                      gradient_accumulation_steps=TOWER_N_ACCUM)
+    model = build_model(task, cross, arch=arch)
+    state = FinetuneState(model, build_optimizer(
+        model.named_parameters(), lr=task.lr, text_lr=task.text_lr,
+        coef_lr=task.coef_lr, weight_decay=task.weight_decay,
+        warmup_proportion=task.warmup_proportion, t_total=4))
+    step = make_finetune_step(cross, n_accum=TOWER_N_ACCUM)
+    host = next(iter(SyntheticClips(task.batch_size, task.batch_size,
+                                    task.max_frames, arch.image_resolution,
+                                    task.max_words, seed)))
+    batch = runner.prepare_finetune_batch(host, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    first_s = time.perf_counter() - t0
+    counts = tower_launch_counts()
+    warm_ms = cuda_ms(lambda: step(state, batch), iters=1, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    layers = arch.vision_layers + arch.transformer_layers \
+        + cross.temporal_hidden_layers
+    expected = dict(k1_short=(layers - arch.vision_layers) * TOWER_N_ACCUM,
+                    k1_tiled=arch.vision_layers * TOWER_N_ACCUM)
+    expected.update(k2_short=expected["k1_short"],
+                    k2_tiled=expected["k1_tiled"])
+    row = dict(phase="towers", what=f"one fine-tune step, {name}",
+               seq_len=arch.grid_size ** 2 + 1,
+               resolution=arch.image_resolution,
+               clips=task.batch_size, n_accum=TOWER_N_ACCUM,
+               temporal_heads=cross.temporal_attention_heads, loss=loss,
+               grad_norm=float(metrics["grad_norm"]),
+               finite=math.isfinite(loss), first_step_s=first_s,
+               warm_step_device_ms=warm_ms, max_memory_allocated=peak,
+               launches=counts, expected_launches=expected, card=smi)
+    emit(row)
+    if not (row["finite"] and counts == expected):
+        raise AssertionError(f"tower step failed: {row}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def tower_cli_phase(root, seed, smi):
+    """ViT-L/14@336px through the CLI: a seeded OpenAI-named state dict of
+    its full shapes as --clip_model (the arch read back from the shapes),
+    --do_train of TOWER_STEPS steps of 8 clips in micro-batches of 4 over a
+    FramePack cycled from the fixture (12 frames decoded by nvJPEG + R1 at
+    336), the epoch-end eval of TOWER_EVAL_CLIPS clips; then --do_eval
+    --init_model of the saved file (profiled; the same metrics), and
+    --do_extract of a 768-wide bank that the retrieval service answers
+    queries from. Launches per body against the block structure."""
+    arch, cross = ClipArch.by_name(TOWER_CLI), tower_cross(TOWER_CLI)
+    os.makedirs(root)
+    cross_path = os.path.join(root, "cross-vit-l14-336.json")
+    with open(cross_path, "w") as f:
+        json.dump(dataclasses.asdict(cross), f)
+    layout = build_cli_layout(root, seed, TOWER_EVAL_CLIPS,
+                              TOWER_TRAIN_VIDEOS)
+    t0 = time.perf_counter()
+    clip_path = os.path.join(root, "ViT-L-14-336px.pt")
+    clip_sd = clip_archive(clip_path, seed, TOWER_CLI, script=False)
+    archive_s = time.perf_counter() - t0
+    from_shapes = ClipArch.from_state_dict(clip_sd) == arch
+    del clip_sd
+    out = os.path.join(root, "out")
+    argv = ["--do_train", "--do_eval", "--dataset", "msrvtt",
+            "--language", "english", "--use_temp", "--use_frame_fea",
+            "--data_dir", root, "--output_dir", out,
+            "--batch_size", str(TOWER_TRAIN_VIDEOS),
+            "--gradient_accumulation_steps", str(TOWER_N_ACCUM),
+            "--batch_size_val", str(TOWER_EVAL_CLIPS), "--epochs", "1",
+            "--n_display", "1", "--num_thread_reader", "2",
+            "--seed", str(seed), "--cross_model", cross_path]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with EvalProbe() as train_probe:
+        run = runner.main(cli.get_args(argv=argv + ["--clip_model",
+                                                    clip_path]))
+    train_s = time.perf_counter() - t0
+    train_counts = dict(launch_counts(), **tower_launch_counts())
+    train_peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in run.displayed]
+    step_s = [r["step_s"] for r in run.displayed]
+    ckpt = os.path.join(out, "pytorch_model.bin.0")
+    task = cli.to_task_config(cli.get_args(argv=argv))
+    step_ms, _, _ = step_device_ms(run, cross, task, next(iter(SyntheticClips(
+        TOWER_TRAIN_VIDEOS, TOWER_TRAIN_VIDEOS, task.max_frames,
+        TOWER_RES, task.max_words, seed))), iters=2)
+    del run
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with EvalProbe(profile=True) as eval_probe:
+        metrics = runner.main(cli.get_args(argv=argv[1:] + [
+            "--init_model", ckpt, "--output_dir",
+            os.path.join(root, "out_eval")]))
+    eval_s = time.perf_counter() - t0
+    eval_counts = dict(launch_counts(), **tower_launch_counts())
+    eval_peak = torch.cuda.max_memory_allocated()
+
+    # --do_extract: a 768-wide bank, answered by the service
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    bank_path = runner.main(cli.get_args(argv=[
+        "--do_extract"] + argv[2:] + ["--init_model", ckpt, "--output_dir",
+                                      os.path.join(root, "out_extract")]))
+    extract_s = time.perf_counter() - t0
+    extract_counts = dict(launch_counts(), **tower_launch_counts())
+    bank = dict(np.load(bank_path))
+    from hmmc_tpu_torch import serve
+
+    sargs = cli.get_args(argv=argv[1:] + ["--init_model", ckpt])
+    sargs.features, sargs.device_rank = bank_path, False
+    svc = serve.RetrievalService(sargs)
+    captions = [" ".join(np.random.default_rng(seed + i).choice(WORDS, 8))
+                for i in range(TOWER_QUERIES)]
+    t0 = time.perf_counter()
+    answers = [svc.search(c, topk=5) for c in captions]
+    query_ms = (time.perf_counter() - t0) / TOWER_QUERIES * 1e3
+    served = all(len(a["results"]) == 5 for a in answers)
+    del svc
+    torch.cuda.empty_cache()
+
+    micro = TOWER_STEPS * TOWER_N_ACCUM
+    blocks = math.ceil(TOWER_EVAL_CLIPS / 8)       # auto_video_block: 8
+    text_blocks = math.ceil(TOWER_EVAL_CLIPS / 512)
+    v, t, tmp = arch.vision_layers, arch.transformer_layers, \
+        cross.temporal_hidden_layers
+    eval_k1 = dict(k1_tiled=v * blocks, k1_short=tmp * blocks
+                   + t * text_blocks)
+    expected_eval = dict(k1=sum(eval_k1.values()), k2=0, r1=1, r2=0,
+                         decoder=1, k2_short=0, k2_tiled=0, **eval_k1)
+    expected_train = dict(
+        k1=(v + t + tmp) * micro + expected_eval["k1"],
+        k2=(v + t + tmp) * micro, r1=TOWER_STEPS + 1, r2=0,
+        decoder=TOWER_STEPS + 1,
+        k1_tiled=v * micro + eval_k1["k1_tiled"],
+        k1_short=(t + tmp) * micro + eval_k1["k1_short"],
+        k2_tiled=v * micro, k2_short=(t + tmp) * micro)
+    ev_call = eval_probe.calls[0]
+    row = dict(
+        phase="towers", what=f"{TOWER_CLI} BirdModel through the CLI",
+        seq_len=arch.grid_size ** 2 + 1, resolution=TOWER_RES,
+        vision=[arch.vision_width, v, arch.vision_heads],
+        embed_dim=arch.embed_dim,
+        temporal_heads=cross.temporal_attention_heads,
+        clip_model_bytes=os.path.getsize(clip_path), archive_s=archive_s,
+        arch_from_shapes_equal=from_shapes,
+        train_clips=TOWER_TRAIN_VIDEOS * 2, steps=TOWER_STEPS,
+        micro_batch_clips=TOWER_TRAIN_VIDEOS // TOWER_N_ACCUM,
+        losses=losses, finite=all(math.isfinite(x) for x in losses),
+        step_s=step_s, train_run_s=train_s, eval_run_s=eval_s,
+        extract_run_s=extract_s, step_device_ms=step_ms,
+        epoch_metrics=train_probe.calls[0]["metrics"],
+        reload_metrics=metrics,
+        reload_equal=metrics == train_probe.calls[0]["metrics"],
+        eval_clips=TOWER_EVAL_CLIPS, eval_video_blocks=blocks,
+        eval_wall_ms=ev_call["wall_ms"],
+        eval_device_busy_ms=ev_call["profile"]["device_busy_ms"],
+        eval_device_idle_share=ev_call["profile"]["device_idle_share"],
+        eval_device_ms_by_kind=ev_call["profile"]["device_ms_by_kind"],
+        max_memory_allocated=dict(train=train_peak, eval=eval_peak),
+        train_launches=train_counts, expected_train_launches=expected_train,
+        eval_launches=eval_counts, expected_eval_launches=expected_eval,
+        extract_launches=extract_counts,
+        bank_shapes={k: list(a.shape) for k, a in bank.items()},
+        served_queries=TOWER_QUERIES, served_ok=served,
+        query_ms_host_ranking=query_ms,
+        decode_failures=jpeg.decode_frames.decode_failures,
+        layout_s=layout["seconds"], card=smi)
+    return row, ckpt
+
+
+def towers_phase(root, seed, smi):
+    """Phase towers (its kernel rows are tower_kernels'); returns each
+    path's launches by body."""
+    steps = {name: tower_step(name, clips, seed, smi)
+             for name, clips in TOWERS if name != TOWER_CLI}
+    row, _ = tower_cli_phase(root, seed, smi)
+    train = row["train_launches"]
+    emit(row)
+    bank_ok = row["bank_shapes"].get("video", [0, 0])[-1] == 768
+    ok = (row["arch_from_shapes_equal"] and row["reload_equal"]
+          and row["served_ok"] and bank_ok and row["decode_failures"] == 0
+          and row["finite"] and train == row["expected_train_launches"]
+          and row["eval_launches"] == row["expected_eval_launches"]
+          and row["extract_launches"] == row["expected_eval_launches"]
+          and all(math.isfinite(x) for x in row["epoch_metrics"].values()))
+    if not ok:
+        raise AssertionError(f"towers CLI run failed: {row}")
+    # the geometry at 2 layers a tower in fp32, card against CPU
+    arch = dataclasses.replace(ClipArch.by_name(TOWER_CLI), vision_layers=2,
+                               transformer_layers=2)
+    cross = dataclasses.replace(tower_cross(TOWER_CLI),
+                                temporal_hidden_layers=2)
+    reference_check(TaskConfig(seed=seed), cross, arch, seed,
+                    phase="towers_reference")
+    paths = {f"towers_step_{n}": c for n, c in steps.items()}
+    paths["towers_cli_l14_336"] = {
+        k: train[k] + row["eval_launches"][k] + row["extract_launches"][k]
+        for k in ("k1_short", "k1_tiled", "k2_short", "k2_tiled")}
+    return paths
+
+
 def launches_of(by_path, kernel):
     """One kernel's launches over phase ddp's paths (a list per group
     holds each rank's counts)."""
@@ -3301,9 +3668,9 @@ def kernels_phase(gen):
                                                  dtype, gen))
         bwd_rows.append(check_attention_backward("temporal", 64, 8, 12,
                                                  False, dtype, gen))
-    check_attention_backward("extra", 8, 12, MAX_LEN_BWD, False,
+    check_attention_backward("extra", 8, 12, SHORT_MAX_LEN_BWD, False,
                              torch.bfloat16, gen)
-    check_attention_backward("extra", 8, 12, MAX_LEN_BWD_FP32, False,
+    check_attention_backward("extra", 8, 12, SHORT_MAX_LEN_BWD_FP32, False,
                              torch.float32, gen)
     wrapper_host_cost(gen)
     return rows, bwd_rows
@@ -3413,10 +3780,13 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows, bwd_rows = kernels_phase(gen)
+    tower_rows, tower_bwd_rows = tower_kernels(gen)     # phase towers
     r1_row = check_resize_crop(gen)
     check_decoder(smi)
     r2_rows = check_resize_area(gen)
     check_aug_decoder(smi)
+    check_resize_crop(gen, TOWER_RES, TOWER_BLOCK_FRAMES, 16)   # R1 at 336
+    check_decoder_336(smi)
     eval_k1 = eval_phase(args, smi)
     train = train_slice(CrossConfig(), ClipArch.by_name("ViT-B/32"),
                         args.seed, smi)
@@ -3429,23 +3799,29 @@ def main(argv=None) -> int:
         cli_pre = cli_pretrain_phase(root, args.seed, smi)
         ddp = ddp_phase(root, args.seed, smi, train["first_steps"],
                         cli_counts)
+        tower_paths = towers_phase(os.path.join(root, "towers"), args.seed,
+                                   smi)
+    rows += tower_rows
+    bwd_rows += tower_bwd_rows
 
     # result
-    def kernel_row(name, replaces, rows, launches, by_path):
+    def kernel_row(name, replaces, rows, launches, by_path, by_body):
         vit = next(r for r in rows if r["site"] == "vit"
                    and r["dtype"] == str(torch.bfloat16))
         main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
         return dict(
             name=name, route="cuda", source=f"hmmc_tpu_torch/csrc/{name}.cu",
             replaces=replaces, launches=launches, launches_by_path=by_path,
+            tiled_launches_by_path=by_body,
             max_abs_err=max(r["max_abs_err"] for r in main_rows),
             ms=vit["ms"], plain_ms=vit["plain_ms"], bound_ms=vit["bound_ms"],
             bound_by=vit["bound_by"], library_ms=vit["library_ms"],
             timed_at=f"vit site, bf16, {vit['shape']}",
             sites=[{k: r[k] for k in ("site", "shape", "causal", "dtype",
-                                      "max_abs_err", "ms", "host_us_per_call",
-                                      "plain_ms",
-                                      "library_ms", "bound_ms", "bound_by")}
+                                      "body", "max_abs_err", "ms",
+                                      "kernel_device_ms", "host_us_per_call",
+                                      "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by", "share_of_bound")}
                    for r in rows])
 
     k1_paths = {"eval": eval_k1, "finetune_steps": train["k1"],
@@ -3461,15 +3837,21 @@ def main(argv=None) -> int:
     # phase ddp's paths; a 2-rank group's entry sums its ranks' launches
     k1_paths.update(launches_of(ddp, "k1"))
     k2_paths.update(launches_of(ddp, "k2"))
+    # phase towers: the only paths with L > 128, where the tiled bodies run
+    for kernel, paths in (("k1", k1_paths), ("k2", k2_paths)):
+        paths.update({p: c[f"{kernel}_short"] + c[f"{kernel}_tiled"]
+                      for p, c in tower_paths.items()})
+    tiled = {k: {p: c[f"{k}_tiled"] for p, c in tower_paths.items()}
+             for k in ("k1", "k2")}
     r1_ddp = {k: v for k, v in launches_of(ddp, "r1").items() if v}
     r2_row = r2_rows["path"]
     print(smi, flush=True)
     emit({"kernels": [
         kernel_row("fused_attention_fwd", "hmmc_tpu/ops/pallas_attention.py:48",
-                   rows, sum(k1_paths.values()), k1_paths),
+                   rows, sum(k1_paths.values()), k1_paths, tiled["k1"]),
         kernel_row("fused_attention_bwd",
                    "hmmc_tpu/ops/pallas_attention.py:130", bwd_rows,
-                   sum(k2_paths.values()), k2_paths),
+                   sum(k2_paths.values()), k2_paths, tiled["k2"]),
         dict(name="resize_crop", route="cuda",
              source="hmmc_tpu_torch/csrc/resize_crop.cu",
              replaces="hmmc_tpu/data/datasets.py:36 (_decode_eval's PIL "

@@ -52,6 +52,14 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// as cp_async16, but copies `src_bytes` (0 or 16) and zero-fills the rest
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -97,6 +105,16 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// The tiled bodies keep the logits unscaled and take exp((s - m) * kScale)
+// as one ex2 of fma(s, kScaleLog2, -m * kScaleLog2).
+constexpr float kScaleLog2 = 0.18033688011112042f;   // kScale * log2(e)
+
+__device__ __forceinline__ float ex2(float x) {   // 2^x; 2^-inf = +0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -148,6 +166,27 @@ __device__ __forceinline__ void stage_head(uint32_t dst, int tile_bytes,
     for (int t = 0; t < kTensors; ++t)
       cp_async16(dst + t * tile_bytes + off, src[t] + row * row_stride[t] +
                                                  chunk * 8);
+  }
+}
+
+// The tiled bodies (L > 128) cut a head into tiles of kTileRows rows.
+constexpr int kTileRows = 64;
+constexpr int kTileBytes = kTileRows * kTileRowBytes;
+
+// Issue 16-byte copies of rows row0..row0+63 of a head (`src` its row 0)
+// into a swizzled 64-row tile at `dst`; rows at or past len are
+// zero-filled by the copy itself, so a tile can be refilled in a ring.
+__device__ __forceinline__ void stage_tile(uint32_t dst,
+                                           const __nv_bfloat16* src,
+                                           long long row_stride, int row0,
+                                           int len) {
+  for (int c = threadIdx.x; c < kTileRows * 8; c += blockDim.x) {
+    const int row = c >> 3, chunk = c & 7;
+    const int g = row0 + row;
+    const bool in = g < len;
+    cp_async16_zfill(dst + tile_off(row, chunk),
+                     src + (in ? g : 0) * row_stride + chunk * 8,
+                     in ? 16 : 0);
   }
 }
 

@@ -1,4 +1,4 @@
-// Fused attention backward for short sequences (K2), CUDA C++ for sm_90a.
+// Fused attention backward (K2), CUDA C++ for sm_90a, at any L.
 //
 // Replaces the TPU kernel `_attention_bwd_kernel` launched by
 // `_flash_backward` (hmmc_tpu/ops/pallas_attention.py). Same arithmetic, per
@@ -9,18 +9,22 @@
 //   dS = P o (dP - rowsum(dP o P)) * head_dim^-0.5
 //   dQ = dS . k               dK = dS^T . q
 // with fp32 accumulation and dq, dk, dv stored in q's dtype. No [L, L]
-// tensor reaches device memory and there are no atomics: one CTA owns every
-// row of a head, so results repeat bit for bit.
+// tensor reaches device memory and there are no atomics, so results repeat
+// bit for bit. Two bodies, chosen by L: the short one (L <= 128 in bf16,
+// 112 in fp32; one CTA owns every row of a head) and the tiled pair.
 //
 // What bounds it on an H100: q, k, v, g read once and dq, dk, dv written
 // once are 7*B*H*L*64 elements; the five products are 10*B*H*L*L*64
 // operations (causal: only the pairs a query needs), about 36 per byte at
-// L = 50, far below the card's ~295 bf16 operations per byte. So the work
-// is bound by device-memory bytes: in bf16, 0.1232 ms at the ViT-B/32 site
-// [768, 12, 50], 0.0044 ms at the fine-tune's text site [64, 8, 32, causal]
-// and 0.0016 ms at the temporal site [64, 8, 12] (3.35 TB/s).
+// L = 50 and 412 at L = 577, against the card's ~295 bf16 operations per
+// byte. So the short sites are bound by bytes: in bf16, 0.1232 ms at the
+// ViT-B/32 site [768, 12, 50], 0.0044 ms at the fine-tune's text site
+// [64, 8, 32, causal] and 0.0016 ms at the temporal site [64, 8, 12]
+// (3.35 TB/s); the towers' by bytes at ViT-B/16's [192, 12, 197] (0.1214
+// ms) and ViT-L/14's [48, 16, 257] (0.0528), by operations at
+// ViT-L/14@336px's [48, 16, 577] (0.1655 ms at 989 TFLOPS).
 //
-// bf16 (the main path): `attention_bwd_mma_kernel`, one CTA of 4 warps per
+// bf16, L <= 128: `attention_bwd_mma_kernel`, one CTA of 4 warps per
 // (batch, head). 16-byte cp.async copies stage the head's q, k, v and g as
 // bf16 [Lp][64] tiles (Lp = L rounded up to 16, rows past L zero-filled),
 // swizzled as in attention_mma.cuh. One head's loads overlap the products
@@ -48,19 +52,46 @@
 // 204,800 at L = 128; 96 registers at NT = 4, 71-164 over NT = 1..8, no
 // spills.
 //
-// fp32 (reference checks only): `attention_bwd_fp32_kernel`, the CUDA-core
-// body of the first version: q, k, v, g staged as fp32, P and dS rows in
-// shared memory, fmaf loops; L <= 112 (its staging fits 227 KB up to
-// there). The tensor cores would take fp32 only as TF32 (~10 bits), which
+// bf16, L > 128: two kernels over 64-row tiles, one launch each, in stream
+// order; the first leaves fp32 row statistics in scratch the wrapper
+// allocates (3 x L rounded up to 64 floats a head), as no CTA can own a
+// whole head's rows and keys at once without atomics:
+//   rows  `attention_bwd_rows_kernel`, a CTA per (Q tile, batch * head),
+//         walks the head's KV tiles twice through a 2-stage cp.async ring.
+//         First S and dP for the row max m, the row sum and D =
+//         rowsum(dP o P), online (rescaled as the max moves, as in K1's
+//         tiled body); then S and dP again for P (fp32, not rounded) and dS,
+//         and dQ = dS . k with dS split into hi + lo as above. It writes dQ
+//         and m, 1 / sum and D per row.
+//   keys  `attention_bwd_keys_kernel`, a CTA per (KV tile, batch * head),
+//         each warp owning 16 keys: for every Q tile (with its statistics)
+//         S^T = k . q^T and dP^T = v . g^T for its keys, P^T and dS^T from
+//         the statistics, and dV += P^T g, dK += dS^T q (hi + lo) in
+//         registers; causal starts at the diagonal tile.
+// As in K1's tiled body, only the tiles that hold a masked pair are masked
+// and exp is one ex2 of an FMA on unscaled logits. S and dP are computed
+// three times a tile pair and the three products are split, so the pair
+// does ~3.6x the five products' operations; at L = 577 each kernel takes
+// about half the time, masking every tile would cost 13%, and a register
+// cap (3 or 4 CTAs an SM) did not help (tools/attention_split.py). Per CTA: 49,152 bytes (rows) and 50,688 (keys) of shared
+// memory, 167-177 registers, no spills.
+//
+// fp32 (reference checks only): `attention_bwd_fp32_kernel` (L <= 112),
+// the CUDA-core body of the first version: q, k, v, g staged as fp32, P
+// and dS rows in shared memory, fmaf loops (its staging fits 227 KB up to
+// 112); past it the same pair as bf16's on the CUDA cores,
+// `attention_bwd_fp32_rows_kernel` (32-row Q tiles, 8 rows a warp) and
+// `attention_bwd_fp32_keys_kernel` (32-key tiles over 64-row Q tiles, IEEE
+// expf). The tensor cores would take fp32 only as TF32 (~10 bits), which
 // would break the fp32 tolerances (5e-5 against the plain version, 1e-3
 // card against CPU), so fp32 stays on the CUDA cores.
 //
 // Layout: q, k, v, g, dq, dk, dv are [B, H, L, 64] with arbitrary batch /
 // head / sequence strides and unit stride on the last axis, so the caller
 // passes head views of a packed qkv projection and the incoming gradient as
-// it arrives, without copies; in bf16 every pointer and stride must be
-// 16-byte aligned (the wrapper checks). The kernel launches on the caller's
-// stream, allocates nothing, and the entry point returns cudaGetLastError().
+// it arrives, without copies; every pointer and stride must be 16-byte
+// aligned (the wrapper checks). The kernels launch on the caller's
+// stream, allocate nothing, and the entry point returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +104,7 @@ using hmmc::kHeadDim;
 using hmmc::kScale;
 using hmmc::Strides;
 
-constexpr int kMaxLenBf16 = 128;
+constexpr int kMaxLenBf16 = 128;       // the short bodies' longest L
 constexpr int kMaxLenFp32 = 112;        // fp32 staging fits 227 KB
 constexpr int kWarpsBwd = 4;           // warps of a bf16 CTA
 
@@ -353,6 +384,360 @@ cudaError_t dispatch_mma(const Args& a, int batch, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16, L > 128: two passes over tiles, no atomics
+// ---------------------------------------------------------------------------
+
+using hmmc::kTileBytes;
+using hmmc::kTileRows;
+
+// Per-row statistics the rows pass leaves for the keys pass, fp32, three
+// planes of `lp` = L rounded up to 64 per (batch, head): the row max m of
+// the unscaled logits q . k, 1 / the row sum of exp((q . k - m) * scale),
+// and D = rowsum(dP o P). Rows past L hold zeros.
+__host__ __device__ inline long long stats_floats(int len) {
+  return 3LL * ((len + kTileRows - 1) / kTileRows) * kTileRows;
+}
+
+// S = q . k^T (scaled, masked to -inf) and dP = g . v^T of one warp's 16
+// rows of the staged A tiles (`ta`, `tg`) against the 64 keys of the staged
+// B tiles (`tb`, `tv`); key pairs np with skip(np) are left 0.
+template <typename Skip>
+__device__ __forceinline__ void tile_products(uint32_t ta, uint32_t tg,
+                                              uint32_t tb, uint32_t tv,
+                                              int r0, int lane, Skip skip,
+                                              float (&s)[8][4],
+                                              float (&dp)[8][4]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kHeadDim / 16; ++ks) {
+    uint32_t qa[4], ga[4];
+    hmmc::ldsm_x4(hmmc::a_addr(ta, r0, ks, lane), qa);
+    hmmc::ldsm_x4(hmmc::a_addr(tg, r0, ks, lane), ga);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (skip(np)) continue;
+      uint32_t kf[4], vf[4];
+      hmmc::ldsm_x4(hmmc::b_addr(tb, 16 * np, ks, lane), kf);
+      hmmc::mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+      hmmc::mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+      hmmc::ldsm_x4(hmmc::b_addr(tv, 16 * np, ks, lane), vf);
+      hmmc::mma_bf16(dp[2 * np], ga, vf[0], vf[1]);
+      hmmc::mma_bf16(dp[2 * np + 1], ga, vf[2], vf[3]);
+    }
+  }
+}
+
+// acc (16 x 64) += X . B for X the 16 x 64 fp32 C fragments of one warp
+// (split into bf16 hi + lo, as the short body does) and B the staged tile
+// `tb` read with its rows as the k index; k-steps j with skip(j) are 0.
+template <typename Skip>
+__device__ __forceinline__ void frag_product(const float (&x)[8][4],
+                                             uint32_t tb, int lane, Skip skip,
+                                             float (&acc)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (skip(j)) continue;
+    uint32_t hi[4], lo[4];
+    hmmc::split_bf16(x[2 * j][0], x[2 * j][1], hi[0], lo[0]);
+    hmmc::split_bf16(x[2 * j][2], x[2 * j][3], hi[1], lo[1]);
+    hmmc::split_bf16(x[2 * j + 1][0], x[2 * j + 1][1], hi[2], lo[2]);
+    hmmc::split_bf16(x[2 * j + 1][2], x[2 * j + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int c = 0; c < kHeadDim / 16; ++c) {
+      uint32_t bf[4];
+      hmmc::ldsm_x4_t(hmmc::bt_addr(tb, 16 * j, c, lane), bf);
+      hmmc::mma_bf16(acc[2 * c], hi, bf[0], bf[1]);
+      hmmc::mma_bf16(acc[2 * c], lo, bf[0], bf[1]);
+      hmmc::mma_bf16(acc[2 * c + 1], hi, bf[2], bf[3]);
+      hmmc::mma_bf16(acc[2 * c + 1], lo, bf[2], bf[3]);
+    }
+  }
+}
+
+// Rows pass: CTA (Q tile, batch * head), 4 warps of 16 query rows; shared
+// memory the Q and g tiles, then two stages of (K, V) tiles. It walks the
+// head's KV tiles twice: first for m, the row sum and D (online: rescaled
+// as the max moves), then for dS and dQ = dS . k. It writes dQ and the
+// statistics.
+__global__ void __launch_bounds__(kWarpsBwd * 32)
+attention_bwd_rows_kernel(Args a, float* stats) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ uint4 smem_raw[];
+  char* smem = reinterpret_cast<char*>(smem_raw);
+  const uint32_t base = hmmc::smem_u32(smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int len = a.len, head = blockIdx.x, qt = blockIdx.y;
+  const int q0 = qt * kTileRows;
+  const int b = head / a.heads, hh = head - b * a.heads;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sk.b + hh * a.sk.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sv.b + hh * a.sv.h;
+  const int n_kv = a.causal ? qt + 1 : (len + kTileRows - 1) / kTileRows;
+  const uint32_t tq = base, tg = base + kTileBytes;
+  auto stage_of = [&](int step) {
+    return base + 2 * kTileBytes + (step & 1) * 2 * kTileBytes;
+  };
+  auto issue = [&](int step) {   // step t reads KV tile t % n_kv
+    const int kt = step % n_kv;
+    const uint32_t dst = stage_of(step);
+    hmmc::stage_tile(dst, kb, a.sk.l, kt * kTileRows, len);
+    hmmc::stage_tile(dst + kTileBytes, vb, a.sv.l, kt * kTileRows, len);
+  };
+  hmmc::stage_tile(tq, static_cast<const bf16*>(a.q) + b * a.sq.b +
+                           hh * a.sq.h, a.sq.l, q0, len);
+  hmmc::stage_tile(tg, static_cast<const bf16*>(a.g) + b * a.sg.b +
+                           hh * a.sg.h, a.sg.l, q0, len);
+  issue(0);
+  hmmc::cp_async_commit();
+
+  const int r = q0 + 16 * warp + (lane >> 2);   // rows r and r + 8
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, d0 = 0.f,
+        d1 = 0.f, inv0 = 0.f, inv1 = 0.f;
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int step = 0; step < 2 * n_kv; ++step) {
+    if (step + 1 < 2 * n_kv) issue(step + 1);
+    hmmc::cp_async_commit();
+    hmmc::cp_async_wait<1>();
+    __syncthreads();
+    const int kt = step % n_kv, k0 = kt * kTileRows;
+    const uint32_t tk = stage_of(step), tv = tk + kTileBytes;
+    const bool diag = a.causal && kt == qt;
+    float s[8][4], dp[8][4];
+    tile_products(tq, tg, tk, tv, 16 * warp, lane,
+                  [&](int np) { return diag && np > warp; }, s, dp);
+    // unscaled logits; -inf on the tiles that mask any (the causal
+    // diagonal, the last tile of a ragged L)
+    if (diag || k0 + kTileRows > len) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = k0 + 8 * n + 2 * (lane & 3) + e;
+          if (j >= len || (a.causal && j > r)) s[n][e] = -INFINITY;
+          if (j >= len || (a.causal && j > r + 8)) s[n][2 + e] = -INFINITY;
+        }
+    }
+    if (step < n_kv) {
+      // statistics: key 0 is in the first tile and kept for every row,
+      // so the running max is finite from there on
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+      const float mn0 = fmaxf(m0, hmmc::quad_max(mx0));
+      const float mn1 = fmaxf(m1, hmmc::quad_max(mx1));
+      const float al0 = hmmc::ex2((m0 - mn0) * hmmc::kScaleLog2);
+      const float al1 = hmmc::ex2((m1 - mn1) * hmmc::kScaleLog2);
+      m0 = mn0;
+      m1 = mn1;
+      const float c0 = m0 * hmmc::kScaleLog2, c1 = m1 * hmmc::kScaleLog2;
+      float t0 = 0.f, t1 = 0.f, u0 = 0.f, u1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p0 = hmmc::ex2(fmaf(s[n][e], hmmc::kScaleLog2, -c0));
+          const float p1 = hmmc::ex2(fmaf(s[n][2 + e], hmmc::kScaleLog2,
+                                          -c1));
+          t0 += p0;
+          t1 += p1;
+          u0 = fmaf(dp[n][e], p0, u0);
+          u1 = fmaf(dp[n][2 + e], p1, u1);
+        }
+      l0 = l0 * al0 + t0;   // this lane's columns, summed over the quad
+      l1 = l1 * al1 + t1;   // after the pass
+      d0 = d0 * al0 + u0;
+      d1 = d1 * al1 + u1;
+      if (step == n_kv - 1) {
+        inv0 = 1.f / hmmc::quad_sum(l0);
+        inv1 = 1.f / hmmc::quad_sum(l1);
+        d0 = hmmc::quad_sum(d0) * inv0;
+        d1 = hmmc::quad_sum(d1) * inv1;
+      }
+      __syncthreads();   // the stage is refilled two steps on
+      continue;
+    }
+    // dS = P o (dP - D) * scale, in place of dP
+    const float c0 = m0 * hmmc::kScaleLog2, c1 = m1 * hmmc::kScaleLog2;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p0 =
+            hmmc::ex2(fmaf(s[n][e], hmmc::kScaleLog2, -c0)) * inv0;
+        const float p1 =
+            hmmc::ex2(fmaf(s[n][2 + e], hmmc::kScaleLog2, -c1)) * inv1;
+        dp[n][e] = p0 * (dp[n][e] - d0) * kScale;
+        dp[n][2 + e] = p1 * (dp[n][2 + e] - d1) * kScale;
+      }
+    frag_product(dp, tk, lane, [&](int j) { return diag && j > warp; },
+                 acc);
+    __syncthreads();
+  }
+
+  // statistics of rows r and r + 8 (zeros past L), one lane of the quad
+  const int lp = static_cast<int>(stats_floats(len) / 3);
+  float* st = stats + static_cast<long long>(head) * 3 * lp;
+  if ((lane & 3) == 0) {
+    const bool in0 = r < len, in1 = r + 8 < len;
+    st[r] = in0 ? m0 : 0.f;
+    st[lp + r] = in0 ? inv0 : 0.f;
+    st[2 * lp + r] = in0 ? d0 : 0.f;
+    st[r + 8] = in1 ? m1 : 0.f;
+    st[lp + r + 8] = in1 ? inv1 : 0.f;
+    st[2 * lp + r + 8] = in1 ? d1 : 0.f;
+  }
+  // only this warp reads its rows of the Q tile: stage dQ there
+  const int rows = len - q0;
+  bf16* dqb = static_cast<bf16*>(a.dq) + b * a.sdq.b + hh * a.sdq.h +
+              q0 * a.sdq.l;
+  hmmc::frags_to_tile(smem, 16 * warp, acc, rows, lane);
+  __syncwarp();
+  hmmc::tile_rows_to_global(smem, 16 * warp, dqb, a.sdq.l, rows, lane);
+}
+
+// Keys pass: CTA (KV tile, batch * head), 4 warps of 16 keys; shared
+// memory the K and V tiles, then two stages of (Q tile, g tile, the
+// tile's statistics). For each Q tile a warp computes S^T = k . q^T and
+// dP^T = v . g^T for its keys, P^T and dS^T from the statistics, and
+// accumulates dV = P^T g and dK = dS^T q in registers.
+__global__ void __launch_bounds__(kWarpsBwd * 32)
+attention_bwd_keys_kernel(Args a, const float* stats) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kStatBytes = 3 * kTileRows * 4;
+  constexpr int kStage = 2 * kTileBytes + kStatBytes;
+  extern __shared__ uint4 smem_raw[];
+  char* smem = reinterpret_cast<char*>(smem_raw);
+  const uint32_t base = hmmc::smem_u32(smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int len = a.len, head = blockIdx.x, kt = blockIdx.y;
+  const int k0 = kt * kTileRows;
+  const int b = head / a.heads, hh = head - b * a.heads;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.sq.b + hh * a.sq.h;
+  const bf16* gb = static_cast<const bf16*>(a.g) + b * a.sg.b + hh * a.sg.h;
+  const int n_q = (len + kTileRows - 1) / kTileRows;
+  const int lp = n_q * kTileRows;
+  const float* st = stats + static_cast<long long>(head) * 3 * lp;
+  const int first = a.causal ? kt : 0;   // causal: no query before the keys
+  const uint32_t tk = base, tv = base + kTileBytes;
+  auto stage_off = [&](int it) { return 2 * kTileBytes + (it & 1) * kStage; };
+  auto issue = [&](int it) {
+    const int qt = first + it;
+    const uint32_t dst = base + stage_off(it);
+    hmmc::stage_tile(dst, qb, a.sq.l, qt * kTileRows, len);
+    hmmc::stage_tile(dst + kTileBytes, gb, a.sg.l, qt * kTileRows, len);
+    // m, 1 / sum, D of the tile's 64 rows: 3 x 16 chunks of 16 bytes
+    for (int c = threadIdx.x; c < 48; c += blockDim.x) {
+      const int plane = c >> 4, chunk = c & 15;
+      hmmc::cp_async16(dst + 2 * kTileBytes + plane * 256 + chunk * 16,
+                       st + plane * lp + qt * kTileRows + chunk * 4);
+    }
+  };
+  hmmc::stage_tile(tk, static_cast<const bf16*>(a.k) + b * a.sk.b +
+                           hh * a.sk.h, a.sk.l, k0, len);
+  hmmc::stage_tile(tv, static_cast<const bf16*>(a.v) + b * a.sv.b +
+                           hh * a.sv.h, a.sv.l, k0, len);
+  issue(0);
+  hmmc::cp_async_commit();
+
+  const int j = k0 + 16 * warp + (lane >> 2);   // keys j and j + 8
+  float dv[8][4], dk[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[n][e] = dk[n][e] = 0.f;
+
+  const int n_it = n_q - first;
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) issue(it + 1);
+    hmmc::cp_async_commit();
+    hmmc::cp_async_wait<1>();
+    __syncthreads();
+    const int qt = first + it, q0 = qt * kTileRows;
+    const uint32_t tq = base + stage_off(it), tg = tq + kTileBytes;
+    const float* s_st =
+        reinterpret_cast<const float*>(smem + stage_off(it) + 2 * kTileBytes);
+    const bool diag = a.causal && qt == kt;   // query pairs np < warp all
+                                              // lie before the keys
+    float s[8][4], dp[8][4];   // S^T and dP^T: rows keys, columns queries
+    tile_products(tk, tv, tq, tg, 16 * warp, lane,
+                  [&](int np) { return diag && np < warp; }, s, dp);
+    // the tiles that mask any pair: the causal diagonal, a Q or KV tile
+    // past L (whose statistics are zeros, or unwritten in the scratch)
+    const bool edge = diag || q0 + kTileRows > len || k0 + kTileRows > len;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int il = 8 * n + 2 * (lane & 3) + e, i = q0 + il;
+        const float c = s_st[il] * hmmc::kScaleLog2,
+                    inv = s_st[kTileRows + il], d = s_st[2 * kTileRows + il];
+        const bool keep0 =
+            !edge || (i < len && j < len && (!a.causal || j <= i));
+        const bool keep1 =
+            !edge || (i < len && j + 8 < len && (!a.causal || j + 8 <= i));
+        const float p0 =
+            keep0 ? hmmc::ex2(fmaf(s[n][e], hmmc::kScaleLog2, -c)) * inv
+                  : 0.f;
+        const float p1 =
+            keep1 ? hmmc::ex2(fmaf(s[n][2 + e], hmmc::kScaleLog2, -c)) * inv
+                  : 0.f;
+        s[n][e] = p0;
+        s[n][2 + e] = p1;
+        dp[n][e] = keep0 ? p0 * (dp[n][e] - d) * kScale : 0.f;
+        dp[n][2 + e] = keep1 ? p1 * (dp[n][2 + e] - d) * kScale : 0.f;
+      }
+    frag_product(s, tg, lane, [&](int jj) { return diag && jj < warp; }, dv);
+    frag_product(dp, tq, lane, [&](int jj) { return diag && jj < warp; },
+                 dk);
+    __syncthreads();   // the stage is refilled two tiles on
+  }
+  // only this warp reads its rows of the K and V tiles: stage dK, dV there
+  const int rows = len - k0;
+  bf16* dkb = static_cast<bf16*>(a.dk) + b * a.sdk.b + hh * a.sdk.h +
+              k0 * a.sdk.l;
+  bf16* dvb = static_cast<bf16*>(a.dv) + b * a.sdv.b + hh * a.sdv.h +
+              k0 * a.sdv.l;
+  hmmc::frags_to_tile(smem, 16 * warp, dk, rows, lane);
+  hmmc::frags_to_tile(smem + kTileBytes, 16 * warp, dv, rows, lane);
+  __syncwarp();
+  hmmc::tile_rows_to_global(smem, 16 * warp, dkb, a.sdk.l, rows, lane);
+  hmmc::tile_rows_to_global(smem + kTileBytes, 16 * warp, dvb, a.sdv.l,
+                            rows, lane);
+}
+
+constexpr size_t kSmemRows = 6 * kTileBytes;   // Q, g, then 2 x (K, V)
+constexpr size_t kSmemKeys = 2 * kTileBytes + 2 * (2 * kTileBytes +
+                                                   3 * kTileRows * 4);
+
+cudaError_t launch_tiled(const Args& a, int batch, float* stats,
+                         cudaStream_t stream) {
+  static unsigned allowed_rows = 0, allowed_keys = 0;
+  cudaError_t err =
+      hmmc::allow_smem(attention_bwd_rows_kernel, kSmemRows, &allowed_rows);
+  if (err != cudaSuccess) return err;
+  err = hmmc::allow_smem(attention_bwd_keys_kernel, kSmemKeys, &allowed_keys);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * a.heads, (a.len + kTileRows - 1) / kTileRows);
+  attention_bwd_rows_kernel<<<grid, kWarpsBwd * 32, kSmemRows, stream>>>(
+      a, stats);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_keys_kernel<<<grid, kWarpsBwd * 32, kSmemKeys, stream>>>(
+      a, stats);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // fp32: CUDA cores (reference checks only, see the header)
 // ---------------------------------------------------------------------------
 
@@ -623,21 +1008,333 @@ cudaError_t dispatch_fp32(const Args& a, int batch, cudaStream_t stream) {
   }
 }
 
+// fp32, L > 112: the bf16 tiled layout on the CUDA cores. Rows pass: a
+// CTA per (32-row Q tile, batch * head), each warp owning 8 query rows for
+// both walks over the KV tiles (64 keys, staged in turn). Keys pass: a CTA
+// per (32-key tile, batch * head), each warp owning 8 keys, over Q tiles of
+// 64 rows with their statistics.
+constexpr int kF32Rows = 8;
+constexpr int kF32Warps = 4;
+constexpr int kF32RowTile = kF32Warps * kF32Rows;   // 32
+constexpr int kF32Tile = 64;                        // the walked tiles
+
+__device__ __forceinline__ void stage_f32_rows(float* dst, int stride,
+                                               const float* src,
+                                               long long row_stride, int row0,
+                                               int rows, int len) {
+  for (int c = threadIdx.x; c < rows * 16; c += blockDim.x) {
+    const int row = c >> 4, col = (c & 15) * 4;
+    const int g = row0 + row;
+    *reinterpret_cast<float4*>(dst + row * stride + col) =
+        g < len ? *reinterpret_cast<const float4*>(src + g * row_stride + col)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+__global__ void __launch_bounds__(kF32Warps * 32)
+attention_bwd_fp32_rows_kernel(Args a, float* stats) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* s_q = smem;                              // [32][64]
+  float* s_g = s_q + kF32RowTile * kHeadDim;      // [32][64]
+  float* s_k = s_g + kF32RowTile * kHeadDim;      // [64][68]
+  float* s_v = s_k + kF32Tile * kPad;             // [64][68]
+  float* s_ds = s_v + kF32Tile * kPad;            // [kF32Warps][8][64]
+  const int len = a.len, head = blockIdx.x, q0 = blockIdx.y * kF32RowTile;
+  const int b = head / a.heads, h = head - b * a.heads;
+  const float* kb = static_cast<const float*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const float* vb = static_cast<const float*>(a.v) + b * a.sv.b + h * a.sv.h;
+  stage_f32_rows(s_q, kHeadDim,
+                 static_cast<const float*>(a.q) + b * a.sq.b + h * a.sq.h,
+                 a.sq.l, q0, kF32RowTile, len);
+  stage_f32_rows(s_g, kHeadDim,
+                 static_cast<const float*>(a.g) + b * a.sg.b + h * a.sg.h,
+                 a.sg.l, q0, kF32RowTile, len);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i0 = q0 + warp * kF32Rows;
+  const float* q_rows = s_q + warp * kF32Rows * kHeadDim;
+  const float* g_rows = s_g + warp * kF32Rows * kHeadDim;
+  float* ds_rows = s_ds + warp * kF32Rows * kF32Tile;
+  float m[kF32Rows], l[kF32Rows], dd[kF32Rows];
+  float2 acc[kF32Rows];
+#pragma unroll
+  for (int r = 0; r < kF32Rows; ++r) {
+    m[r] = -INFINITY;
+    l[r] = dd[r] = 0.f;
+    acc[r] = make_float2(0.f, 0.f);
+  }
+  const int kv_end = a.causal ? min(len, q0 + kF32RowTile) : len;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int k0 = 0; k0 < kv_end; k0 += kF32Tile) {
+      __syncthreads();   // the previous tile's readers are done
+      stage_f32_rows(s_k, kPad, kb, a.sk.l, k0, kF32Tile, len);
+      stage_f32_rows(s_v, kPad, vb, a.sv.l, k0, kF32Tile, len);
+      __syncthreads();
+      // logits and dP of the warp's rows, keys k0 + lane, k0 + lane + 32
+      float s[kF32Rows][2], dp[kF32Rows][2];
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r)
+        s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < kHeadDim; d += 4) {
+        const float4 ka = *reinterpret_cast<const float4*>(s_k + lane * kPad + d);
+        const float4 kc =
+            *reinterpret_cast<const float4*>(s_k + (lane + 32) * kPad + d);
+        const float4 va = *reinterpret_cast<const float4*>(s_v + lane * kPad + d);
+        const float4 vc =
+            *reinterpret_cast<const float4*>(s_v + (lane + 32) * kPad + d);
+#pragma unroll
+        for (int r = 0; r < kF32Rows; ++r) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(q_rows + r * kHeadDim + d);
+          const float4 gv =
+              *reinterpret_cast<const float4*>(g_rows + r * kHeadDim + d);
+          s[r][0] = dot4(qv, ka, s[r][0]);
+          s[r][1] = dot4(qv, kc, s[r][1]);
+          dp[r][0] = dot4(gv, va, dp[r][0]);
+          dp[r][1] = dot4(gv, vc, dp[r][1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+        const int i = i0 + r;
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int j = k0 + lane + 32 * t;
+          const bool keep = j < len && (!a.causal || j <= i);
+          s[r][t] = keep ? s[r][t] * kScale : -INFINITY;
+        }
+      }
+      if (pass == 0) {
+        // statistics, online: key 0 is in the first tile and kept for
+        // every row, so the running max is finite from there on
+#pragma unroll
+        for (int r = 0; r < kF32Rows; ++r) {
+          const float mn =
+              fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
+          const float al = expf(m[r] - mn);
+          m[r] = mn;
+          const float p0 = expf(s[r][0] - mn), p1 = expf(s[r][1] - mn);
+          l[r] = l[r] * al + (p0 + p1);   // this lane's keys; summed over
+          dd[r] = dd[r] * al + fmaf(dp[r][1], p1, dp[r][0] * p0);  // the warp
+        }
+        continue;
+      }
+      // dS rows, then dQ += dS . k (each lane owns columns 2 lane, +1)
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r)
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const float p = expf(s[r][t] - m[r]) * l[r];
+          ds_rows[r * kF32Tile + lane + 32 * t] =
+              p * (dp[r][t] - dd[r]) * kScale;
+        }
+      __syncwarp();
+      int jmax = min(kF32Tile, len - k0);
+      if (a.causal) jmax = min(jmax, i0 + kF32Rows - k0);
+      for (int j = 0; j < jmax; ++j) {
+        const float2 kk =
+            *reinterpret_cast<const float2*>(s_k + j * kPad + 2 * lane);
+#pragma unroll
+        for (int r = 0; r < kF32Rows; ++r) {
+          const float ds = ds_rows[r * kF32Tile + j];
+          acc[r].x = fmaf(ds, kk.x, acc[r].x);
+          acc[r].y = fmaf(ds, kk.y, acc[r].y);
+        }
+      }
+      __syncwarp();
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+        l[r] = 1.f / warp_sum(l[r]);      // l holds 1 / the row sum
+        dd[r] = warp_sum(dd[r]) * l[r];   // dd holds D
+      }
+    }
+  }
+  const int lp = static_cast<int>(stats_floats(len) / 3);
+  float* st = stats + static_cast<long long>(head) * 3 * lp;
+  float* dqb = static_cast<float*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
+#pragma unroll
+  for (int r = 0; r < kF32Rows; ++r) {
+    const int i = i0 + r;
+    if (i < len) {
+      float* out = dqb + i * a.sdq.l + 2 * lane;
+      out[0] = acc[r].x;
+      out[1] = acc[r].y;
+    }
+    if (lane == 0 && i < lp) {
+      st[i] = i < len ? m[r] : 0.f;
+      st[lp + i] = i < len ? l[r] : 0.f;
+      st[2 * lp + i] = i < len ? dd[r] : 0.f;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kF32Warps * 32)
+attention_bwd_fp32_keys_kernel(Args a, const float* stats) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* s_k = smem;                              // [32][64]
+  float* s_v = s_k + kF32RowTile * kHeadDim;      // [32][64]
+  float* s_q = s_v + kF32RowTile * kHeadDim;      // [64][68]
+  float* s_g = s_q + kF32Tile * kPad;             // [64][68]
+  float* s_st = s_g + kF32Tile * kPad;            // [3][64]
+  float* s_p = s_st + 3 * kF32Tile;               // [kF32Warps][8][64]
+  float* s_ds = s_p + kF32Warps * kF32Rows * kF32Tile;
+  const int len = a.len, head = blockIdx.x, k0 = blockIdx.y * kF32RowTile;
+  const int b = head / a.heads, h = head - b * a.heads;
+  const float* qb = static_cast<const float*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const float* gb = static_cast<const float*>(a.g) + b * a.sg.b + h * a.sg.h;
+  const int lp = static_cast<int>(stats_floats(len) / 3);
+  const float* st = stats + static_cast<long long>(head) * 3 * lp;
+  stage_f32_rows(s_k, kHeadDim,
+                 static_cast<const float*>(a.k) + b * a.sk.b + h * a.sk.h,
+                 a.sk.l, k0, kF32RowTile, len);
+  stage_f32_rows(s_v, kHeadDim,
+                 static_cast<const float*>(a.v) + b * a.sv.b + h * a.sv.h,
+                 a.sv.l, k0, kF32RowTile, len);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int j0 = k0 + warp * kF32Rows;   // the warp's first key
+  const float* k_rows = s_k + warp * kF32Rows * kHeadDim;
+  const float* v_rows = s_v + warp * kF32Rows * kHeadDim;
+  float* p_rows = s_p + warp * kF32Rows * kF32Tile;
+  float* ds_rows = s_ds + warp * kF32Rows * kF32Tile;
+  float2 adv[kF32Rows], adk[kF32Rows];
+#pragma unroll
+  for (int r = 0; r < kF32Rows; ++r) {
+    adv[r] = make_float2(0.f, 0.f);
+    adk[r] = make_float2(0.f, 0.f);
+  }
+  // causal: queries before the tile's first key add nothing
+  const int first = a.causal ? k0 / kF32Tile * kF32Tile : 0;
+  for (int q0 = first; q0 < len; q0 += kF32Tile) {
+    __syncthreads();   // the previous tile's readers are done
+    stage_f32_rows(s_q, kPad, qb, a.sq.l, q0, kF32Tile, len);
+    stage_f32_rows(s_g, kPad, gb, a.sg.l, q0, kF32Tile, len);
+    for (int c = threadIdx.x; c < 3 * kF32Tile; c += blockDim.x)
+      s_st[c] = st[(c / kF32Tile) * lp + q0 + c % kF32Tile];
+    __syncthreads();
+    // S^T and dP^T: the warp's keys against queries q0 + lane, + 32
+    float s[kF32Rows][2], dp[kF32Rows][2];
+#pragma unroll
+    for (int r = 0; r < kF32Rows; ++r)
+      s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < kHeadDim; d += 4) {
+      const float4 qa = *reinterpret_cast<const float4*>(s_q + lane * kPad + d);
+      const float4 qc =
+          *reinterpret_cast<const float4*>(s_q + (lane + 32) * kPad + d);
+      const float4 ga = *reinterpret_cast<const float4*>(s_g + lane * kPad + d);
+      const float4 gc =
+          *reinterpret_cast<const float4*>(s_g + (lane + 32) * kPad + d);
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(k_rows + r * kHeadDim + d);
+        const float4 vv =
+            *reinterpret_cast<const float4*>(v_rows + r * kHeadDim + d);
+        s[r][0] = dot4(qa, kv, s[r][0]);
+        s[r][1] = dot4(qc, kv, s[r][1]);
+        dp[r][0] = dot4(ga, vv, dp[r][0]);
+        dp[r][1] = dot4(gc, vv, dp[r][1]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int il = lane + 32 * t, i = q0 + il;
+      const float mi = s_st[il], inv = s_st[kF32Tile + il],
+                  di = s_st[2 * kF32Tile + il];
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+        const int j = j0 + r;
+        const bool keep = i < len && j < len && (!a.causal || j <= i);
+        const float p = keep ? expf(s[r][t] * kScale - mi) * inv : 0.f;
+        p_rows[r * kF32Tile + il] = p;
+        ds_rows[r * kF32Tile + il] =
+            keep ? p * (dp[r][t] - di) * kScale : 0.f;
+      }
+    }
+    __syncwarp();
+    // dV += P^T g, dK += dS^T q: each lane owns columns 2 lane, 2 lane + 1
+    const int imax = min(kF32Tile, len - q0);
+    for (int il = 0; il < imax; ++il) {
+      const float2 gg =
+          *reinterpret_cast<const float2*>(s_g + il * kPad + 2 * lane);
+      const float2 qq =
+          *reinterpret_cast<const float2*>(s_q + il * kPad + 2 * lane);
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+        const float p = p_rows[r * kF32Tile + il];
+        const float ds = ds_rows[r * kF32Tile + il];
+        adv[r].x = fmaf(p, gg.x, adv[r].x);
+        adv[r].y = fmaf(p, gg.y, adv[r].y);
+        adk[r].x = fmaf(ds, qq.x, adk[r].x);
+        adk[r].y = fmaf(ds, qq.y, adk[r].y);
+      }
+    }
+    __syncwarp();
+  }
+  float* dkb = static_cast<float*>(a.dk) + b * a.sdk.b + h * a.sdk.h;
+  float* dvb = static_cast<float*>(a.dv) + b * a.sdv.b + h * a.sdv.h;
+#pragma unroll
+  for (int r = 0; r < kF32Rows; ++r) {
+    const int j = j0 + r;
+    if (j < len) {
+      float* ov = dvb + j * a.sdv.l + 2 * lane;
+      ov[0] = adv[r].x;
+      ov[1] = adv[r].y;
+      float* ok = dkb + j * a.sdk.l + 2 * lane;
+      ok[0] = adk[r].x;
+      ok[1] = adk[r].y;
+    }
+  }
+}
+
+constexpr size_t kSmemF32Rows =
+    sizeof(float) * (2 * kF32RowTile * kHeadDim + 2 * kF32Tile * kPad +
+                     kF32Warps * kF32Rows * kF32Tile);
+constexpr size_t kSmemF32Keys =
+    sizeof(float) * (2 * kF32RowTile * kHeadDim + 2 * kF32Tile * kPad +
+                     3 * kF32Tile + 2 * kF32Warps * kF32Rows * kF32Tile);
+
+cudaError_t launch_fp32_tiled(const Args& a, int batch, float* stats,
+                              cudaStream_t stream) {
+  static unsigned allowed_rows = 0, allowed_keys = 0;
+  cudaError_t err = hmmc::allow_smem(attention_bwd_fp32_rows_kernel,
+                                     kSmemF32Rows, &allowed_rows);
+  if (err != cudaSuccess) return err;
+  err = hmmc::allow_smem(attention_bwd_fp32_keys_kernel, kSmemF32Keys,
+                         &allowed_keys);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * a.heads, (a.len + kF32RowTile - 1) / kF32RowTile);
+  attention_bwd_fp32_rows_kernel<<<grid, kF32Warps * 32, kSmemF32Rows,
+                                   stream>>>(a, stats);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_fp32_keys_kernel<<<grid, kF32Warps * 32, kSmemF32Keys,
+                                   stream>>>(a, stats);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (L <= 112), 1 = bfloat16 (L <= 128). strides: the
-// batch, head and sequence strides (in elements) of q, k, v, g, dq, dk, dv,
-// in that order (21 values). Returns a cudaError_t as int.
+// dtype: 0 = float32, 1 = bfloat16. strides: the batch, head and sequence
+// strides (in elements) of q, k, v, g, dq, dk, dv, in that order (21
+// values). L above the short body's limit (128 in bf16, 112 in fp32) takes
+// the tiled pair of kernels, which needs `stats`: fp32 scratch of
+// hmmc_fused_attention_bwd_stats_floats(len, dtype) floats per (batch,
+// head), 16-byte aligned. Returns a cudaError_t as int.
 int hmmc_fused_attention_bwd(const void* q, const void* k, const void* v,
                              const void* g, void* dq, void* dk, void* dv,
                              int dtype, int batch, int heads, int len,
                              int head_dim, const long long* strides,
-                             int causal, void* stream) {
-  const int max_len = dtype == 1 ? kMaxLenBf16 : kMaxLenFp32;
-  if (head_dim != kHeadDim || len < 1 || len > max_len || batch < 1 ||
-      heads < 1 || strides == nullptr)
+                             float* stats, int causal, void* stream) {
+  const int short_max = dtype == 1 ? kMaxLenBf16 : kMaxLenFp32;
+  if (head_dim != kHeadDim || len < 1 || batch < 1 || heads < 1 ||
+      strides == nullptr || (len > short_max && stats == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Strides s[7];
   for (int i = 0; i < 7; ++i)
@@ -645,12 +1342,36 @@ int hmmc_fused_attention_bwd(const void* q, const void* k, const void* v,
   const Args a{q,    k,    v,    g,    dq,   dk,   dv,  heads, len,
                causal, s[0], s[1], s[2], s[3], s[4], s[5], s[6]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(dispatch_fp32(a, batch, st));
-  if (dtype == 1) return static_cast<int>(dispatch_mma(a, batch, st));
+  const bool tiled = len > short_max;
+  if (dtype == 0)
+    return static_cast<int>(tiled ? launch_fp32_tiled(a, batch, stats, st)
+                                  : dispatch_fp32(a, batch, st));
+  if (dtype == 1)
+    return static_cast<int>(tiled ? launch_tiled(a, batch, stats, st)
+                                  : dispatch_mma(a, batch, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The longest sequence the short (one CTA per head) body takes in this
+// dtype; longer ones take the tiled pair.
+int hmmc_fused_attention_bwd_short_max_len(int dtype) {
+  return dtype == 1 ? kMaxLenBf16 : kMaxLenFp32;
+}
+
+// fp32 scratch floats per (batch, head) the tiled pair needs (0: short).
+long long hmmc_fused_attention_bwd_stats_floats(int len, int dtype) {
+  return len > hmmc_fused_attention_bwd_short_max_len(dtype)
+             ? stats_floats(len)
+             : 0;
+}
+
+// Dynamic shared memory per CTA; for the tiled pair, the larger of the two.
 long long hmmc_fused_attention_bwd_smem_bytes(int len, int dtype) {
+  if (len > hmmc_fused_attention_bwd_short_max_len(dtype))
+    return static_cast<long long>(
+        dtype == 1 ? (kSmemRows > kSmemKeys ? kSmemRows : kSmemKeys)
+                   : (kSmemF32Rows > kSmemF32Keys ? kSmemF32Rows
+                                                  : kSmemF32Keys));
   return static_cast<long long>(dtype == 1 ? smem_bytes_mma(len)
                                            : smem_bytes_fp32(len));
 }

@@ -1,55 +1,85 @@
-// Fused attention forward for short sequences (K1), CUDA C++ for sm_90a.
+// Fused attention forward (K1), CUDA C++ for sm_90a, at any L.
 //
 // Replaces the TPU kernel `_attention_kernel` launched by `_flash_forward`
 // (hmmc_tpu/ops/pallas_attention.py). Same arithmetic, per (batch, head):
 //   logits = (q . k^T in fp32) * head_dim^-0.5     [causal: keep cols <= rows]
 //   P      = fp32 row softmax (max, exp, divide by the sum)
 //   o      = (P rounded to v's dtype) . v, fp32 accumulation, stored in q's dtype
-// No log-sum-exp is saved and no [L, L] tensor reaches device memory.
+// No log-sum-exp is saved and no [L, L] tensor reaches device memory. Two
+// bodies, chosen by L: the short ones (L <= 128, one CTA per head, the
+// whole row of keys on chip) and the tiled ones (L > 128).
 //
 // What bounds it on an H100: q, k, v and o, counted once each, are
 // 4*B*H*L*64 elements; the two products are 4*B*H*L*L*64 operations, about
-// 25 per byte at L = 50, far below the card's ~295 bf16 operations per byte.
-// So the work is bound by device-memory bytes: in bf16, 0.0704 ms at the
-// ViT-B/32 site [768, 12, 50], 0.0200 ms at the text site [512, 8, 32,
-// causal] and 0.0009 ms at the temporal site [64, 8, 12] (3.35 TB/s).
+// 25 per byte at L = 50 and 290 at L = 577, against the card's ~295 bf16
+// operations per byte. So at the short sites the bytes bound it: in bf16,
+// 0.0704 ms at the ViT-B/32 site [768, 12, 50], 0.0200 ms at the text site
+// [512, 8, 32, causal] and 0.0009 ms at the temporal site [64, 8, 12]
+// (3.35 TB/s); at the towers' sites bytes and operations meet: 0.0694 ms
+// (bytes) at ViT-B/16's [192, 12, 197], 0.0302 (bytes) at ViT-L/14's
+// [48, 16, 257], 0.0677 (bytes; 0.0662 operations at 989 TFLOPS) at
+// ViT-L/14@336px's [48, 16, 577].
 //
-// bf16 (the main path): `attention_fwd_mma_kernel`. A CTA of 4 warps takes
-// kHeadsPerCta = 2 consecutive (batch, head) pairs through a 2-stage ring:
-// while it computes head i from one stage, 16-byte cp.async copies bring
-// head i+1's q, k and v into the other. Of 1, 2, 4 and 8 heads per CTA, 2
-// was the fastest at the ViT site (PERF.md). Each stage holds q, k, v as bf16
-// [Lp][64] tiles (Lp = L rounded up to 16; rows past L zero-filled once),
-// swizzled so that the copies and ldmatrix reads are conflict-free
-// (attention_mma.cuh). Each warp owns 16 query rows: S = q . k^T runs on
-// the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate) with the
-// whole row of Lp <= 128 keys in registers; masked and padded keys go to
-// -inf, the row max and sum are quad shuffles, the row is scaled by the
-// reciprocal of its sum and rounded to bf16, and those fragments are the A
-// operand of P . v (v through ldmatrix.trans). That is the TPU kernel's
-// cast order (fp32 logits and softmax, normalise, round, fp32
-// accumulation) with no online softmax. The exponential is __expf
-// (ex2.approx of x log2 e) and the sum is inverted once per row: with the
-// IEEE expf and a divide per element the softmax, not the bytes, bounded
-// the kernel (0.125 against 0.086 ms at the ViT site, PERF.md). The output
-// goes through the warp's own q rows in shared memory and leaves as
-// 16-byte row stores.
+// bf16, L <= 128 (the short sites): `attention_fwd_mma_kernel`. A CTA of 4
+// warps takes kHeadsPerCta = 2 consecutive (batch, head) pairs through a
+// 2-stage ring: while it computes head i from one stage, 16-byte cp.async
+// copies bring head i+1's q, k and v into the other. Of 1, 2, 4 and 8
+// heads per CTA, 2 was the fastest at the ViT site (PERF.md). Each stage
+// holds q, k, v as bf16 [Lp][64] tiles (Lp = L rounded up to 16; rows past
+// L zero-filled once), swizzled so that the copies and ldmatrix reads are
+// conflict-free (attention_mma.cuh). Each warp owns 16 query rows: S = q .
+// k^T runs on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+// accumulate) with the whole row of Lp <= 128 keys in registers; masked
+// and padded keys go to -inf, the row max and sum are quad shuffles, the
+// row is scaled by the reciprocal of its sum and rounded to bf16, and
+// those fragments are the A operand of P . v (v through ldmatrix.trans).
+// That is the TPU kernel's cast order (fp32 logits and softmax, normalise,
+// round, fp32 accumulation) with no online softmax. The exponential is
+// __expf (ex2.approx of x log2 e) and the sum is inverted once per row:
+// with the IEEE expf and a divide per element the softmax, not the bytes,
+// bounded the kernel (0.125 against 0.086 ms at the ViT site, PERF.md).
+// The output goes through the warp's own q rows in shared memory and
+// leaves as 16-byte row stores.
 // Per CTA (ptxas -v on sm_90a): shared memory 2 stages x 3 tiles x Lp x
 // 128 bytes = 49,152 bytes at L = 50 (NT = 4, 4 CTAs an SM), 98,304 at
 // L = 128; 79 registers at NT = 4, 43-133 over NT = 1..8, no spills.
 //
-// fp32 (reference checks only): `attention_fwd_fp32_kernel`, the CUDA-core
-// body of the first version (one CTA per head, fp32 staging, fmaf loops).
-// The tensor cores would take fp32 only as TF32, which keeps ~10 bits and
+// bf16, L > 128 (the towers' ViT sites): `attention_fwd_tiled_kernel`, a
+// CTA of 4 warps per (64-row Q tile, batch * head). It stages its Q tile
+// and walks the head's 64-key tiles through a 2-stage cp.async ring (the
+// copies zero-fill rows past L), each warp holding its 16 rows' running
+// max and sum and a 16 x 64 fp32 output accumulator in registers (online
+// softmax, FlashAttention-2's loop): S = q . k^T on the tensor cores,
+// the tile's max, the accumulator rescaled by exp(m_old - m_new), P =
+// exp(s - m) rounded to bf16 and P . v added; one division by the row
+// sum at the end. So P is rounded before it is divided by the row sum,
+// where the plain version divides first: bf16 results are not bitwise the
+// plain version's (within one output ulp: atol 1e-2, rtol 2^-7), and the
+// short bodies stay for L <= 128 (every bitwise check of the earlier
+// paths, and at L = 50 the tiled body is 6% slower: hmmc_tpu_torch/tools/
+// attention_bodies.py). Only the tiles that hold a masked pair (the causal
+// diagonal, the ragged last tile) are masked, the logits stay unscaled
+// and exp((s - m) * scale) is one ex2 of an FMA (masking every tile
+// measured within the run-to-run spread at L = 577 here, 13% in K2:
+// hmmc_tpu_torch/tools/attention_split.py); causal skips the tiles past
+// the diagonal. Per CTA: 40,960 bytes of shared memory (Q and two
+// (K, V) stages), 96 registers, no spills.
+//
+// fp32 (reference checks only): `attention_fwd_fp32_kernel` (L <= 128),
+// the CUDA-core body of the first version (one CTA per head, fp32 staging,
+// fmaf loops), and `attention_fwd_fp32_tiled_kernel` (L > 128), the same
+// loops over 32-row Q tiles and 64-key tiles with an online softmax (each
+// warp keeps its 8 rows' max, sum and output in registers; IEEE expf). The
+// tensor cores would take fp32 only as TF32, which keeps ~10 bits and
 // would break the fp32 reference tolerances (2e-5 against the plain
 // version, 1e-3 card against CPU), so fp32 stays on the CUDA cores.
 //
 // Layout: q, k, v, o are [B, H, L, 64] with arbitrary batch/head/sequence
 // strides and unit stride on the last axis, so the caller can pass head
-// views of a packed qkv projection without copying; in bf16 every pointer
-// and stride must be 16-byte aligned (the wrapper checks). L <= 128.
-// The kernel launches on the caller's stream, allocates nothing, and the
-// entry point returns cudaGetLastError().
+// views of a packed qkv projection without copying; every pointer and
+// stride must be 16-byte aligned (the wrapper checks). The kernel launches
+// on the caller's stream, allocates nothing, and the entry point returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,7 +92,7 @@ using hmmc::kHeadDim;
 using hmmc::kScale;
 using hmmc::Strides;
 
-constexpr int kMaxLen = 128;
+constexpr int kMaxLen = 128;   // the short bodies' longest L
 constexpr int kMmaWarps = 4;   // warps of a bf16 CTA, each owning 16 rows
 constexpr int kHeadsPerCta = 2;   // (batch, head) pairs a bf16 CTA takes
 
@@ -233,6 +263,170 @@ cudaError_t dispatch_mma(const Args& a, cudaStream_t stream) {
     case 7: return launch_mma<7>(a, stream);
     default: return launch_mma<8>(a, stream);
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16, L > 128: Q tiles against a ring of KV tiles, online softmax
+// ---------------------------------------------------------------------------
+
+using hmmc::kTileBytes;
+using hmmc::kTileRows;
+
+// Logits of keys past L, or (causal) after their row, to -inf: a warp's
+// 16 x 64 C fragments of rows r and r + 8 against keys k0..k0+63.
+__device__ __forceinline__ void mask_tile(float (&s)[8][4], int k0, int r,
+                                          int len, int causal, int lane) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = k0 + 8 * n + 2 * (lane & 3) + e;
+      if (j >= len || (causal && j > r)) s[n][e] = -INFINITY;
+      if (j >= len || (causal && j > r + 8)) s[n][2 + e] = -INFINITY;
+    }
+}
+
+// CTA (blockIdx.y, blockIdx.x) = (Q tile, batch * head): 4 warps, 16 query
+// rows each. Shared memory: the Q tile, then two stages of (K, V) tiles.
+__global__ void __launch_bounds__(kMmaWarps * 32)
+attention_fwd_tiled_kernel(Args a) {
+  extern __shared__ uint4 smem_raw[];
+  char* smem = reinterpret_cast<char*>(smem_raw);
+  const uint32_t base = hmmc::smem_u32(smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int len = a.len, head = blockIdx.x, qt = blockIdx.y;
+  const int q0 = qt * kTileRows;
+  const int b = head / a.heads, hh = head - b * a.heads;
+  const __nv_bfloat16* kb = a.k + b * a.sk.b + hh * a.sk.h;
+  const __nv_bfloat16* vb = a.v + b * a.sv.b + hh * a.sv.h;
+  // causal: the KV tiles up to the diagonal one
+  const int n_kv = a.causal ? qt + 1 : (len + kTileRows - 1) / kTileRows;
+  auto issue = [&](int kt) {
+    const uint32_t dst = base + kTileBytes + (kt & 1) * 2 * kTileBytes;
+    hmmc::stage_tile(dst, kb, a.sk.l, kt * kTileRows, len);
+    hmmc::stage_tile(dst + kTileBytes, vb, a.sv.l, kt * kTileRows, len);
+  };
+  hmmc::stage_tile(base, a.q + b * a.sq.b + hh * a.sq.h, a.sq.l, q0, len);
+  issue(0);
+  hmmc::cp_async_commit();
+
+  const int r = q0 + 16 * warp + (lane >> 2);   // rows r and r + 8
+  float o[8][4], m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_kv; ++kt) {
+    if (kt + 1 < n_kv) issue(kt + 1);
+    hmmc::cp_async_commit();   // possibly empty: one group per tile
+    hmmc::cp_async_wait<1>();  // this tile's group (and Q) has landed
+    __syncthreads();
+    const uint32_t tk = base + kTileBytes + (kt & 1) * 2 * kTileBytes;
+    const uint32_t tv = tk + kTileBytes;
+    const int k0 = kt * kTileRows;
+    const bool diag = a.causal && kt == qt;   // keys of pair np > warp
+                                              // all lie after the rows
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kHeadDim / 16; ++ks) {
+      uint32_t qa[4];
+      hmmc::ldsm_x4(hmmc::a_addr(base, 16 * warp, ks, lane), qa);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (diag && np > warp) continue;
+        uint32_t kf[4];
+        hmmc::ldsm_x4(hmmc::b_addr(tk, 16 * np, ks, lane), kf);
+        hmmc::mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        hmmc::mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+      }
+    }
+    // masked and padded keys to -inf, on the tiles that hold any (the
+    // causal diagonal, the last tile of a ragged L); the tile's row max of
+    // the unscaled logits (key 0 is in the first tile and kept for every
+    // row, so the running max is finite from there on)
+    if (diag || k0 + kTileRows > len) mask_tile(s, k0, r, len, a.causal, lane);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+    const float mn0 = fmaxf(m0, hmmc::quad_max(mx0));
+    const float mn1 = fmaxf(m1, hmmc::quad_max(mx1));
+    const float al0 = hmmc::ex2((m0 - mn0) * hmmc::kScaleLog2);
+    const float al1 = hmmc::ex2((m1 - mn1) * hmmc::kScaleLog2);
+    m0 = mn0;
+    m1 = mn1;
+    const float c0 = m0 * hmmc::kScaleLog2, c1 = m1 * hmmc::kScaleLog2;
+    float t0 = 0.f, t1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[n][e] = hmmc::ex2(fmaf(s[n][e], hmmc::kScaleLog2, -c0));
+        s[n][2 + e] = hmmc::ex2(fmaf(s[n][2 + e], hmmc::kScaleLog2, -c1));
+        t0 += s[n][e];
+        t1 += s[n][2 + e];
+      }
+    l0 = l0 * al0 + t0;   // this lane's columns; summed over the quad
+    l1 = l1 * al1 + t1;   // at the end
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      o[n][0] *= al0;
+      o[n][1] *= al0;
+      o[n][2] *= al1;
+      o[n][3] *= al1;
+    }
+    // o += (P rounded to bf16) . v, P not yet divided by the row sum
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (diag && j > warp) continue;   // P = 0 there
+      const uint32_t pa[4] = {hmmc::pack_bf16(s[2 * j][0], s[2 * j][1]),
+                              hmmc::pack_bf16(s[2 * j][2], s[2 * j][3]),
+                              hmmc::pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                              hmmc::pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < kHeadDim / 16; ++dp) {
+        uint32_t vf[4];
+        hmmc::ldsm_x4_t(hmmc::bt_addr(tv, 16 * j, dp, lane), vf);
+        hmmc::mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
+        hmmc::mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();   // the stage is refilled two tiles on
+  }
+  const float inv0 = 1.f / hmmc::quad_sum(l0);
+  const float inv1 = 1.f / hmmc::quad_sum(l1);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    o[n][0] *= inv0;
+    o[n][1] *= inv0;
+    o[n][2] *= inv1;
+    o[n][3] *= inv1;
+  }
+  // only this warp reads its rows of the Q tile: stage o there
+  const int rows = len - q0;
+  __nv_bfloat16* ob = a.o + b * a.so.b + hh * a.so.h + q0 * a.so.l;
+  hmmc::frags_to_tile(smem, 16 * warp, o, rows, lane);
+  __syncwarp();
+  hmmc::tile_rows_to_global(smem, 16 * warp, ob, a.so.l, rows, lane);
+}
+
+constexpr size_t kSmemTiled = 5 * kTileBytes;   // Q, then 2 x (K, V)
+
+cudaError_t launch_tiled(const Args& a, cudaStream_t stream) {
+  static unsigned allowed = 0;
+  const cudaError_t err =
+      hmmc::allow_smem(attention_fwd_tiled_kernel, kSmemTiled, &allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.heads_total, (a.len + kTileRows - 1) / kTileRows);
+  attention_fwd_tiled_kernel<<<grid, kMmaWarps * 32, kSmemTiled, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -455,6 +649,170 @@ cudaError_t dispatch_fp32(const void* q, const void* k, const void* v,
   }
 }
 
+// fp32, L > 128: one CTA per (32-row Q tile, batch * head), KV tiles of 64
+// keys staged in turn, online softmax. Each warp owns 8 query rows for the
+// whole loop: their running max, sum and output stay in registers.
+constexpr int kF32Rows = 8;
+constexpr int kF32QTile = kWarps * kF32Rows;   // 32
+constexpr int kF32KTile = 64;
+
+__global__ void __launch_bounds__(kWarps * 32)
+attention_fwd_fp32_tiled_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                float* __restrict__ o, int heads, int len,
+                                Strides sq, Strides sk, Strides sv, Strides so,
+                                int causal) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* s_q = smem;                               // [32][64]
+  float* s_k = s_q + kF32QTile * kHeadDim;         // [64][68]
+  float* s_v = s_k + kF32KTile * kKStride;         // [64][64]
+  float* s_p = s_v + kF32KTile * kHeadDim;         // [kWarps][8][64]
+  const int head = blockIdx.x, q0 = blockIdx.y * kF32QTile;
+  const int b = head / heads, h = head - b * heads;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  float* ob = o + b * so.b + h * so.h;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // rows at or past len are staged as zeros (16-byte loads: the wrapper
+  // checks every pointer and stride is 16-byte aligned)
+  for (int c = threadIdx.x; c < kF32QTile * 16; c += blockDim.x) {
+    const int row = c >> 4, col = (c & 15) * 4;
+    const int i = q0 + row;
+    *reinterpret_cast<float4*>(s_q + row * kHeadDim + col) =
+        i < len ? *reinterpret_cast<const float4*>(qb + i * sq.l + col)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  const int i0 = q0 + warp * kF32Rows;   // the warp's first row
+  const float* q_rows = s_q + warp * kF32Rows * kHeadDim;
+  float* p_row = s_p + warp * kF32Rows * kF32KTile;
+  float m[kF32Rows], l[kF32Rows];
+  float2 out[kF32Rows];
+#pragma unroll
+  for (int r = 0; r < kF32Rows; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+    out[r] = make_float2(0.f, 0.f);
+  }
+  const int kv_end = causal ? min(len, q0 + kF32QTile) : len;
+  for (int k0 = 0; k0 < kv_end; k0 += kF32KTile) {
+    __syncthreads();   // the previous tile's readers are done
+    for (int c = threadIdx.x; c < kF32KTile * 16; c += blockDim.x) {
+      const int row = c >> 4, col = (c & 15) * 4;
+      const int j = k0 + row;
+      const bool in = j < len;
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(s_k + row * kKStride + col) =
+          in ? *reinterpret_cast<const float4*>(kb + j * sk.l + col) : z;
+      *reinterpret_cast<float4*>(s_v + row * kHeadDim + col) =
+          in ? *reinterpret_cast<const float4*>(vb + j * sv.l + col) : z;
+    }
+    __syncthreads();
+
+    // logits of the warp's rows against keys k0 + lane and k0 + lane + 32
+    float acc[kF32Rows][2];
+#pragma unroll
+    for (int r = 0; r < kF32Rows; ++r) acc[r][0] = acc[r][1] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < kHeadDim; d += 4) {
+      const float4 k0v =
+          *reinterpret_cast<const float4*>(s_k + lane * kKStride + d);
+      const float4 k1v =
+          *reinterpret_cast<const float4*>(s_k + (lane + 32) * kKStride + d);
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(q_rows + r * kHeadDim + d);
+        acc[r][0] = fmaf(qv.x, k0v.x, acc[r][0]);
+        acc[r][0] = fmaf(qv.y, k0v.y, acc[r][0]);
+        acc[r][0] = fmaf(qv.z, k0v.z, acc[r][0]);
+        acc[r][0] = fmaf(qv.w, k0v.w, acc[r][0]);
+        acc[r][1] = fmaf(qv.x, k1v.x, acc[r][1]);
+        acc[r][1] = fmaf(qv.y, k1v.y, acc[r][1]);
+        acc[r][1] = fmaf(qv.z, k1v.z, acc[r][1]);
+        acc[r][1] = fmaf(qv.w, k1v.w, acc[r][1]);
+      }
+    }
+    // online softmax per row: key 0 is in the first tile and kept for
+    // every row, so the running max is finite from there on
+#pragma unroll
+    for (int r = 0; r < kF32Rows; ++r) {
+      const int i = i0 + r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int j = k0 + lane + 32 * t;
+        const bool keep = j < len && (!causal || j <= i);
+        acc[r][t] = keep ? acc[r][t] * kScale : -INFINITY;
+        mx = fmaxf(mx, acc[r][t]);
+      }
+      const float mn = fmaxf(m[r], warp_max(mx));
+      const float al = expf(m[r] - mn);
+      m[r] = mn;
+      float ts = 0.f;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const float p = expf(acc[r][t] - mn);
+        p_row[r * kF32KTile + lane + 32 * t] = p;
+        ts += p;
+      }
+      l[r] = l[r] * al + warp_sum(ts);
+      out[r].x *= al;
+      out[r].y *= al;
+    }
+    __syncwarp();
+    // out += P . v: each lane owns output columns 2 lane and 2 lane + 1;
+    // keys past the end (and, causal, past the warp's last row) add 0
+    int jmax = min(kF32KTile, len - k0);
+    if (causal) jmax = min(jmax, i0 + kF32Rows - k0);
+    for (int j = 0; j < jmax; ++j) {
+      const float2 vv =
+          *reinterpret_cast<const float2*>(s_v + j * kHeadDim + 2 * lane);
+#pragma unroll
+      for (int r = 0; r < kF32Rows; ++r) {
+        const float p = p_row[r * kF32KTile + j];
+        out[r].x = fmaf(p, vv.x, out[r].x);
+        out[r].y = fmaf(p, vv.y, out[r].y);
+      }
+    }
+    __syncwarp();
+  }
+#pragma unroll
+  for (int r = 0; r < kF32Rows; ++r) {
+    const int i = i0 + r;
+    if (i < len) {
+      float* op = ob + i * so.l + 2 * lane;
+      op[0] = out[r].x / l[r];
+      op[1] = out[r].y / l[r];
+    }
+  }
+}
+
+constexpr size_t kSmemF32Tiled =
+    sizeof(float) * (kF32QTile * kHeadDim + kF32KTile * kKStride +
+                     kF32KTile * kHeadDim + kWarps * kF32Rows * kF32KTile);
+
+cudaError_t launch_fp32_tiled(const void* q, const void* k, const void* v,
+                              void* o, int batch, int heads, int len,
+                              Strides sq, Strides sk, Strides sv, Strides so,
+                              int causal, cudaStream_t stream) {
+  static unsigned allowed = 0;
+  const cudaError_t err = hmmc::allow_smem(attention_fwd_fp32_tiled_kernel,
+                                           kSmemF32Tiled, &allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * heads, (len + kF32QTile - 1) / kF32QTile);
+  attention_fwd_fp32_tiled_kernel<<<grid, kWarps * 32, kSmemF32Tiled,
+                                    stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), heads, len, sq,
+      sk, sv, so, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -468,15 +826,18 @@ int hmmc_fused_attention_fwd(const void* q, const void* k, const void* v,
                              long long v_sh, long long v_sl, long long o_sb,
                              long long o_sh, long long o_sl, int causal,
                              void* stream) {
-  if (head_dim != kHeadDim || len < 1 || len > kMaxLen || batch < 1 ||
-      heads < 1)
+  if (head_dim != kHeadDim || len < 1 || batch < 1 || heads < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{q_sb, q_sh, q_sl}, sk{k_sb, k_sh, k_sl},
       sv{v_sb, v_sh, v_sl}, so{o_sb, o_sh, o_sl};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tiled = len > kMaxLen;
   if (dtype == 0)
-    return static_cast<int>(dispatch_fp32(q, k, v, o, batch, heads, len, sq,
-                                          sk, sv, so, causal, s));
+    return static_cast<int>(
+        tiled ? launch_fp32_tiled(q, k, v, o, batch, heads, len, sq, sk, sv,
+                                  so, causal, s)
+              : dispatch_fp32(q, k, v, o, batch, heads, len, sq, sk, sv, so,
+                              causal, s));
   if (dtype == 1) {
     const Args a{static_cast<const __nv_bfloat16*>(q),
                  static_cast<const __nv_bfloat16*>(k),
@@ -484,12 +845,21 @@ int hmmc_fused_attention_fwd(const void* q, const void* k, const void* v,
                  static_cast<__nv_bfloat16*>(o),
                  heads, len, causal, batch * heads,
                  sq, sk, sv, so};
-    return static_cast<int>(dispatch_mma(a, s));
+    return static_cast<int>(tiled ? launch_tiled(a, s) : dispatch_mma(a, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The longest sequence the short (one CTA per head) bodies take; longer
+// ones take the tiled bodies.
+int hmmc_fused_attention_short_max_len(int dtype) {
+  (void)dtype;
+  return kMaxLen;
+}
+
 long long hmmc_fused_attention_smem_bytes(int len, int dtype) {
+  if (len > kMaxLen)
+    return static_cast<long long>(dtype == 1 ? kSmemTiled : kSmemF32Tiled);
   return static_cast<long long>(dtype == 1 ? smem_bytes_mma(len)
                                            : smem_bytes_fp32(len));
 }

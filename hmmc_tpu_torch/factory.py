@@ -72,10 +72,10 @@ def build_model(task: TaskConfig, cross: CrossConfig,
             "vision_layers=%s width=%d patch=%s", arch.embed_dim,
             arch.image_resolution, arch.vision_layers, arch.vision_width,
             arch.vision_patch_size or None)
-        if arch.is_resnet or arch.linear_patch != "2d":
+        if arch.is_resnet:
             raise NotImplementedError(
-                f"{clip_model_path} holds a ResNet or 3d-patch CLIP tower, "
-                "not ported yet (ROADMAP.md Queue A 10)")
+                f"{clip_model_path} holds a ResNet CLIP tower, not ported "
+                "yet (ROADMAP.md Queue A 10)")
     elif arch is None:
         arch = ClipArch.by_name(cross.pretrained_clip_name)
     common = dict(language=task.language, use_temp=task.use_temp,

@@ -1,8 +1,9 @@
 """Visual encoder: per-frame CLIP ViT + temporal transformer (counterpart
 of ``hmmc_tpu/models/visual.py``, module_cross.py:152-237).
 
-- every frame goes through the ViT; the per-frame features BEFORE the
-  temporal transformer are returned as ``frame_output``;
+- every frame goes through the ViT (the 3d tube patch takes the video
+  whole: its convolution spans neighbouring frames); the per-frame features
+  BEFORE the temporal transformer are returned as ``frame_output``;
 - with ``use_temp``: add the frame position embeddings (sized from the
   tower's output width), run the temporal transformer, add the residual.
   The reference's temporal mask is all ones, so no mask is applied; a
@@ -32,7 +33,7 @@ class VisualEncoder(nn.Module):
         if arch.is_resnet:
             raise NotImplementedError(
                 "ResNet CLIP towers are not ported yet (ROADMAP.md Queue A "
-                "10, 'Other towers')")
+                "10, 'Other towers': ModifiedResNet)")
         self.use_temp = use_temp
         self.dtype = dtype
         self.visual = VisionTransformer(arch, dtype, use_fused)
@@ -58,7 +59,10 @@ class VisualEncoder(nn.Module):
         None. Returns (video_feature [B, D] fp32, frame_output [B, F, D]
         fp32)."""
         b, f, h, w, c = video.shape
-        per_frame = self.visual(video.reshape(b * f, h, w, c))
+        if self.visual.arch.linear_patch == "3d":
+            per_frame = self.visual(video)
+        else:
+            per_frame = self.visual(video.reshape(b * f, h, w, c))
         hidden = per_frame.reshape(b, f, per_frame.shape[-1])
         frame_output = hidden
         if self.use_temp:

@@ -1,10 +1,13 @@
 """CLIP Vision Transformer (counterpart of ``hmmc_tpu/models/vit.py``).
 
-2d patch embedding -> class token + positional embedding -> ln_pre ->
+Patch embedding -> class token + positional embedding -> ln_pre ->
 pre-LN transformer -> ln_post on token 0 only -> proj, returned in fp32
-(module_clip.py:271-325, module_cross.py:222-237). The public input is
-NHWC ``[N, H, W, 3]`` as in JAX; the convolution reads it as a
-channels-last NCHW view.
+(module_clip.py:271-325, module_cross.py:222-237). The patch embedding is
+the 2d ``conv1`` (input NHWC ``[N, H, W, 3]``, as in JAX; the convolution
+reads it as a channels-last NCHW view) or, for ``linear_patch="3d"``, the
+tube ``conv2`` over a whole video (input ``[N, F, H, W, 3]``; kernel
+(3, p, p), stride (1, p, p), one frame of zero padding each side), whose
+``N * F`` frames then go through the transformer as the 2d path's.
 """
 
 from __future__ import annotations
@@ -22,14 +25,18 @@ class VisionTransformer(nn.Module):
     def __init__(self, arch: ClipArch, dtype: torch.dtype = torch.float32,
                  use_fused: bool = False):
         super().__init__()
-        if arch.linear_patch != "2d":
-            raise NotImplementedError(
-                "the 3d tube patch embedding is not ported yet (ROADMAP.md "
-                "Queue A 10, 'Other towers')")
+        if arch.linear_patch not in ("2d", "3d"):
+            raise ValueError(f"linear_patch must be '2d' or '3d'; got "
+                             f"{arch.linear_patch!r}")
         self.arch = arch
         self.dtype = dtype
         width, patch = arch.vision_width, arch.vision_patch_size
-        self.conv1 = nn.Conv2d(3, width, patch, patch, bias=False)
+        if arch.linear_patch == "3d":
+            self.conv2 = nn.Conv3d(3, width, (3, patch, patch),
+                                   (1, patch, patch), padding=(1, 0, 0),
+                                   bias=False)
+        else:
+            self.conv1 = nn.Conv2d(3, width, patch, patch, bias=False)
         self.class_embedding = nn.Parameter(torch.empty(width))
         self.positional_embedding = nn.Parameter(
             torch.empty(arch.grid_size ** 2 + 1, width))
@@ -41,7 +48,10 @@ class VisionTransformer(nn.Module):
 
     def reset_parameters(self, generator=None) -> None:
         patch = self.arch.vision_patch_size
-        lecun_normal_(self.conv1.weight, 3 * patch * patch, generator)
+        if self.arch.linear_patch == "3d":
+            lecun_normal_(self.conv2.weight, 3 * 3 * patch * patch, generator)
+        else:
+            lecun_normal_(self.conv1.weight, 3 * patch * patch, generator)
         scale = self.arch.vision_width ** -0.5
         for p in (self.class_embedding, self.positional_embedding, self.proj):
             normal_(p, scale, generator)
@@ -49,13 +59,21 @@ class VisionTransformer(nn.Module):
             m.reset_parameters(generator)
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        """pixels: [N, H, W, 3] normalized floats -> pooled [N, embed_dim]
-        fp32."""
+        """pixels: [N, H, W, 3] (3d: [N, F, H, W, 3]) normalized floats ->
+        pooled [N, embed_dim] (3d: [N * F, embed_dim]) fp32."""
         dtype = self.dtype
-        x = F.conv2d(pixels.to(dtype).permute(0, 3, 1, 2),
-                     self.conv1.weight.to(dtype),
-                     stride=self.arch.vision_patch_size)      # [N, W, gh, gw]
-        x = x.flatten(2).transpose(1, 2)                      # [N, gh*gw, W]
+        patch = self.arch.vision_patch_size
+        if self.arch.linear_patch == "3d":
+            x = F.conv3d(pixels.to(dtype).permute(0, 4, 1, 2, 3),
+                         self.conv2.weight.to(dtype), stride=(1, patch, patch),
+                         padding=(1, 0, 0))           # [N, W, F, gh, gw]
+            x = x.permute(0, 2, 3, 4, 1).flatten(0, 1)  # [N*F, gh, gw, W]
+            x = x.flatten(1, 2)                         # [N*F, gh*gw, W]
+        else:
+            x = F.conv2d(pixels.to(dtype).permute(0, 3, 1, 2),
+                         self.conv1.weight.to(dtype),
+                         stride=patch)                  # [N, W, gh, gw]
+            x = x.flatten(2).transpose(1, 2)            # [N, gh*gw, W]
         cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
         x = self.ln_pre(x)

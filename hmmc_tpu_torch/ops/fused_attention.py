@@ -5,12 +5,17 @@ joins them.
 Counterpart of ``fused_attention`` (a ``custom_vjp``), ``_flash_forward``
 and ``_flash_backward`` in ``hmmc_tpu/ops/pallas_attention.py``. The kernels
 are ``csrc/fused_attention_fwd.cu`` (K1: fp32 logits and softmax, P rounded
-to v's dtype, fp32 accumulation; L <= 128) and ``csrc/fused_attention_bwd.cu``
-(K2: P recomputed in fp32 and not rounded, dq / dk / dv accumulated in fp32;
-L <= 128 in bf16, 112 in fp32). Both take head_dim 64. In bfloat16 their
-products run on the tensor cores and heads are staged by 16-byte copies, so
-every pointer and batch / head / sequence stride must be 16-byte aligned;
-float32 (the reference checks) keeps a CUDA-core body, one CTA per head.
+to v's dtype, fp32 accumulation) and ``csrc/fused_attention_bwd.cu`` (K2: P
+recomputed in fp32 and not rounded, dq / dk / dv accumulated in fp32). Both
+take head_dim 64 and any L. Each has two bodies, chosen by L: the short one
+(one CTA per head, the whole [L, L] row block on chip) up to
+:data:`SHORT_MAX_LEN` (K2: :func:`short_max_len_backward`), and the tiled
+one past it (64-row tiles; K1 an online softmax over a ring of KV tiles, K2
+a rows pass that leaves fp32 row statistics in scratch and a keys pass, no
+atomics). In bfloat16 their products run on the tensor cores and heads are
+staged by 16-byte copies; every pointer and batch / head / sequence stride
+must be 16-byte aligned (float32, the reference checks, keeps CUDA-core
+bodies with 16-byte loads too).
 
 :func:`fused_attention` is the entry point: its forward is K1 and its
 backward K2, and it saves q, k and v for the backward as the JAX
@@ -18,7 +23,8 @@ backward K2, and it saves q, k and v for the backward as the JAX
 raises; a CPU tensor takes the plain forward and the plain backward, inside
 the same Function. There is no fallback from one to the other.
 ``fused_attention.launches`` and ``fused_attention_backward.launches`` count
-kernel launches.
+the wrappers' launches (a tiled K2 call, two kernels, counts once);
+``short_launches`` and ``tiled_launches`` on each split them by body.
 """
 
 from __future__ import annotations
@@ -31,10 +37,11 @@ from typing import Tuple
 import torch
 
 HEAD_DIM = 64
-MAX_LEN = 128            # K1
-MAX_LEN_BWD = 128        # K2 in bf16: q, k, v, g and P / dS (hi and lo)
-                         # staged in bf16 fit 227 KB of shared memory
-MAX_LEN_BWD_FP32 = 112   # K2 in fp32: its fp32 staging fits up to here
+SHORT_MAX_LEN = 128      # K1's short body's longest L; longer: the tiled
+SHORT_MAX_LEN_BWD = 128  # K2's short body in bf16: q, k, v, g and P / dS
+                         # (hi and lo) staged in bf16 fit 227 KB of shared
+                         # memory up to here
+SHORT_MAX_LEN_BWD_FP32 = 112   # K2's short body in fp32 (its fp32 staging)
 ALIGN = 16               # bytes: the bf16 kernels' copies are 16 bytes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -99,9 +106,18 @@ def _check_common(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"fused_attention runs on cuda or cpu; got {q.device}")
 
 
-def max_len_backward(dtype: torch.dtype) -> int:
-    """The longest sequence K2 takes in this dtype."""
-    return MAX_LEN_BWD_FP32 if dtype == torch.float32 else MAX_LEN_BWD
+def short_max_len_backward(dtype: torch.dtype) -> int:
+    """The longest sequence K2's short body takes in this dtype."""
+    return (SHORT_MAX_LEN_BWD_FP32 if dtype == torch.float32
+            else SHORT_MAX_LEN_BWD)
+
+
+def kernel_body(seq_len: int, dtype: torch.dtype,
+                backward: bool = False) -> str:
+    """"short" or "tiled": the body K1 (``backward``: K2) runs at this
+    length and dtype; the CUDA entry points choose by the same limits."""
+    limit = short_max_len_backward(dtype) if backward else SHORT_MAX_LEN
+    return "short" if seq_len <= limit else "tiled"
 
 
 def is_aligned(t: torch.Tensor) -> bool:
@@ -125,29 +141,23 @@ def _check_aligned(**tensors: torch.Tensor) -> None:
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor, max_len: int = MAX_LEN) -> None:
+                        v: torch.Tensor) -> None:
     """Raise unless the CUDA kernels take these shapes, dtypes, strides and
-    alignments (the device is checked by the caller). ``max_len`` is K1's
-    limit, or :func:`max_len_backward` where K2 will run too."""
+    alignments (the device is checked by the caller). Any L >= 1."""
     _check_common(q, k, v)
-    _check_kernel(q, k, v, max_len)
+    _check_kernel(q, k, v)
 
 
-def _check_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  max_len: int) -> None:
+def _check_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """:func:`check_kernel_inputs` after :func:`_check_common` passed."""
     b, h, l, d = q.shape
     if d != HEAD_DIM:
-        raise ValueError(f"the fused attention kernels take head_dim "
-                         f"{HEAD_DIM}; got {d}")
-    if not 1 <= l <= max_len:
         raise ValueError(
-            f"the fused attention kernels take 1 <= L <= {max_len} (forward: "
-            f"{MAX_LEN}; backward: {MAX_LEN_BWD} in bfloat16, "
-            f"{MAX_LEN_BWD_FP32} in float32); got L={l}. Longer sequences "
-            "(ViT-B/16, L=197; ViT-L/14@336px, "
-            "L=577) need the KV-loop versions of K1 and K2, listed in "
-            "ROADMAP.md Queue B")
+            f"the fused attention kernels take head_dim {HEAD_DIM}; got {d} "
+            "(the temporal transformer's is embed_dim / the cross config's "
+            "temporal_attention_heads: 12 heads at embed_dim 768)")
+    if l < 1:
+        raise ValueError(f"empty sequence: {tuple(q.shape)}")
     if b < 1 or h < 1:
         raise ValueError(f"empty batch or heads: {tuple(q.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -177,6 +187,8 @@ def _library() -> ctypes.CDLL:
     lib.hmmc_fused_attention_smem_bytes.restype = ctypes.c_longlong
     lib.hmmc_fused_attention_heads_per_cta.argtypes = [ctypes.c_int]
     lib.hmmc_fused_attention_heads_per_cta.restype = ctypes.c_int
+    lib.hmmc_fused_attention_short_max_len.argtypes = [ctypes.c_int]
+    lib.hmmc_fused_attention_short_max_len.restype = ctypes.c_int
     return lib
 
 
@@ -185,10 +197,15 @@ def _library_bwd() -> ctypes.CDLL:
     lib = _load("fused_attention_bwd")
     lib.hmmc_fused_attention_bwd.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p, ctypes.c_int,
+           ctypes.c_void_p])
     lib.hmmc_fused_attention_bwd.restype = ctypes.c_int
     lib.hmmc_fused_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.hmmc_fused_attention_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.hmmc_fused_attention_bwd_short_max_len.argtypes = [ctypes.c_int]
+    lib.hmmc_fused_attention_bwd_short_max_len.restype = ctypes.c_int
+    lib.hmmc_fused_attention_bwd_stats_floats.argtypes = [ctypes.c_int] * 2
+    lib.hmmc_fused_attention_bwd_stats_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -207,9 +224,19 @@ def kernel_heads_per_cta(dtype: torch.dtype) -> int:
 
 
 def kernel_bwd_smem_bytes(seq_len: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory K2 gives one CTA at this length and dtype."""
+    """Dynamic shared memory K2 gives one CTA at this length and dtype (the
+    tiled pair: the larger of its two kernels')."""
     return int(_library_bwd().hmmc_fused_attention_bwd_smem_bytes(
         seq_len, _DTYPE_CODES[dtype]))
+
+
+def kernel_short_max_len(dtype: torch.dtype, backward: bool = False) -> int:
+    """The short body's limit as the built library has it (K1, or K2 with
+    ``backward``), to hold against :func:`kernel_body`'s."""
+    code = _DTYPE_CODES[dtype]
+    if backward:
+        return int(_library_bwd().hmmc_fused_attention_bwd_short_max_len(code))
+    return int(_library().hmmc_fused_attention_short_max_len(code))
 
 
 def _raise_on(err: int, lib: ctypes.CDLL, what: str, q: torch.Tensor) -> None:
@@ -242,18 +269,25 @@ def _head_major(q: torch.Tensor) -> torch.Tensor:
                                dtype=q.dtype, device=q.device)
 
 
+def _count(fn, body: str) -> None:
+    fn.launches += 1
+    if body == "tiled":
+        fn.tiled_launches += 1
+    else:
+        fn.short_launches += 1
+
+
 def fused_attention_forward(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, causal: bool = False,
-                            max_len: int = MAX_LEN) -> torch.Tensor:
+                            v: torch.Tensor,
+                            causal: bool = False) -> torch.Tensor:
     """K1's wrapper, without autograd: q, k, v [B, H, L, D] -> [B, H, L, D]
     in q's dtype. CPU tensors take :func:`fused_attention_reference`; on
     CUDA the inputs may be strided views (head splits of a packed qkv
-    projection: no copy is made). ``max_len`` is the longest L accepted:
-    K1's limit, or :func:`max_len_backward` where K2 will run too."""
+    projection: no copy is made)."""
     _check_common(q, k, v)
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, causal)
-    _check_kernel(q, k, v, max_len)
+    _check_kernel(q, k, v)
     b, h, l, d = q.shape
     o = _head_major(q)
     _check_aligned(o=o)
@@ -266,7 +300,7 @@ def fused_attention_forward(q: torch.Tensor, k: torch.Tensor,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             int(bool(causal)), stream)
     _raise_on(err, lib, "fused attention forward", q)
-    fused_attention.launches += 1
+    _count(fused_attention, kernel_body(l, q.dtype))
     return o
 
 
@@ -278,7 +312,8 @@ def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
     take :func:`fused_attention_backward_reference`. On CUDA, q, k, v and g
     are read through their strides; a ``g`` whose last axis is not unit
     stride (an expanded gradient) or that is not 16-byte aligned is copied
-    once to a fresh contiguous tensor."""
+    once to a fresh contiguous tensor. The tiled body takes fp32 scratch
+    for its row statistics (3 x L rounded up to 64 floats per head)."""
     _check_common(q, k, v)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(
@@ -286,7 +321,7 @@ def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
             f"{g.dtype} {g.device} vs {tuple(q.shape)} {q.dtype} {q.device}")
     if q.device.type == "cpu":
         return fused_attention_backward_reference(q, k, v, g, causal)
-    _check_kernel(q, k, v, max_len_backward(q.dtype))
+    _check_kernel(q, k, v)
     if g.stride(-1) != 1 or not is_aligned(g):
         g = g.clone(memory_format=torch.contiguous_format)
     b, h, l, d = q.shape
@@ -296,15 +331,22 @@ def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
         q.stride()[:3] + k.stride()[:3] + v.stride()[:3] + g.stride()[:3]
         + dq.stride()[:3] * 3)
     lib = _library_bwd()
+    code = _DTYPE_CODES[q.dtype]
+    stats = None
+    per_head = lib.hmmc_fused_attention_bwd_stats_floats(l, code)
+    if per_head:
+        stats = torch.empty(b * h * per_head, dtype=torch.float32,
+                            device=q.device)
     with _on_device(q):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.hmmc_fused_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, h, l, d, strides, int(bool(causal)),
+            code, b, h, l, d, strides,
+            None if stats is None else stats.data_ptr(), int(bool(causal)),
             stream)
     _raise_on(err, lib, "fused attention backward", q)
-    fused_attention_backward.launches += 1
+    _count(fused_attention_backward, kernel_body(l, q.dtype, backward=True))
     return dq, dk, dv
 
 
@@ -314,13 +356,9 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        # K2's limit where a gradient will flow: fail here, not in the
-        # middle of the backward pass
-        max_len = (max_len_backward(q.dtype) if any(ctx.needs_input_grad[:3])
-                   else MAX_LEN)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v)
-        return fused_attention_forward(q, k, v, causal, max_len)
+        return fused_attention_forward(q, k, v, causal)
 
     @staticmethod
     def backward(ctx, g):
@@ -342,5 +380,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FusedAttention.apply(q, k, v, bool(causal))
 
 
-fused_attention.launches = 0
-fused_attention_backward.launches = 0
+def reset_launch_counts() -> None:
+    """Every launch counter of K1 and K2 to 0."""
+    for fn in (fused_attention, fused_attention_backward):
+        fn.launches = fn.short_launches = fn.tiled_launches = 0
+
+
+reset_launch_counts()

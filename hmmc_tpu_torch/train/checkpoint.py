@@ -11,7 +11,8 @@ name; an OpenAI CLIP file's keys get the port's tower prefixes
 (:func:`clip_to_port`). A file is a TorchScript archive (OpenAI's
 ``ViT-B-32.pt``: its module's ``state_dict()``) or a pickled state dict
 (read with ``weights_only=True``). Orbax directories (the JAX package's
-own training state) are not read.
+own training state) are not read. :func:`inflate_3d` turns a CLIP file's
+2d patch kernel into the 3d tube's.
 """
 
 from __future__ import annotations
@@ -66,6 +67,22 @@ def clip_to_port(sd: StateDict, language: str) -> StateDict:
             out["text_encoder.logit_scale"] = v
         elif language == "english" and k.startswith(_CLIP_TEXT):
             out["text_encoder." + k] = v
+    return out
+
+
+def inflate_3d(sd: StateDict, prefix: str = "visual") -> StateDict:
+    """``sd`` with its 2d patch kernel ``{prefix}.conv1.weight`` [O, I, kh,
+    kw] replaced by the 3d tube kernel ``{prefix}.conv2.weight`` [O, I, 3,
+    kh, kw] that holds it on the middle temporal tap and zeros on the other
+    two (the CLIP4Clip init for ``linear_patch="3d"``; the counterpart of
+    ``import_clip_visual(inflate_3d=True)``,
+    ``hmmc_tpu/train/checkpoint.py:151-176``). Apply it to an OpenAI CLIP
+    state dict before :func:`clip_to_port` to start a 3d tower from it."""
+    out = dict(sd)
+    conv = out.pop(f"{prefix}.conv1.weight")
+    tube = conv.new_zeros((*conv.shape[:2], 3, *conv.shape[2:]))
+    tube[:, :, 1] = conv
+    out[f"{prefix}.conv2.weight"] = tube
     return out
 
 

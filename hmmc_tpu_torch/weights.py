@@ -6,7 +6,8 @@ to the reference checkpoint's key names, which the port's modules use, so
 it. The mapping unstacks the scan-stacked ``[layers, ...]`` leaves,
 transposes ``[in, out]`` kernels to ``[out, in]`` (``in_proj_kernel``
 [D, 3D] -> ``in_proj_weight`` [3D, D]), turns the HWIO patch convolution
-into OIHW, and renames LayerNorm ``scale``/``bias`` to ``weight``/``bias``.
+into OIHW (the 3d tube's ``conv2``, [kt, kh, kw, I, O], into [O, I, kt, kh,
+kw]), and renames LayerNorm ``scale``/``bias`` to ``weight``/``bias``.
 Covers the English ViT ``BirdModel`` this port builds, and with
 :func:`from_jax_pretrain_state` a JAX ``PretrainState``: the
 ``BirdPretrainModel``'s projectors and predictor (``hidden_j`` / ``bn_j`` /
@@ -78,13 +79,17 @@ def _text(te: Dict, prefix: str, out: StateDict) -> None:
 
 def _visual(ve: Dict, prefix: str, out: StateDict) -> None:
     p = ve["visual"]
-    if "conv1" not in p:
+    if "conv1" not in p and "conv2" not in p:
         raise NotImplementedError(
-            "only the 2d-patch ViT tower is bridged (ResNet and 3d towers "
-            "are not ported yet)")
+            "only the ViT towers are bridged (ResNet towers are not ported "
+            "yet)")
     v = f"{prefix}visual."
-    out[f"{v}conv1.weight"] = _t(
-        np.asarray(p["conv1"]["kernel"]).transpose(3, 2, 0, 1))   # HWIO->OIHW
+    if "conv2" in p:   # the 3d tube: [kt, kh, kw, I, O] -> [O, I, kt, kh, kw]
+        out[f"{v}conv2.weight"] = _t(
+            np.asarray(p["conv2"]["kernel"]).transpose(4, 3, 0, 1, 2))
+    else:              # HWIO -> OIHW
+        out[f"{v}conv1.weight"] = _t(
+            np.asarray(p["conv1"]["kernel"]).transpose(3, 2, 0, 1))
     out[f"{v}class_embedding"] = _t(p["class_embedding"])
     out[f"{v}positional_embedding"] = _t(p["positional_embedding"])
     out[f"{v}proj"] = _t(p["proj"])

@@ -9,8 +9,10 @@ rtol 1e-3, its fused-gradient tolerance (values there reach ~10, the
 products of two unit-variance heads over 64 dims, scaled).
 
 The ``gpu`` tests hold the CUDA kernels against the plain versions on the
-card, and the gradients of an attention block on the card against the CPU;
-they skip without one.
+card, both bodies of each (short up to 128, or 112 for K2 in fp32, and
+tiled past it; the plain versions at the tiled bodies' lengths are held
+to JAX in tests/test_torch_model.py), and the gradients of an attention block on the card
+against the CPU; they skip without one.
 """
 
 import functools
@@ -26,10 +28,11 @@ from hmmc_tpu_torch.models.layers import ResidualAttentionBlock
 from hmmc_tpu_torch.ops.attention import causal_mask, multi_head_attention
 from hmmc_tpu_torch.ops import kernel_build
 from hmmc_tpu_torch.ops.fused_attention import (
-    MAX_LEN, MAX_LEN_BWD, MAX_LEN_BWD_FP32, check_kernel_inputs,
-    fused_attention, fused_attention_backward,
+    SHORT_MAX_LEN, SHORT_MAX_LEN_BWD, SHORT_MAX_LEN_BWD_FP32,
+    check_kernel_inputs, fused_attention, fused_attention_backward,
     fused_attention_backward_reference, fused_attention_reference,
-    kernel_heads_per_cta, max_len_backward)
+    kernel_body, kernel_heads_per_cta, kernel_short_max_len,
+    reset_launch_counts, short_max_len_backward)
 
 ATOL, RTOL = 2e-5, 1e-4
 GRAD_ATOL, GRAD_RTOL = 5e-5, 1e-3
@@ -199,7 +202,7 @@ def test_wrapper_rejects_bad_inputs(case):
 
 @pytest.mark.parametrize("shape,match", [
     ((2, 2, 8, 32), "head_dim"),
-    ((2, 2, 129, 64), "KV-loop"),
+    ((2, 2, 0, 64), "empty sequence"),
     ((2, 0, 8, 64), "empty"),
 ])
 def test_kernel_input_checks(shape, match):
@@ -208,17 +211,33 @@ def test_kernel_input_checks(shape, match):
         check_kernel_inputs(x, x, x)
 
 
+@pytest.mark.parametrize("l", [129, 577, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_input_checks_take_any_length(dtype, l):
+    """No length limit: past the short bodies the tiled ones run."""
+    x = torch.zeros(2, 2, l, 64, dtype=dtype)
+    check_kernel_inputs(x, x, x)
+    assert kernel_body(l, dtype) == kernel_body(l, dtype, True) == "tiled"
+
+
 def test_backward_input_checks():
-    x = torch.zeros(2, 2, MAX_LEN_BWD_FP32 + 1, 64)
-    check_kernel_inputs(x, x, x)                      # K1 takes it
-    with pytest.raises(ValueError, match="KV-loop"):  # K2 in fp32 does not
-        check_kernel_inputs(x, x, x, max_len_backward(x.dtype))
-    xb = x.bfloat16()                                 # K2 in bf16 does
-    check_kernel_inputs(xb, xb, xb, max_len_backward(xb.dtype))
-    assert max_len_backward(torch.bfloat16) == MAX_LEN_BWD == MAX_LEN
-    xl = torch.zeros(2, 2, MAX_LEN_BWD + 1, 64, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="KV-loop"):
-        check_kernel_inputs(xl, xl, xl, max_len_backward(xl.dtype))
+    """Each body's range: K1 short up to 128, K2 up to 128 in bf16 and 112
+    in fp32, tiled past (the CUDA entry points hold the same limits, see
+    test_kernel_bodies_and_counters_on_card)."""
+    assert SHORT_MAX_LEN == SHORT_MAX_LEN_BWD == 128
+    assert short_max_len_backward(torch.bfloat16) == SHORT_MAX_LEN_BWD
+    assert short_max_len_backward(torch.float32) == SHORT_MAX_LEN_BWD_FP32
+    for dtype, bwd_limit in ((torch.float32, SHORT_MAX_LEN_BWD_FP32),
+                             (torch.bfloat16, SHORT_MAX_LEN_BWD)):
+        for l, fwd, bwd in ((1, "short", "short"),
+                            (bwd_limit, "short", "short"),
+                            (bwd_limit + 1, "short" if bwd_limit
+                             < SHORT_MAX_LEN else "tiled", "tiled"),
+                            (SHORT_MAX_LEN + 1, "tiled", "tiled")):
+            assert kernel_body(l, dtype) == fwd, (dtype, l)
+            assert kernel_body(l, dtype, backward=True) == bwd, (dtype, l)
+    x = torch.zeros(2, 2, SHORT_MAX_LEN_BWD_FP32 + 1, 64)
+    check_kernel_inputs(x, x, x)   # K1's short body, K2's tiled one
     y = torch.zeros(2, 2, 8, 64)
     with pytest.raises(ValueError, match="g must match"):
         fused_attention_backward(y, y, y, y[:, :, :4])
@@ -309,6 +328,8 @@ def cuda():
     (4, 3, 77, True),
     (4, 3, 128, False),
     (3, 2, 1, False),
+    (96, 12, 197, False),      # ViT-B/16, 8 clips x 12 frames
+    (96, 16, 577, False),      # ViT-L/14@336px, 8 clips x 12 frames
 ])
 def test_kernel_matches_plain_on_card(cuda, dtype, b, h, l, causal):
     g = torch.Generator(device=cuda).manual_seed(l)
@@ -334,8 +355,10 @@ def test_kernel_matches_plain_on_card(cuda, dtype, b, h, l, causal):
     (64, 8, 32, True),         # text, causal
     (64, 8, 12, False),        # temporal transformer
     (4, 3, 77, True),
-    (4, 3, MAX_LEN_BWD_FP32, False),
+    (4, 3, SHORT_MAX_LEN_BWD_FP32, False),
     (3, 2, 1, False),
+    (48, 16, 257, False),      # ViT-L/14, 4 clips x 12 frames
+    (48, 16, 577, False),      # ViT-L/14@336px, 4 clips x 12 frames
 ])
 def test_backward_kernel_matches_plain_on_card(cuda, dtype, b, h, l, causal):
     """K2 on the main path's layout (head views of a packed qkv output, the
@@ -361,13 +384,15 @@ def test_backward_kernel_matches_plain_on_card(cuda, dtype, b, h, l, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("l", [50, 577])
 @pytest.mark.parametrize("causal", [False, True])
-def test_attention_block_gradients_on_card_match_cpu(cuda, causal):
+def test_attention_block_gradients_on_card_match_cpu(cuda, causal, l):
     """Every parameter of an attention block, and its input, gets on the
     card the gradient the CPU gives (fp32, TF32 off; sums in another
-    order). The kernel's output must carry the graph: an output written
-    outside autograd leaves the qkv projection and everything below the
-    attention without a gradient."""
+    order), through the short bodies (L = 50) and the tiled ones (L = 577,
+    ViT-L/14@336px). The kernel's output must carry the graph: an output
+    written outside autograd leaves the qkv projection and everything below
+    the attention without a gradient."""
     torch.manual_seed(0)
     cpu = ResidualAttentionBlock(128, 2, causal=causal, use_fused=True)
     cpu.reset_parameters(torch.Generator().manual_seed(1))
@@ -375,12 +400,12 @@ def test_attention_block_gradients_on_card_match_cpu(cuda, causal):
     card.load_state_dict(cpu.state_dict())
     card.to(cuda)
     rng = np.random.default_rng(2)
-    x = _normal(rng, 3, 50, 128)
-    w = _normal(rng, 3, 50, 128)
+    x = _normal(rng, 3, l, 128)
+    w = _normal(rng, 3, l, 128)
     grads, launches = {}, {}
     for name, block, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
         xt = torch.tensor(x, device=dev, requires_grad=True)
-        mask = causal_mask(50, device=dev) if causal else None
+        mask = causal_mask(l, device=dev) if causal else None
         before = fused_attention_backward.launches
         (block(xt, mask) * torch.tensor(w, device=dev)).sum().backward()
         launches[name] = fused_attention_backward.launches - before
@@ -394,9 +419,12 @@ def test_attention_block_gradients_on_card_match_cpu(cuda, causal):
                                    msg=n)
 
 
-# every edge of the 16-row / 8-key mma tiles, up to the kernels' limits
+# every edge of the 16-row / 8-key mma tiles up to the short bodies' limits,
+# both sides of each limit, and the tiled bodies' 64-row tile edges up to
+# ViT-L/14@336px's 577 and an odd length past it
 SWEEP_LENGTHS = [1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 49, 50, 63, 64, 65, 77,
-                 96, 112, 128]
+                 96, 112, 113, 128, 129, 160, 191, 192, 193, 197, 256, 257,
+                 577, 613]
 # 3 x 5 = 15 heads: not a multiple of K1's heads per CTA
 SWEEP_B, SWEEP_H = 3, 5
 
@@ -423,7 +451,17 @@ def _assert_close_on_card(got, ref, dtype, grad=False):
 
 
 def test_sweep_lengths_reach_the_limits():
-    assert max(SWEEP_LENGTHS) == MAX_LEN == MAX_LEN_BWD
+    """The sweep takes each body on both sides of each limit, the towers'
+    lengths, and an odd length past the longest."""
+    for limit in (SHORT_MAX_LEN, SHORT_MAX_LEN_BWD_FP32):
+        assert limit in SWEEP_LENGTHS and limit + 1 in SWEEP_LENGTHS
+    for l in (197, 257, 577):   # ViT-B/16, ViT-L/14, ViT-L/14@336px
+        assert l in SWEEP_LENGTHS
+    assert max(SWEEP_LENGTHS) > 577 and max(SWEEP_LENGTHS) % 2 == 1
+    bodies = {(kernel_body(l, d), kernel_body(l, d, True))
+              for l in SWEEP_LENGTHS for d in (torch.float32, torch.bfloat16)}
+    assert bodies == {("short", "short"), ("short", "tiled"),
+                      ("tiled", "tiled")}
 
 
 @pytest.mark.gpu
@@ -439,13 +477,17 @@ def test_sweep_shapes_cross_heads_per_cta(cuda):
 @pytest.mark.parametrize("l", SWEEP_LENGTHS)
 def test_kernel_length_sweep_on_card(cuda, dtype, causal, l):
     """K1 at every tile edge, on packed head views, and bitwise equal over
-    two launches."""
+    two launches; the launches counted on the body the length takes."""
     q, k, v, _ = _packed_qkv(cuda, dtype, SWEEP_B, SWEEP_H, l, l)
-    before = fused_attention.launches
+    body = kernel_body(l, dtype)
+    before = (fused_attention.launches,
+              getattr(fused_attention, f"{body}_launches"))
     out = fused_attention(q, k, v, causal)
     again = fused_attention(q, k, v, causal)
     torch.cuda.synchronize()
-    assert fused_attention.launches == before + 2
+    assert (fused_attention.launches,
+            getattr(fused_attention, f"{body}_launches")) == (
+                before[0] + 2, before[1] + 2)
     assert torch.equal(out, again)
     _assert_close_on_card(out, fused_attention_reference(q, k, v, causal),
                           dtype)
@@ -456,19 +498,19 @@ def test_kernel_length_sweep_on_card(cuda, dtype, causal, l):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("l", SWEEP_LENGTHS)
 def test_backward_kernel_length_sweep_on_card(cuda, dtype, causal, l):
-    """K2 at every tile edge up to its limit in the dtype (a longer
-    sequence raises), with the output gradient a transposed view, and
-    bitwise equal over two launches."""
+    """K2 at every tile edge of both bodies, with the output gradient a
+    transposed view, and bitwise equal over two launches (neither body has
+    atomics); the launches counted on the body the length takes."""
     q, k, v, go = _packed_qkv(cuda, dtype, SWEEP_B, SWEEP_H, l, 1000 + l)
-    if l > max_len_backward(dtype):
-        with pytest.raises(ValueError, match="KV-loop"):
-            fused_attention_backward(q, k, v, go, causal)
-        return
-    before = fused_attention_backward.launches
+    body = kernel_body(l, dtype, backward=True)
+    before = (fused_attention_backward.launches,
+              getattr(fused_attention_backward, f"{body}_launches"))
     got = fused_attention_backward(q, k, v, go, causal)
     again = fused_attention_backward(q, k, v, go, causal)
     torch.cuda.synchronize()
-    assert fused_attention_backward.launches == before + 2
+    assert (fused_attention_backward.launches,
+            getattr(fused_attention_backward, f"{body}_launches")) == (
+                before[0] + 2, before[1] + 2)
     ref = fused_attention_backward_reference(q, k, v, go, causal)
     for a, b, r in zip(got, again, ref):
         assert torch.equal(a, b)
@@ -495,3 +537,21 @@ def test_misaligned_inputs_on_card(cuda):
     for a, b in zip(fused_attention_backward(q, k, v, odd_g),
                     fused_attention_backward(q, k, v, go)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_kernel_bodies_and_counters_on_card(cuda):
+    """The built libraries hold the short bodies' limits the wrapper
+    dispatches by, and each body's counter moves only for its launches."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert kernel_short_max_len(dtype) == SHORT_MAX_LEN
+        assert kernel_short_max_len(dtype, backward=True) == \
+            short_max_len_backward(dtype)
+    reset_launch_counts()
+    for l in (50, 577):
+        q, k, v, go = _packed_qkv(cuda, torch.bfloat16, 2, 3, l, l)
+        fused_attention(q, k, v)
+        fused_attention_backward(q, k, v, go)
+    torch.cuda.synchronize()
+    for fn in (fused_attention, fused_attention_backward):
+        assert (fn.launches, fn.short_launches, fn.tiled_launches) == (2, 1, 1)

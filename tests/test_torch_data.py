@@ -120,7 +120,7 @@ R1_SWEEP = [(341, 256), (256, 341), (320, 240), (640, 360), (1280, 720),
             (17, 300), (225, 224), (224, 500), (35, 1)]
 
 
-@pytest.mark.parametrize("res", [32, 224])
+@pytest.mark.parametrize("res", [32, 224, 336])   # 336: ViT-L/14@336px
 def test_resize_crop_reference_equals_pil(res):
     rng = np.random.default_rng(res)
     for w, h in R1_SWEEP:
@@ -384,6 +384,11 @@ def test_fixture_holds_pil_decodes_and_jax_crops(reference):
         np.testing.assert_array_equal(jds._decode_eval(b, 224), c)
     np.testing.assert_array_equal(
         jpeg.decode_frames(blobs, 224, "cpu").numpy(), np.stack(crops))
+    # at 336 (ViT-L/14@336px: the store's frames up-scaled) the CPU decode,
+    # PIL's and R1's plain version, is the JAX package's eval decode
+    np.testing.assert_array_equal(
+        jpeg.decode_frames(blobs, 336, "cpu").numpy(),
+        np.stack([jds._decode_eval(b, 336) for b in blobs]))
 
 
 def _with_segment(blob, marker, payload):

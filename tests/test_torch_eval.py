@@ -234,7 +234,9 @@ def test_port_imports_nothing_of_jax():
                  os.path.join("ops", "resize_area.py"),
                  os.path.join("parallel", "distributed.py"),
                  os.path.join("train", "state_io.py"),
-                 os.path.join("utils", "preemption.py")):
+                 os.path.join("utils", "preemption.py"),
+                 os.path.join("tools", "attention_bodies.py"),
+                 os.path.join("tools", "attention_split.py")):
         assert os.path.join(REPO, "hmmc_tpu_torch", name) in files, name
     for path in files:
         with open(path, encoding="utf-8") as fh:

@@ -7,27 +7,44 @@ go through both. Tolerance: 1e-4 absolute in fp32, as in
 tests/test_full_parity.py. With ``use_pallas`` the JAX kernel runs in
 interpret mode and the port's ``fused_attention`` takes its plain version.
 
+The towers past the ViT-B/32 geometry: a tiny tower whose patch grid
+gives L = 170 (> 128, no multiple of 64: the tiled kernels' lengths, their
+plain versions here) forward and through one fine-tune step, the 3d tube
+patch embedding with its CLIP inflate, and the architecture read from
+shape-only OpenAI state dicts of ViT-B/16, ViT-L/14 and ViT-L/14@336px.
+The fine-tune step's tolerances are tests/test_torch_train.py's: loss atol
+1e-4, each gradient within 1e-3 of its own largest magnitude.
+
 The tokenizer copy (stdlib ``re`` instead of ``regex``) must give the JAX
 tokenizer's ids.
 """
 
 import functools
 import sys
+import types
 import unicodedata
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
 import hmmc_tpu.ops.pallas_attention as pa
+from hmmc_tpu.config import CLIP_ARCH as JAX_CLIP_ARCH
 from hmmc_tpu.config import ClipArch as JaxClipArch
 from hmmc_tpu.config import CrossConfig as JaxCrossConfig
 from hmmc_tpu.models.retrieval import BirdModel as JaxBirdModel
+from hmmc_tpu.train import optimization as jax_opt
+from hmmc_tpu.train.trainer import FinetuneState as JaxFinetuneState
+from hmmc_tpu.train.trainer import make_finetune_step as jax_finetune_step
 from hmmc_tpu_torch.config import ClipArch, CrossConfig, TaskConfig
 from hmmc_tpu_torch.factory import build_model
 from hmmc_tpu_torch.models.retrieval import BirdModel
+from hmmc_tpu_torch.train import checkpoint as ckpt_io
+from hmmc_tpu_torch.train import optimization as opt
+from hmmc_tpu_torch.train.trainer import FinetuneState, make_finetune_step
 from hmmc_tpu_torch.weights import from_jax_params
 
 # tiny geometry of tests/test_full_parity.py (ViT-B/32 ratios, shrunk)
@@ -166,15 +183,244 @@ def test_build_model_seeded_and_on_cpu(jax_params):
 
 @pytest.mark.parametrize("what", ["3d", "resnet", "chinese"])
 def test_unported_paths_raise(what):
+    """ResNet towers and the Chinese text tower raise naming the ROADMAP;
+    the 3d tube patch is ported and builds its ``conv2`` (and no
+    ``conv1``), as the JAX tower does."""
     cross = CrossConfig(**CROSS_KW)
     if what == "3d":
-        arch, lang = ClipArch(**ARCH_KW, linear_patch="3d"), "english"
-    elif what == "resnet":
+        model = BirdModel(ClipArch(**ARCH_KW, linear_patch="3d"), cross)
+        names = set(model.state_dict())
+        assert "visual_encoder.visual.conv2.weight" in names
+        assert "visual_encoder.visual.conv1.weight" not in names
+        return
+    if what == "resnet":
         arch, lang = ClipArch.by_name("RN50"), "english"
     else:
         arch, lang = ClipArch(**ARCH_KW), "chinese"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BirdModel(arch, cross, language=lang)
+
+
+# ---------------------------------------------------------------------------
+# towers past ViT-B/32: a long patch sequence, the 3d tube, the CLIP zoo
+# ---------------------------------------------------------------------------
+
+# 52 px in patches of 4: a 13 x 13 grid, L = 170; widths 128 (head_dim 64)
+LONG_ARCH_KW = dict(ARCH_KW, image_resolution=52, vision_patch_size=4,
+                    vision_width=128, embed_dim=64, transformer_width=128)
+LONG_CROSS_KW = dict(CROSS_KW, temporal_hidden_size=64)
+LONG_B, LONG_FRAMES = 2, 2
+GRAD_REL = 1e-3
+STEP_LOSS_ATOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def long_params():
+    arch = JaxClipArch(**LONG_ARCH_KW)
+    assert arch.grid_size ** 2 + 1 == 170
+    model = JaxBirdModel(arch, JaxCrossConfig(**LONG_CROSS_KW))
+    params = jax.jit(model.init)(
+        jax.random.PRNGKey(3), jnp.zeros((1, CTX), jnp.int32),
+        jnp.ones((1, CTX), jnp.int32),
+        jnp.zeros((1, LONG_FRAMES, 52, 52, 3), jnp.float32))["params"]
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def _long_batch():
+    rng = np.random.default_rng(17)
+    ids = rng.integers(1, 400, size=(LONG_B, CTX)).astype(np.int32)
+    mask = np.ones((LONG_B, CTX), np.int32)
+    for r in range(LONG_B):
+        ids[r, 0] = 1
+        ids[r, 5 + r] = VOCAB - 1      # EOT, the row max
+        ids[r, 6 + r:] = 0
+        mask[r, 6 + r:] = 0
+    video = rng.normal(size=(LONG_B, LONG_FRAMES, 52, 52, 3))
+    return {"query_ids": ids, "query_mask": mask,
+            "video": video.astype(np.float32)}
+
+
+def _long_port_model(params):
+    model = BirdModel(ClipArch(**LONG_ARCH_KW), CrossConfig(**LONG_CROSS_KW),
+                      use_fused=True)
+    model.load_state_dict(from_jax_params(params), strict=True)
+    return model
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [129, 197, 257, 577])
+def test_plain_kernels_match_jax_at_tower_lengths(l, causal):
+    """K1's and K2's plain versions (the CPU path of the tiled bodies) at
+    one past the short bodies and at ViT-B/16's, ViT-L/14's and
+    ViT-L/14@336px's lengths against the JAX kernels in interpret mode.
+    fp32 tolerances of tests/test_torch_attention.py: outputs atol 2e-5,
+    rtol 1e-4; gradients atol 5e-5, rtol 1e-3."""
+    from hmmc_tpu_torch.ops.fused_attention import (
+        fused_attention_backward_reference, fused_attention_reference)
+
+    rng = np.random.default_rng(l + causal)
+    q, k, v, g = (rng.normal(size=(1, 2, l, 64)).astype(np.float32)
+                  for _ in range(4))
+    out = fused_attention_reference(*(torch.tensor(t) for t in (q, k, v)),
+                                    causal)
+    ref = pa.fused_attention(*(jnp.asarray(t) for t in (q, k, v)), causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5,
+                               rtol=1e-4)
+    grads = fused_attention_backward_reference(
+        *(torch.tensor(t) for t in (q, k, v, g)), causal)
+    refs = pa._flash_backward(*(jnp.asarray(t) for t in (q, k, v, g)), causal)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=5e-5,
+                                   rtol=1e-3, err_msg=name)
+
+
+def test_long_sequence_tower_matches_jax(long_params):
+    """L = 170 through the fused attention (JAX: its Pallas kernel in
+    interpret mode; the port: the plain version of the tiled bodies)."""
+    video = _long_batch()["video"]
+    jmodel = JaxBirdModel(JaxClipArch(**LONG_ARCH_KW),
+                          JaxCrossConfig(**LONG_CROSS_KW), use_pallas=True)
+    v_ref, f_ref = jmodel.apply({"params": long_params}, jnp.asarray(video),
+                                method="encode_video")
+    with torch.no_grad():
+        v, f = _long_port_model(long_params).eval().encode_video(
+            torch.tensor(video))
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), atol=ATOL)
+    np.testing.assert_allclose(f.numpy(), np.asarray(f_ref), atol=ATOL)
+
+
+def _grab_grads():
+    """An optax stage that keeps the latest gradients in its state."""
+    return optax.GradientTransformation(
+        lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
+        lambda g, s, p=None: (g, g))
+
+
+def test_long_sequence_finetune_step_matches_jax(long_params):
+    """One fine-tune step at L = 170: loss, grad norm and every gradient
+    against the JAX step (fused attention on both sides)."""
+    kw = dict(lr=1e-3, text_lr=1e-4, coef_lr=0.5, weight_decay=0.2,
+              warmup_proportion=0.1)
+    cross = JaxCrossConfig(**LONG_CROSS_KW)
+    jmodel = JaxBirdModel(JaxClipArch(**LONG_ARCH_KW), cross,
+                          use_pallas=True)
+    tx = optax.chain(_grab_grads(), jax_opt.build_optimizer(
+        long_params, t_total=4, **kw))
+    jstep = jax_finetune_step(jmodel, tx, cross, use_frame_fea=True)
+    host = _long_batch()
+    jstate, jmetrics = jstep(JaxFinetuneState.create(
+        jax.tree_util.tree_map(jnp.asarray, long_params), tx),
+        {k: jnp.asarray(v) for k, v in host.items()})
+
+    model = _long_port_model(long_params)
+    state = FinetuneState(model, opt.build_optimizer(
+        model.named_parameters(), t_total=4, **kw))
+    step = make_finetune_step(CrossConfig(**LONG_CROSS_KW), use_frame_fea=True)
+    batch = {k: torch.from_numpy(v) for k, v in host.items()}
+    batch["query_ids"] = batch["query_ids"].long()
+    state, metrics = step(state, batch)
+    for k in ("loss", "sim_loss", "frame_loss"):
+        np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]),
+                                   atol=STEP_LOSS_ATOL, err_msg=k)
+    np.testing.assert_allclose(float(metrics["grad_norm"]),
+                               float(jmetrics["grad_norm"]), rtol=GRAD_REL)
+    named = dict(model.named_parameters())
+    grads = from_jax_params(jax.tree_util.tree_map(np.asarray,
+                                                   jstate.opt_state[0]))
+    for n, ref in grads.items():
+        got = named[n].grad
+        if n.endswith("logit_scale"):
+            assert got is None and float(ref) == 0.0
+            continue
+        err = float((got - ref).abs().max())
+        assert err <= GRAD_REL * float(ref.abs().max()), (n, err)
+
+
+def test_tube_tower_matches_jax():
+    """The 3d tube patch (kernel (3, p, p), stride (1, p, p), a frame of
+    zero padding each side) and the tower after it, across the bridge
+    (``conv2`` [kt, kh, kw, I, O] -> [O, I, kt, kh, kw])."""
+    arch_kw = dict(ARCH_KW, linear_patch="3d")
+    jmodel = JaxBirdModel(JaxClipArch(**arch_kw), JaxCrossConfig(**CROSS_KW),
+                          use_pallas=True)
+    rng = np.random.default_rng(23)
+    video = rng.normal(size=(B, FRAMES, RES, RES, 3)).astype(np.float32)
+    params = jax.tree_util.tree_map(np.asarray, jax.jit(jmodel.init)(
+        jax.random.PRNGKey(9), jnp.zeros((1, CTX), jnp.int32),
+        jnp.ones((1, CTX), jnp.int32),
+        jnp.zeros((1, FRAMES, RES, RES, 3), jnp.float32))["params"])
+    assert "conv2" in params["visual_encoder"]["visual"]
+    v_ref, f_ref = jmodel.apply({"params": params}, jnp.asarray(video),
+                                method="encode_video")
+    model = BirdModel(ClipArch(**arch_kw), CrossConfig(**CROSS_KW),
+                      use_fused=True)
+    model.load_state_dict(from_jax_params(params), strict=True)
+    with torch.no_grad():
+        v, f = model.eval().encode_video(torch.tensor(video))
+    assert f.shape == (B, FRAMES, EMB)
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), atol=ATOL)
+    np.testing.assert_allclose(f.numpy(), np.asarray(f_ref), atol=ATOL)
+
+
+def test_inflate_3d_matches_jax_import(jax_params):
+    """``checkpoint.inflate_3d`` of an OpenAI-named state dict gives the
+    tube kernel ``import_clip_visual(inflate_3d=True)`` gives (centre tap),
+    and the inflated file loads into a 3d tower."""
+    from hmmc_tpu.train.checkpoint import import_clip_visual
+
+    port = _port_model(jax_params, use_fused=True).state_dict()
+    pre = "visual_encoder.visual."
+    sd = {"visual." + k[len(pre):]: v for k, v in port.items()
+          if k.startswith(pre)}
+    ref = import_clip_visual({k: v.numpy() for k, v in sd.items()},
+                             inflate_3d=True)["conv2"]["kernel"]
+    tube = ckpt_io.inflate_3d(sd)
+    assert "visual.conv1.weight" not in tube
+    np.testing.assert_array_equal(tube["visual.conv2.weight"].numpy(),
+                                  ref.transpose(4, 3, 0, 1, 2))
+    model = BirdModel(ClipArch(**ARCH_KW, linear_patch="3d"),
+                      CrossConfig(**CROSS_KW))
+    ckpt_io.merge_into(model, ckpt_io.clip_to_port(tube, "english"))
+    torch.testing.assert_close(
+        model.state_dict()[pre + "conv2.weight"], tube["visual.conv2.weight"],
+        rtol=0, atol=0)
+
+
+def _clip_shapes(name):
+    """An OpenAI CLIP state dict of ``name``'s shapes, values left out."""
+    a = ClipArch.by_name(name)
+    w, e, tw = a.vision_width, a.embed_dim, a.transformer_width
+    shapes = {"visual.conv1.weight": (w, 3, a.vision_patch_size,
+                                      a.vision_patch_size),
+              "visual.class_embedding": (w,),
+              "visual.positional_embedding": (a.grid_size ** 2 + 1, w),
+              "visual.proj": (w, e), "text_projection": (tw, e),
+              "positional_embedding": (a.context_length, tw),
+              "token_embedding.weight": (a.vocab_size, tw),
+              "ln_final.weight": (tw,), "logit_scale": ()}
+    for prefix, layers, width in (("visual.transformer", a.vision_layers, w),
+                                  ("transformer", a.transformer_layers, tw)):
+        for i in range(layers):
+            shapes[f"{prefix}.resblocks.{i}.attn.in_proj_weight"] = (
+                3 * width, width)
+    return {k: types.SimpleNamespace(shape=v) for k, v in shapes.items()}
+
+
+@pytest.mark.parametrize("name", ["ViT-B/16", "ViT-L/14", "ViT-L/14@336px"])
+def test_clip_arch_from_state_dict_matches_jax(name):
+    """The towers' architecture from shapes alone equals the named one and
+    the JAX package's reading; every head is 64 wide (the kernels')."""
+    sd = _clip_shapes(name)
+    ours = ClipArch.from_state_dict(sd)
+    ref = JaxClipArch.from_state_dict(sd)
+    assert ours == ClipArch.by_name(name)
+    assert ({f: getattr(ours, f) for f in ours.__dataclass_fields__}
+            == {f: getattr(ref, f) for f in ref.__dataclass_fields__})
+    assert JAX_CLIP_ARCH[name] == {
+        f: getattr(ours, f) for f in JAX_CLIP_ARCH[name]}
+    assert ours.vision_width // ours.vision_heads == 64
+    assert ours.transformer_width // ours.transformer_heads == 64
+    assert ours.embed_dim % 64 == 0   # the temporal transformer's width
 
 
 # ---------------------------------------------------------------------------
