@@ -18,6 +18,12 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             from torch.profiler (no host gaps), the wrappers' host
             microseconds per call at the text site, two launches bitwise
             equal; K1 also at one served query's text site (batch 1);
+            K1 and K2 at every head_dim they are built for (64, 80, 96,
+            128): timed in bf16 at the temporal site [64, 8, 12, D] and
+            at [48, 8, 577, D], and against their plain versions in bf16
+            and fp32, causal and not, at L = 12, 50, 80, 81, 96, 97, 112,
+            113, 128, 129, 197 and 577 (every body on both sides of each
+            head_dim's limits), each bitwise over two launches;
    frames   R1 (the PIL-exact resize and crop) against its plain version,
             bitwise, at the path's 768-frame block (341x256 -> 224, planes
             laid out as the decoder leaves them; timed also with packed
@@ -138,17 +144,24 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             micro-batch) and of ViT-L/14 (4), launches per body against
             the block structure; the full-width ViT-L/14@336px BirdModel
             (12 frames at 336, 32 query tokens, the temporal transformer
-            at 768 with 12 heads) through the CLI: a seeded OpenAI-named
+            at 768 with cross-base's 8 heads: head_dim 96) through the
+            CLI: a seeded OpenAI-named
             state dict as --clip_model, --do_train of 2 steps of 8 clips
             in micro-batches of 4 over a FramePack cycled from the fixture
-            (40 K1 and 40 K2 launches a micro-batch: 24 tiled, 16 short),
+            (40 K1 and 40 K2 launches a micro-batch: 24 tiled, 16 short;
+            36 at head_dim 64, 4 at 96),
             the epoch-end eval of 32 clips, --do_eval --init_model the
             saved file (profiled, the same metrics), --do_extract of a
             768-wide bank that the retrieval service answers queries from;
             then the geometry at 2 layers a tower in fp32, card against
-            CPU;
+            CPU: the L/14@336px forward, and a ViT-L/14 fine-tune step
+            under cross-base (losses and every gradient; K1 and K2 at
+            head_dim 96);
 6. result   the nvidia-smi line as it prints it, the kernel table as one
-            JSON line, then ``{"ok": true, "device": {...}}`` as the last.
+            JSON line (K1 and K2 with the head_dims checked and every
+            launch of the run by phase and head_dim beside the
+            prediction), then ``{"ok": true, "device": {...}}`` as the
+            last.
 
 Every line before those is one JSON object.
 """
@@ -191,10 +204,10 @@ from hmmc_tpu_torch.ops import image_ops, kernel_build, quant
 from hmmc_tpu_torch.ops import resize_area as r2
 from hmmc_tpu_torch.ops import resize_crop as rc
 from hmmc_tpu_torch.ops.fused_attention import (
-    SHORT_MAX_LEN_BWD, SHORT_MAX_LEN_BWD_FP32, fused_attention,
-    fused_attention_backward, fused_attention_backward_reference,
-    fused_attention_reference, kernel_body, kernel_bwd_smem_bytes,
-    kernel_smem_bytes)
+    HEAD_DIMS, fused_attention, fused_attention_backward,
+    fused_attention_backward_reference, fused_attention_reference,
+    kernel_body, kernel_bwd_smem_bytes, kernel_smem_bytes,
+    short_max_len_backward)
 from hmmc_tpu_torch.parallel import distributed
 from hmmc_tpu_torch.ops.resize_crop import (
     FORMATS, SAMPLING, YccFrame, crop_tables, launch, output_size,
@@ -359,6 +372,40 @@ def host_us_per_call(fn, calls: int = 200) -> float:
     return host_us
 
 
+# K1 and K2 launches by phase of this run and head_dim: the wrappers'
+# head_dim_launches are folded in here at every reset of the counters and
+# at each phase's end, so each launch lands in the phase it ran in (a ddp
+# worker's, from its own process, under "ddp_ranks")
+HEAD_DIM_LAUNCHES = {}
+PHASE = ["setup"]
+PHASE_T0 = [time.perf_counter()]
+
+
+def add_head_dim_launches(phase, kernel, by_head_dim):
+    tally = HEAD_DIM_LAUNCHES.setdefault(phase, {}).setdefault(
+        kernel, dict.fromkeys(HEAD_DIMS, 0))
+    for d, n in by_head_dim.items():
+        tally[int(d)] += n
+
+
+def reset_attention_counts():
+    """K1's and K2's counters to 0, their launches by head_dim folded into
+    HEAD_DIM_LAUNCHES first."""
+    for kernel, fn in (("k1", fused_attention),
+                       ("k2", fused_attention_backward)):
+        add_head_dim_launches(PHASE[0], kernel, fn.head_dim_launches)
+    fa.reset_launch_counts()
+
+
+def start_phase(name):
+    """Close the running phase's tally (and emit its wall seconds) and
+    open ``name``'s."""
+    reset_attention_counts()
+    now = time.perf_counter()
+    emit(dict(phase="phase_wall", ended=PHASE[0], seconds=now - PHASE_T0[0]))
+    PHASE[0], PHASE_T0[0] = name, now
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -376,21 +423,22 @@ def attention_bound(b, h, l, d, causal, dtype):
             nbytes, flops)
 
 
-def kernel_ctas(bh, l, dtype, backward=False):
+def kernel_ctas(bh, l, dtype, d, backward=False):
     """CTAs a launch runs: the short bodies take a (batch, head) per CTA
     (K1 in bf16: two), the tiled ones a 64-row tile of one (fp32: K1's
     and K2's rows pass 32 rows); K2's tiled pair runs two grids of this
     size."""
-    if kernel_body(l, dtype, backward) == "short":
+    if kernel_body(l, dtype, d, backward) == "short":
         per = 1 if backward else fa.kernel_heads_per_cta(dtype)
         return math.ceil(bh / per)
     return bh * math.ceil(l / (64 if dtype == torch.bfloat16 else 32))
 
 
 def check_attention(site, b, h, l, causal, dtype, gen, iters=50,
-                    host_calls=200):
-    """The main path's layout: head views of a packed qkv projection."""
-    d = 64
+                    host_calls=200, d=64, profile=True):
+    """The main path's layout: head views of a packed qkv projection.
+    ``profile``: the kernel's and the library's device time by the
+    profiler too (else "not measured")."""
     qkv = torch.randn(b, l, 3 * h * d, device="cuda", generator=gen).to(dtype)
     q, k, v = (t.transpose(1, 2) for t in qkv.view(b, l, 3, h, d).unbind(2))
     out = fused_attention(q, k, v, causal)
@@ -402,7 +450,7 @@ def check_attention(site, b, h, l, causal, dtype, gen, iters=50,
     tol = TOLERANCE[dtype]
     ok = bitwise_repeat and bool(
         (diff <= tol["atol"] + tol["rtol"] * ref.float().abs()).all())
-    smem = kernel_smem_bytes(l, dtype)
+    smem = kernel_smem_bytes(l, dtype, d)
     ms = cuda_ms(lambda: fused_attention(q, k, v, causal), iters)
     host_us = host_us_per_call(lambda: fused_attention(q, k, v, causal),
                                host_calls)
@@ -412,14 +460,16 @@ def check_attention(site, b, h, l, causal, dtype, gen, iters=50,
 
     library_ms = cuda_ms(library, iters)
     prof_iters = min(10, iters)
-    kernel_only_ms = kernel_device_ms(lambda: fused_attention(q, k, v, causal),
-                                      prof_iters)
-    library_kernels_ms = kernel_device_ms(library, prof_iters)
+    kernel_only_ms = library_kernels_ms = "not measured"
+    if profile:
+        kernel_only_ms = kernel_device_ms(
+            lambda: fused_attention(q, k, v, causal), prof_iters)
+        library_kernels_ms = kernel_device_ms(library, prof_iters)
     bound_ms, bound_by, nbytes, flops = attention_bound(b, h, l, d, causal,
                                                         dtype)
     row = dict(phase="kernel", kernel="fused_attention_fwd", site=site,
                shape=[b, h, l, d], causal=causal, dtype=str(dtype),
-               body=kernel_body(l, dtype),
+               head_dim=d, body=kernel_body(l, dtype, d),
                max_abs_err=float(diff.max()), tolerance=tol,
                bitwise_repeat=bitwise_repeat, ok=ok,
                ms=ms, host_us_per_call=host_us, plain_ms=plain_ms,
@@ -428,7 +478,7 @@ def check_attention(site, b, h, l, causal, dtype, gen, iters=50,
                library="torch.nn.functional.scaled_dot_product_attention",
                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                flops=flops, share_of_bound=bound_ms / ms,
-               ctas=kernel_ctas(b * h, l, dtype),
+               ctas=kernel_ctas(b * h, l, dtype, d),
                dynamic_smem_bytes_per_cta=smem)
     emit(row)
     if not ok:
@@ -451,11 +501,10 @@ def attention_bwd_bound(b, h, l, d, causal, dtype):
 
 
 def check_attention_backward(site, b, h, l, causal, dtype, gen, iters=30,
-                             host_calls=200):
+                             host_calls=200, d=64, profile=True):
     """K2 on the fine-tune path's layout: q, k, v head views of a packed
     qkv projection, the output gradient the transposed view of a
-    [B, L, H, 64] tensor (as the merge of heads hands it back)."""
-    d = 64
+    [B, L, H, D] tensor (as the merge of heads hands it back)."""
     qkv = torch.randn(b, l, 3 * h * d, device="cuda", generator=gen).to(dtype)
     q, k, v = (t.transpose(1, 2) for t in qkv.view(b, l, 3, h, d).unbind(2))
     g = torch.randn(b, l, h, d, device="cuda", generator=gen).to(dtype)
@@ -486,15 +535,17 @@ def check_attention_backward(site, b, h, l, causal, dtype, gen, iters=30,
 
     library_ms = cuda_ms(library, iters)
     prof_iters = min(10, iters)
-    kernel_only_ms = kernel_device_ms(
-        lambda: fused_attention_backward(q, k, v, g, causal), prof_iters)
-    library_kernels_ms = kernel_device_ms(library, prof_iters)
+    kernel_only_ms = library_kernels_ms = "not measured"
+    if profile:
+        kernel_only_ms = kernel_device_ms(
+            lambda: fused_attention_backward(q, k, v, g, causal), prof_iters)
+        library_kernels_ms = kernel_device_ms(library, prof_iters)
     del out, leaf, library
     bound_ms, bound_by, nbytes, flops = attention_bwd_bound(b, h, l, d, causal,
                                                             dtype)
     row = dict(phase="kernel", kernel="fused_attention_bwd", site=site,
                shape=[b, h, l, d], causal=causal, dtype=str(dtype),
-               body=kernel_body(l, dtype, backward=True),
+               head_dim=d, body=kernel_body(l, dtype, d, backward=True),
                max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
                tolerance=tol, bitwise_repeat=bitwise_repeat, ok=ok, ms=ms,
                host_us_per_call=host_us, plain_ms=plain_ms,
@@ -504,13 +555,111 @@ def check_attention_backward(site, b, h, l, causal, dtype, gen, iters=30,
                        "(torch.autograd.grad after one forward)",
                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                flops=flops, share_of_bound=bound_ms / ms,
-               ctas=kernel_ctas(b * h, l, dtype, backward=True),
-               dynamic_smem_bytes_per_cta=kernel_bwd_smem_bytes(l, dtype))
+               ctas=kernel_ctas(b * h, l, dtype, d, backward=True),
+               dynamic_smem_bytes_per_cta=kernel_bwd_smem_bytes(l, dtype, d))
     emit(row)
     if not ok:
         raise AssertionError(f"fused attention backward kernel disagrees "
                              f"with its plain version: {row}")
     return row
+
+
+# K1 and K2 at every head_dim they are built for: the sweep's lengths take
+# each body on both sides of every head_dim's limits (K2's short body ends
+# at 128, 112, 96 or 80 by dtype and head_dim; K1's at 128), the temporal
+# site (12), the ViT-B/32 site (50) and the towers' lengths
+HEAD_DIM_LENGTHS = (12, 50, 80, 81, 96, 97, 112, 113, 128, 129, 197, 577)
+HEAD_DIM_SWEEP_BH = (3, 5)     # 15 heads: not a multiple of K1's 2 a CTA
+# the timed head_dim rows' sites (bf16, B, H, L): the temporal
+# transformer's at a 64-clip micro-batch (cross-base: 8 heads, 12 frames)
+# and a 577-long one of 8 heads (the ViT-L/14@336px length)
+HEAD_DIM_SITES = (("temporal", 64, 8, 12), ("long", 48, 8, 577))
+
+
+def _within(got, ref, tol):
+    diff = (got.float() - ref.float()).abs()
+    bound = tol["atol"] + tol["rtol"] * ref.float().abs()
+    return float(diff.max()), bool((diff <= bound).all())
+
+
+def head_dim_sweep(gen):
+    """K1 and K2 against their plain versions at every head_dim, dtype,
+    causal and length of HEAD_DIM_LENGTHS, on head views of a packed
+    [3, L, 3 x 5 x D] projection, each bitwise over two launches; a row a
+    (head_dim, dtype, kernel) with the worst error and the bodies taken."""
+    b, h = HEAD_DIM_SWEEP_BH
+    rows, failed = [], []
+    for d in HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            res = {"fused_attention_fwd": [], "fused_attention_bwd": []}
+            for l in HEAD_DIM_LENGTHS:
+                for causal in (False, True):
+                    qkv = torch.randn(b, l, 3 * h * d, device="cuda",
+                                      generator=gen).to(dtype)
+                    q, k, v = (t.transpose(1, 2) for t in
+                               qkv.view(b, l, 3, h, d).unbind(2))
+                    g = torch.randn(b, l, h, d, device="cuda",
+                                    generator=gen).to(dtype).transpose(1, 2)
+                    outs = [(fa.fused_attention_forward(q, k, v, causal),)
+                            for _ in range(2)]
+                    grads = [fused_attention_backward(q, k, v, g, causal)
+                             for _ in range(2)]
+                    torch.cuda.synchronize()
+                    for name, (one, two), ref, tol, bwd in (
+                            ("fused_attention_fwd", outs,
+                             (fused_attention_reference(q, k, v, causal),),
+                             TOLERANCE[dtype], False),
+                            ("fused_attention_bwd", grads,
+                             fused_attention_backward_reference(
+                                 q, k, v, g, causal),
+                             BWD_TOLERANCE[dtype], True)):
+                        errs = [_within(a, r, tol) for a, r in zip(one, ref)]
+                        case = dict(
+                            l=l, causal=causal,
+                            body=kernel_body(l, dtype, d, bwd),
+                            max_abs_err=max(e for e, _ in errs),
+                            within=all(ok for _, ok in errs),
+                            bitwise_repeat=all(bool(torch.equal(x, y))
+                                               for x, y in zip(one, two)))
+                        res[name].append(case)
+            for name, cases in res.items():
+                bad = [c for c in cases
+                       if not (c["within"] and c["bitwise_repeat"])]
+                tol = (BWD_TOLERANCE if name.endswith("bwd")
+                       else TOLERANCE)[dtype]
+                row = dict(phase="kernel_head_dim_sweep", kernel=name,
+                           head_dim=d, dtype=str(dtype), shape=[b, h, None, d],
+                           lengths=list(HEAD_DIM_LENGTHS),
+                           causal=[False, True],
+                           cases=len(cases),
+                           bodies=sorted({c["body"] for c in cases}),
+                           max_abs_err=max(c["max_abs_err"] for c in cases),
+                           tolerance=tol, bitwise_repeat=all(
+                               c["bitwise_repeat"] for c in cases),
+                           ok=not bad, failed=bad)
+                emit(row)
+                rows.append(row)
+                failed += bad
+    if failed:
+        raise AssertionError(f"head_dim sweep: {len(failed)} cases failed "
+                             f"(rows above)")
+    return rows
+
+
+def head_dim_kernels(gen):
+    """K1 and K2 timed at every head_dim at HEAD_DIM_SITES in bf16
+    (kernel, plain and SDPA by CUDA events; the bound), within tolerance
+    and bitwise over two launches. No profiler session: the run's later
+    profiles read device times only while few sessions have been opened."""
+    rows, bwd_rows = [], []
+    for d in HEAD_DIMS:
+        for site, b, h, l in HEAD_DIM_SITES:
+            kw = dict(iters=20, host_calls=50, d=d, profile=False)
+            rows.append(check_attention(f"{site} d{d}", b, h, l, False,
+                                        torch.bfloat16, gen, **kw))
+            bwd_rows.append(check_attention_backward(
+                f"{site} d{d}", b, h, l, False, torch.bfloat16, gen, **kw))
+    return rows, bwd_rows
 
 
 def wrapper_host_cost(gen):
@@ -1559,7 +1708,7 @@ def run_eval(model, task, loader):
     ev = Evaluator(model, task)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_attention.launches = fused_attention_backward.launches = 0
+    reset_attention_counts()
     loader.gen_seconds = 0.0
     t0 = time.perf_counter()
     q, v, f, multi, cut_off = ev.cache_features(loader)
@@ -1743,7 +1892,7 @@ def run_train(task, cross, arch, batch, eval_loader):
     loader = RepeatedBatch(batch, TRAIN_STEPS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_attention.launches = fused_attention_backward.launches = 0
+    reset_attention_counts()
     t0 = time.perf_counter()
     run = runner.finetune(task, cross, loader, eval_loader, arch=arch)
     total_s = time.perf_counter() - t0
@@ -1796,10 +1945,11 @@ def profile_train_step(state, step, dev_batch, step_ms):
     return row
 
 
-def grad_reference_check(cross, arch, seed):
-    """One fp32 fine-tune step on 2 clips and 2 captions at full width:
-    the kernels on the card against the plain attention on the CPU, same
-    weights and data, TF32 off. Loss and every parameter's gradient."""
+def grad_reference_check(cross, arch, seed, phase="train_reference"):
+    """One fp32 fine-tune step on 2 clips and 2 captions at ``arch``'s
+    widths: the kernels on the card against the plain attention on the
+    CPU, same weights and data, TF32 off. Loss and every parameter's
+    gradient."""
     task = TaskConfig(seed=seed, compute_dtype="float32", batch_size=2)
     batch = next(iter(SyntheticClips(2, 2, task.max_frames,
                                      arch.image_resolution, task.max_words,
@@ -1832,8 +1982,12 @@ def grad_reference_check(cross, arch, seed):
           and runs["card"]["bwd_launches"] > 0
           and loss_diff <= GRAD_REFERENCE_LOSS_ATOL
           and max(rel.values()) <= GRAD_REFERENCE_REL)
-    row = dict(phase="train_reference", what="one fp32 fine-tune step, 2 "
+    row = dict(phase=phase, what="one fp32 fine-tune step, 2 "
                "clips: card (kernels) vs CPU (plain attention)",
+               arch=dataclasses.asdict(arch),
+               temporal=[cross.temporal_hidden_size,
+                         cross.temporal_hidden_layers,
+                         cross.temporal_attention_heads],
                loss_card=runs["card"]["loss"], loss_cpu=runs["cpu"]["loss"],
                loss_abs_diff=loss_diff, loss_atol=GRAD_REFERENCE_LOSS_ATOL,
                params_compared=len(rel),
@@ -2001,7 +2155,7 @@ def launch_counts():
 
 
 def reset_launch_counts():
-    fa.reset_launch_counts()
+    reset_attention_counts()
     resize_crop.launches = r2.resize_area.launches = 0
     jpeg.reset_counters()
 
@@ -2991,6 +3145,8 @@ def ddp_worker(spec_path):
             del run
         out[name]["wall_s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
+    reset_attention_counts()
+    out["head_dim_launches"] = HEAD_DIM_LAUNCHES[PHASE[0]]
     with open(spec["out"] % distributed.rank(), "w") as fh:
         json.dump(out, fh)
     distributed.shutdown()
@@ -3049,6 +3205,8 @@ class DdpGroup:
         for r in range(self.world):
             with open(self.out % r) as fh:
                 results.append(json.load(fh))
+            for kernel, by_d in results[-1].pop("head_dim_launches").items():
+                add_head_dim_launches("ddp_ranks", kernel, by_d)
         return results
 
 
@@ -3382,21 +3540,39 @@ TOWER_QUERIES = 8           # served from the 768-wide bank
 
 
 def tower_cross(name):
-    """cross-base for tower ``name``: the temporal transformer is as wide
-    as the tower's embed_dim, and at 768 its 12 heads keep head_dim 64 (the
-    kernels'; cross-base's 8 would give 96)."""
+    """cross-base for tower ``name`` as published: the temporal transformer
+    is as wide as the tower's embed_dim with cross-base's 8 heads (head_dim
+    96 at ViT-L/14's 768, 64 at ViT-B/16's 512)."""
     arch = ClipArch.by_name(name)
-    return dataclasses.replace(
-        CrossConfig(), pretrained_clip_name=name,
-        temporal_hidden_size=arch.embed_dim,
-        temporal_attention_heads=arch.embed_dim // 64)
+    return dataclasses.replace(CrossConfig(), pretrained_clip_name=name,
+                               temporal_hidden_size=arch.embed_dim)
 
 
 def tower_launch_counts():
-    return {f"{k}_{body}": getattr(fn, f"{body}_launches")
-            for k, fn in (("k1", fused_attention),
-                          ("k2", fused_attention_backward))
-            for body in ("short", "tiled")}
+    """K1's and K2's launches by body and by head_dim ("k1_d96")."""
+    out = {}
+    for k, fn in (("k1", fused_attention), ("k2", fused_attention_backward)):
+        for body in ("short", "tiled"):
+            out[f"{k}_{body}"] = getattr(fn, f"{body}_launches")
+        for d, n in fn.head_dim_launches.items():
+            out[f"{k}_d{d}"] = n
+    return out
+
+
+def tower_head_dims(arch, cross):
+    """(vision, text, temporal) head_dims of a tower under ``cross``."""
+    return (arch.vision_width // arch.vision_heads,
+            arch.transformer_width // arch.transformer_heads,
+            cross.temporal_hidden_size // cross.temporal_attention_heads)
+
+
+def by_head_dim(kernel, arch, cross, vision, text, temporal):
+    """{"k1_d64": n, ...}: the predicted launches of ``kernel`` by head_dim
+    for ``vision``, ``text`` and ``temporal`` blocks."""
+    out = {f"{kernel}_d{d}": 0 for d in HEAD_DIMS}
+    for d, n in zip(tower_head_dims(arch, cross), (vision, text, temporal)):
+        out[f"{kernel}_d{d}"] += n
+    return out
 
 
 def tower_kernels(gen):
@@ -3440,7 +3616,7 @@ def tower_step(name, clips, seed, smi):
     batch = runner.prepare_finetune_batch(host, "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset_attention_counts()
     t0 = time.perf_counter()
     state, metrics = step(state, batch)
     loss = float(metrics["loss"])
@@ -3454,11 +3630,18 @@ def tower_step(name, clips, seed, smi):
                     k1_tiled=arch.vision_layers * TOWER_N_ACCUM)
     expected.update(k2_short=expected["k1_short"],
                     k2_tiled=expected["k1_tiled"])
+    for kernel in ("k1", "k2"):
+        expected.update(by_head_dim(
+            kernel, arch, cross, arch.vision_layers * TOWER_N_ACCUM,
+            arch.transformer_layers * TOWER_N_ACCUM,
+            cross.temporal_hidden_layers * TOWER_N_ACCUM))
     row = dict(phase="towers", what=f"one fine-tune step, {name}",
                seq_len=arch.grid_size ** 2 + 1,
                resolution=arch.image_resolution,
                clips=task.batch_size, n_accum=TOWER_N_ACCUM,
-               temporal_heads=cross.temporal_attention_heads, loss=loss,
+               temporal_heads=cross.temporal_attention_heads,
+               head_dims=dict(zip(("vision", "text", "temporal"),
+                                  tower_head_dims(arch, cross))), loss=loss,
                grad_norm=float(metrics["grad_norm"]),
                finite=math.isfinite(loss), first_step_s=first_s,
                warm_step_device_ms=warm_ms, max_memory_allocated=peak,
@@ -3468,7 +3651,7 @@ def tower_step(name, clips, seed, smi):
         raise AssertionError(f"tower step failed: {row}")
     del model, state, batch
     torch.cuda.empty_cache()
-    return counts
+    return counts, expected
 
 
 def tower_cli_phase(root, seed, smi):
@@ -3563,15 +3746,22 @@ def tower_cli_phase(root, seed, smi):
         cross.temporal_hidden_layers
     eval_k1 = dict(k1_tiled=v * blocks, k1_short=tmp * blocks
                    + t * text_blocks)
+    eval_d = by_head_dim("k1", arch, cross, v * blocks, t * text_blocks,
+                         tmp * blocks)
     expected_eval = dict(k1=sum(eval_k1.values()), k2=0, r1=1, r2=0,
-                         decoder=1, k2_short=0, k2_tiled=0, **eval_k1)
+                         decoder=1, k2_short=0, k2_tiled=0, **eval_k1,
+                         **eval_d, **by_head_dim("k2", arch, cross, 0, 0, 0))
     expected_train = dict(
         k1=(v + t + tmp) * micro + expected_eval["k1"],
         k2=(v + t + tmp) * micro, r1=TOWER_STEPS + 1, r2=0,
         decoder=TOWER_STEPS + 1,
         k1_tiled=v * micro + eval_k1["k1_tiled"],
         k1_short=(t + tmp) * micro + eval_k1["k1_short"],
-        k2_tiled=v * micro, k2_short=(t + tmp) * micro)
+        k2_tiled=v * micro, k2_short=(t + tmp) * micro,
+        **by_head_dim("k2", arch, cross, v * micro, t * micro, tmp * micro))
+    for key, n in by_head_dim("k1", arch, cross, v * micro, t * micro,
+                              tmp * micro).items():
+        expected_train[key] = n + eval_d[key]
     ev_call = eval_probe.calls[0]
     row = dict(
         phase="towers", what=f"{TOWER_CLI} BirdModel through the CLI",
@@ -3579,6 +3769,8 @@ def tower_cli_phase(root, seed, smi):
         vision=[arch.vision_width, v, arch.vision_heads],
         embed_dim=arch.embed_dim,
         temporal_heads=cross.temporal_attention_heads,
+        head_dims=dict(zip(("vision", "text", "temporal"),
+                           tower_head_dims(arch, cross))),
         clip_model_bytes=os.path.getsize(clip_path), archive_s=archive_s,
         arch_from_shapes_equal=from_shapes,
         train_clips=TOWER_TRAIN_VIDEOS * 2, steps=TOWER_STEPS,
@@ -3608,7 +3800,7 @@ def tower_cli_phase(root, seed, smi):
 
 def towers_phase(root, seed, smi):
     """Phase towers (its kernel rows are tower_kernels'); returns each
-    path's launches by body."""
+    path's launches by body and by head_dim, and their predictions."""
     steps = {name: tower_step(name, clips, seed, smi)
              for name, clips in TOWERS if name != TOWER_CLI}
     row, _ = tower_cli_phase(root, seed, smi)
@@ -3623,18 +3815,40 @@ def towers_phase(root, seed, smi):
           and all(math.isfinite(x) for x in row["epoch_metrics"].values()))
     if not ok:
         raise AssertionError(f"towers CLI run failed: {row}")
-    # the geometry at 2 layers a tower in fp32, card against CPU
+    # the geometry at 2 layers a tower in fp32, card against CPU: the
+    # L/14@336px forward, and a ViT-L/14 fine-tune step's losses and every
+    # gradient, cross-base's temporal heads (head_dim 96) through K1 and K2
     arch = dataclasses.replace(ClipArch.by_name(TOWER_CLI), vision_layers=2,
                                transformer_layers=2)
     cross = dataclasses.replace(tower_cross(TOWER_CLI),
                                 temporal_hidden_layers=2)
     reference_check(TaskConfig(seed=seed), cross, arch, seed,
                     phase="towers_reference")
-    paths = {f"towers_step_{n}": c for n, c in steps.items()}
+    arch = dataclasses.replace(ClipArch.by_name("ViT-L/14"), vision_layers=2,
+                               transformer_layers=2)
+    cross = dataclasses.replace(tower_cross("ViT-L/14"),
+                                temporal_hidden_layers=2)
+    reset_attention_counts()
+    grad_reference_check(cross, arch, seed,
+                         phase="towers_train_reference")
+    at96 = dict(k1=fused_attention.head_dim_launches[96],
+                k2=fused_attention_backward.head_dim_launches[96])
+    emit(dict(phase="towers_train_reference_head_dim", head_dims=dict(
+        zip(("vision", "text", "temporal"), tower_head_dims(arch, cross))),
+        launches_at_head_dim_96=at96, card=smi))
+    if not (at96["k1"] > 0 and at96["k2"] > 0):
+        raise AssertionError(f"the L/14 cross-base check ran no K1 / K2 at "
+                             f"head_dim 96: {at96}")
+    paths = {f"towers_step_{n}": c for n, (c, _) in steps.items()}
+    predicted = {f"towers_step_{n}": e for n, (_, e) in steps.items()}
+    keys = [k for k in train if k.startswith(("k1_", "k2_"))]
     paths["towers_cli_l14_336"] = {
         k: train[k] + row["eval_launches"][k] + row["extract_launches"][k]
-        for k in ("k1_short", "k1_tiled", "k2_short", "k2_tiled")}
-    return paths
+        for k in keys}
+    predicted["towers_cli_l14_336"] = {
+        k: (row["expected_train_launches"][k]
+            + 2 * row["expected_eval_launches"][k]) for k in keys}
+    return paths, predicted
 
 
 def launches_of(by_path, kernel):
@@ -3668,10 +3882,10 @@ def kernels_phase(gen):
                                                  dtype, gen))
         bwd_rows.append(check_attention_backward("temporal", 64, 8, 12,
                                                  False, dtype, gen))
-    check_attention_backward("extra", 8, 12, SHORT_MAX_LEN_BWD, False,
-                             torch.bfloat16, gen)
-    check_attention_backward("extra", 8, 12, SHORT_MAX_LEN_BWD_FP32, False,
-                             torch.float32, gen)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_attention_backward("extra", 8, 12,
+                                 short_max_len_backward(dtype, 64), False,
+                                 dtype, gen)
     wrapper_host_cost(gen)
     return rows, bwd_rows
 
@@ -3779,46 +3993,82 @@ def main(argv=None) -> int:
                        for n, i in info.items()}))
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    start_phase("kernels")
     rows, bwd_rows = kernels_phase(gen)
     tower_rows, tower_bwd_rows = tower_kernels(gen)     # phase towers
+    hd_rows, hd_bwd_rows = head_dim_kernels(gen)
+    head_dim_sweep(gen)
+    start_phase("frames")
     r1_row = check_resize_crop(gen)
     check_decoder(smi)
     r2_rows = check_resize_area(gen)
     check_aug_decoder(smi)
     check_resize_crop(gen, TOWER_RES, TOWER_BLOCK_FRAMES, 16)   # R1 at 336
     check_decoder_336(smi)
+    start_phase("eval")
     eval_k1 = eval_phase(args, smi)
+    start_phase("train")
     train = train_slice(CrossConfig(), ClipArch.by_name("ViT-B/32"),
                         args.seed, smi)
+    start_phase("pretrain")
     pretrain = pretrain_phase(args.seed, smi)
     with tempfile.TemporaryDirectory(prefix="hmmc_cli_") as root:
+        start_phase("cli")
         cli_counts = cli_phase(root, args.seed, smi)
+        start_phase("serve")
         serve_counts = serve_phase(root, cli_counts["ckpt"],
                                    cli_counts["eval_metrics"], args.seed,
                                    smi)
+        start_phase("cli_pretrain")
         cli_pre = cli_pretrain_phase(root, args.seed, smi)
+        start_phase("ddp")
         ddp = ddp_phase(root, args.seed, smi, train["first_steps"],
                         cli_counts)
-        tower_paths = towers_phase(os.path.join(root, "towers"), args.seed,
-                                   smi)
-    rows += tower_rows
-    bwd_rows += tower_bwd_rows
+        start_phase("towers")
+        tower_paths, tower_predicted = towers_phase(
+            os.path.join(root, "towers"), args.seed, smi)
+    start_phase("result")
+    rows += tower_rows + hd_rows
+    bwd_rows += tower_bwd_rows + hd_bwd_rows
 
     # result
+    def head_dim_launches(kernel):
+        """Every launch of the run by phase and head_dim beside the
+        prediction: the ViT-B/32 phases run head_dim 64 only, the towers'
+        paths as their block structure gives (phase kernels' checks and
+        phase towers' reference checks are measured, not predicted)."""
+        by_phase = {ph: t[kernel] for ph, t in HEAD_DIM_LAUNCHES.items()
+                    if kernel in t and any(t[kernel].values())}
+        predicted = {ph: {d: sum(c.values()) if d == 64 else 0
+                          for d in HEAD_DIMS}
+                     for ph, c in by_phase.items()
+                     if ph not in ("kernels", "towers")}
+        predicted.update({
+            p: {d: c[f"{kernel}_d{d}"] for d in HEAD_DIMS}
+            for p, c in tower_predicted.items()})
+        measured_paths = {
+            p: {d: c[f"{kernel}_d{d}"] for d in HEAD_DIMS}
+            for p, c in tower_paths.items()}
+        return dict(by_phase=by_phase, tower_paths=measured_paths,
+                    predicted=predicted)
+
     def kernel_row(name, replaces, rows, launches, by_path, by_body):
         vit = next(r for r in rows if r["site"] == "vit"
                    and r["dtype"] == str(torch.bfloat16))
         main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
+        kernel = "k2" if name.endswith("bwd") else "k1"
         return dict(
             name=name, route="cuda", source=f"hmmc_tpu_torch/csrc/{name}.cu",
             replaces=replaces, launches=launches, launches_by_path=by_path,
             tiled_launches_by_path=by_body,
+            head_dims_checked=sorted({r["head_dim"] for r in rows}),
+            launches_by_head_dim=head_dim_launches(kernel),
             max_abs_err=max(r["max_abs_err"] for r in main_rows),
             ms=vit["ms"], plain_ms=vit["plain_ms"], bound_ms=vit["bound_ms"],
             bound_by=vit["bound_by"], library_ms=vit["library_ms"],
             timed_at=f"vit site, bf16, {vit['shape']}",
             sites=[{k: r[k] for k in ("site", "shape", "causal", "dtype",
-                                      "body", "max_abs_err", "ms",
+                                      "head_dim", "body", "max_abs_err", "ms",
                                       "kernel_device_ms", "host_us_per_call",
                                       "plain_ms", "library_ms", "bound_ms",
                                       "bound_by", "share_of_bound")}

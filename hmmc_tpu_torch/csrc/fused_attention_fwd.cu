@@ -9,10 +9,15 @@
 // bodies, chosen by L: the short ones (L <= 128, one CTA per head, the
 // whole row of keys on chip) and the tiled ones (L > 128).
 //
+// Head_dim D is 64, 80, 96 or 128, each a compile-time instance of every
+// body (template parameter D; the entry point picks it by head_dim and
+// refuses any other). Logits are scaled by hmmc::Scale<D>::kScale, the
+// plain version's fp32 D ** -0.5.
+//
 // What bounds it on an H100: q, k, v and o, counted once each, are
-// 4*B*H*L*64 elements; the two products are 4*B*H*L*L*64 operations, about
-// 25 per byte at L = 50 and 290 at L = 577, against the card's ~295 bf16
-// operations per byte. So at the short sites the bytes bound it: in bf16,
+// 4*B*H*L*D elements; the two products are 4*B*H*L*L*D operations; at
+// D = 64 about 25 per byte at L = 50 and 290 at L = 577, against the
+// card's ~295 bf16 operations per byte. So at the short sites the bytes bound it: in bf16,
 // 0.0704 ms at the ViT-B/32 site [768, 12, 50], 0.0200 ms at the text site
 // [512, 8, 32, causal] and 0.0009 ms at the temporal site [64, 8, 12]
 // (3.35 TB/s); at the towers' sites bytes and operations meet: 0.0694 ms
@@ -25,7 +30,7 @@
 // 2-stage ring: while it computes head i from one stage, 16-byte cp.async
 // copies bring head i+1's q, k and v into the other. Of 1, 2, 4 and 8
 // heads per CTA, 2 was the fastest at the ViT site (PERF.md). Each stage
-// holds q, k, v as bf16 [Lp][64] tiles (Lp = L rounded up to 16; rows past
+// holds q, k, v as bf16 [Lp][D] tiles (Lp = L rounded up to 16; rows past
 // L zero-filled once), swizzled so that the copies and ldmatrix reads are
 // conflict-free (attention_mma.cuh). Each warp owns 16 query rows: S = q .
 // k^T runs on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
@@ -41,14 +46,16 @@
 // The output goes through the warp's own q rows in shared memory and
 // leaves as 16-byte row stores.
 // Per CTA (ptxas -v on sm_90a): shared memory 2 stages x 3 tiles x Lp x
-// 128 bytes = 49,152 bytes at L = 50 (NT = 4, 4 CTAs an SM), 98,304 at
-// L = 128; 79 registers at NT = 4, 43-133 over NT = 1..8, no spills.
+// 2D bytes = 49,152 bytes at D = 64, L = 50 (NT = 4, 4 CTAs an SM),
+// 98,304 at L = 128 (196,608 at D = 128: the short limit stays 128 at
+// every D); at D = 64 80 registers at NT = 4 (8 bytes of spill stores),
+// 43-134 over NT = 1..8 (the other D: PERF.md).
 //
 // bf16, L > 128 (the towers' ViT sites): `attention_fwd_tiled_kernel`, a
 // CTA of 4 warps per (64-row Q tile, batch * head). It stages its Q tile
 // and walks the head's 64-key tiles through a 2-stage cp.async ring (the
 // copies zero-fill rows past L), each warp holding its 16 rows' running
-// max and sum and a 16 x 64 fp32 output accumulator in registers (online
+// max and sum and a 16 x D fp32 output accumulator in registers (online
 // softmax, FlashAttention-2's loop): S = q . k^T on the tensor cores,
 // the tile's max, the accumulator rescaled by exp(m_old - m_new), P =
 // exp(s - m) rounded to bf16 and P . v added; one division by the row
@@ -62,19 +69,23 @@
 // and exp((s - m) * scale) is one ex2 of an FMA (masking every tile
 // measured within the run-to-run spread at L = 577 here, 13% in K2:
 // hmmc_tpu_torch/tools/attention_split.py); causal skips the tiles past
-// the diagonal. Per CTA: 40,960 bytes of shared memory (Q and two
-// (K, V) stages), 96 registers, no spills.
+// the diagonal. Per CTA: 5 x 64 x 2D bytes of shared memory (Q and two
+// (K, V) stages: 40,960 at D = 64), 97 registers at D = 64 (97-137 over
+// the D), no spills.
 //
 // fp32 (reference checks only): `attention_fwd_fp32_kernel` (L <= 128),
 // the CUDA-core body of the first version (one CTA per head, fp32 staging,
 // fmaf loops), and `attention_fwd_fp32_tiled_kernel` (L > 128), the same
 // loops over 32-row Q tiles and 64-key tiles with an online softmax (each
-// warp keeps its 8 rows' max, sum and output in registers; IEEE expf). The
+// warp keeps its 8 rows' max, sum and output in registers; IEEE expf).
+// Each lane owns output columns 2 lane, 2 lane + 1 of every 64-column
+// group (D / 64 rounded up; at D = 80 lanes 0-7 take the second group's
+// 16). The
 // tensor cores would take fp32 only as TF32, which keeps ~10 bits and
 // would break the fp32 reference tolerances (2e-5 against the plain
 // version, 1e-3 card against CPU), so fp32 stays on the CUDA cores.
 //
-// Layout: q, k, v, o are [B, H, L, 64] with arbitrary batch/head/sequence
+// Layout: q, k, v, o are [B, H, L, D] with arbitrary batch/head/sequence
 // strides and unit stride on the last axis, so the caller can pass head
 // views of a packed qkv projection without copying; every pointer and
 // stride must be 16-byte aligned (the wrapper checks). The kernel launches
@@ -88,11 +99,13 @@
 
 namespace {
 
-using hmmc::kHeadDim;
-using hmmc::kScale;
+using hmmc::kColGroups;
+using hmmc::owns_cols;
+using hmmc::Row;
+using hmmc::Scale;
 using hmmc::Strides;
 
-constexpr int kMaxLen = 128;   // the short bodies' longest L
+constexpr int kMaxLen = 128;   // the short bodies' longest L, at every D
 constexpr int kMmaWarps = 4;   // warps of a bf16 CTA, each owning 16 rows
 constexpr int kHeadsPerCta = 2;   // (batch, head) pairs a bf16 CTA takes
 
@@ -108,11 +121,12 @@ struct Args {
 };
 
 // NT = Lp / 16 row (and key) tiles of 16.
-template <int NT>
+template <int D, int NT>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 attention_fwd_mma_kernel(Args a) {
   constexpr int kLp = 16 * NT;
-  constexpr int kTile = kLp * hmmc::kTileRowBytes;
+  constexpr int kTile = kLp * Row<D>::kBytes;
+  constexpr float kScale = Scale<D>::kScale;
   constexpr int kStage = 3 * kTile;   // q, k, v
   extern __shared__ uint4 smem_raw[];
   char* smem = reinterpret_cast<char*>(smem_raw);
@@ -120,7 +134,7 @@ attention_fwd_mma_kernel(Args a) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int len = a.len;
 
-  hmmc::zero_pad_rows(smem, 6, kTile, len, kLp);
+  hmmc::zero_pad_rows<D>(smem, 6, kTile, len, kLp);
 
   const int first = blockIdx.x * kHeadsPerCta;
   const int last = min(first + kHeadsPerCta, a.heads_total);
@@ -130,8 +144,8 @@ attention_fwd_mma_kernel(Args a) {
     const __nv_bfloat16* src[3] = {a.q + b * a.sq.b + h * a.sq.h,
                                    a.k + b * a.sk.b + h * a.sk.h,
                                    a.v + b * a.sv.b + h * a.sv.h};
-    hmmc::stage_head<3>(smem_base + stage * kStage, kTile, src, row_stride,
-                        len);
+    hmmc::stage_head<D, 3>(smem_base + stage * kStage, kTile, src, row_stride,
+                           len);
   };
   issue(first, 0);
   hmmc::cp_async_commit();
@@ -157,14 +171,14 @@ attention_fwd_mma_kernel(Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < kHeadDim / 16; ++ks) {
+      for (int ks = 0; ks < Row<D>::kKSteps; ++ks) {
         uint32_t qa[4];
-        hmmc::ldsm_x4(hmmc::a_addr(tq, 16 * mt, ks, lane), qa);
+        hmmc::ldsm_x4(hmmc::a_addr<D>(tq, 16 * mt, ks, lane), qa);
 #pragma unroll
         for (int np = 0; np < NT; ++np) {
           if (a.causal && np > mt) continue;   // keys all after the rows
           uint32_t kb[4];
-          hmmc::ldsm_x4(hmmc::b_addr(tk, 16 * np, ks, lane), kb);
+          hmmc::ldsm_x4(hmmc::b_addr<D>(tk, 16 * np, ks, lane), kb);
           hmmc::mma_bf16(s[2 * np], qa, kb[0], kb[1]);
           hmmc::mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
         }
@@ -203,9 +217,9 @@ attention_fwd_mma_kernel(Args a) {
 
       // o = (P rounded to bf16) . v: the C fragments of key tiles 2j and
       // 2j + 1, divided and packed, are the A fragment of k-step j
-      float o[8][4];
+      float o[Row<D>::kNTiles][4];
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int n = 0; n < Row<D>::kNTiles; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 #pragma unroll
@@ -217,9 +231,9 @@ attention_fwd_mma_kernel(Args a) {
             hmmc::pack_bf16(s[2 * j + 1][0] * inv0, s[2 * j + 1][1] * inv0),
             hmmc::pack_bf16(s[2 * j + 1][2] * inv1, s[2 * j + 1][3] * inv1)};
 #pragma unroll
-        for (int dp = 0; dp < kHeadDim / 16; ++dp) {
+        for (int dp = 0; dp < Row<D>::kKSteps; ++dp) {
           uint32_t vb[4];
-          hmmc::ldsm_x4_t(hmmc::bt_addr(tv, 16 * j, dp, lane), vb);
+          hmmc::ldsm_x4_t(hmmc::bt_addr<D>(tv, 16 * j, dp, lane), vb);
           hmmc::mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
           hmmc::mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
         }
@@ -227,24 +241,25 @@ attention_fwd_mma_kernel(Args a) {
 
       // the warp's own q rows are free now: stage o there, store rows
       __syncwarp();
-      hmmc::frags_to_tile(s_q, 16 * mt, o, len, lane);
+      hmmc::frags_to_tile<D>(s_q, 16 * mt, o, len, lane);
       __syncwarp();
-      hmmc::tile_rows_to_global(s_q, 16 * mt, ob, a.so.l, len, lane);
+      hmmc::tile_rows_to_global<D>(s_q, 16 * mt, ob, a.so.l, len, lane);
     }
     __syncthreads();   // the stage is refilled two heads on
   }
 }
 
-size_t smem_bytes_mma(int len) {
+template <int D>
+constexpr size_t smem_bytes_mma(int len) {
   const size_t lp = static_cast<size_t>((len + 15) & ~15);
-  return 2 * 3 * lp * hmmc::kTileRowBytes;
+  return 2 * 3 * lp * Row<D>::kBytes;
 }
 
-template <int NT>
+template <int D, int NT>
 cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   static unsigned allowed = 0;
-  auto kernel = attention_fwd_mma_kernel<NT>;
-  const size_t smem = smem_bytes_mma(a.len);
+  auto kernel = attention_fwd_mma_kernel<D, NT>;
+  const size_t smem = smem_bytes_mma<D>(a.len);
   const cudaError_t err = hmmc::allow_smem(kernel, smem, &allowed);
   if (err != cudaSuccess) return err;
   const int grid = (a.heads_total + kHeadsPerCta - 1) / kHeadsPerCta;
@@ -252,24 +267,19 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the instance of NT = ceil(L / 16) tiles, L <= kMaxLen
+template <int D, int NT = 1>
 cudaError_t dispatch_mma(const Args& a, cudaStream_t stream) {
-  switch ((a.len + 15) / 16) {
-    case 1: return launch_mma<1>(a, stream);
-    case 2: return launch_mma<2>(a, stream);
-    case 3: return launch_mma<3>(a, stream);
-    case 4: return launch_mma<4>(a, stream);
-    case 5: return launch_mma<5>(a, stream);
-    case 6: return launch_mma<6>(a, stream);
-    case 7: return launch_mma<7>(a, stream);
-    default: return launch_mma<8>(a, stream);
+  if constexpr (16 * NT < kMaxLen) {
+    if (a.len > 16 * NT) return dispatch_mma<D, NT + 1>(a, stream);
   }
+  return launch_mma<D, NT>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
 // bf16, L > 128: Q tiles against a ring of KV tiles, online softmax
 // ---------------------------------------------------------------------------
 
-using hmmc::kTileBytes;
 using hmmc::kTileRows;
 
 // Logits of keys past L, or (causal) after their row, to -inf: a warp's
@@ -288,8 +298,11 @@ __device__ __forceinline__ void mask_tile(float (&s)[8][4], int k0, int r,
 
 // CTA (blockIdx.y, blockIdx.x) = (Q tile, batch * head): 4 warps, 16 query
 // rows each. Shared memory: the Q tile, then two stages of (K, V) tiles.
+template <int D>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 attention_fwd_tiled_kernel(Args a) {
+  constexpr int kTileBytes = hmmc::tile_bytes<D>();
+  constexpr float kScaleLog2 = Scale<D>::kLog2;
   extern __shared__ uint4 smem_raw[];
   char* smem = reinterpret_cast<char*>(smem_raw);
   const uint32_t base = hmmc::smem_u32(smem);
@@ -303,17 +316,18 @@ attention_fwd_tiled_kernel(Args a) {
   const int n_kv = a.causal ? qt + 1 : (len + kTileRows - 1) / kTileRows;
   auto issue = [&](int kt) {
     const uint32_t dst = base + kTileBytes + (kt & 1) * 2 * kTileBytes;
-    hmmc::stage_tile(dst, kb, a.sk.l, kt * kTileRows, len);
-    hmmc::stage_tile(dst + kTileBytes, vb, a.sv.l, kt * kTileRows, len);
+    hmmc::stage_tile<D>(dst, kb, a.sk.l, kt * kTileRows, len);
+    hmmc::stage_tile<D>(dst + kTileBytes, vb, a.sv.l, kt * kTileRows, len);
   };
-  hmmc::stage_tile(base, a.q + b * a.sq.b + hh * a.sq.h, a.sq.l, q0, len);
+  hmmc::stage_tile<D>(base, a.q + b * a.sq.b + hh * a.sq.h, a.sq.l, q0, len);
   issue(0);
   hmmc::cp_async_commit();
 
   const int r = q0 + 16 * warp + (lane >> 2);   // rows r and r + 8
-  float o[8][4], m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float o[Row<D>::kNTiles][4], m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f,
+                               l1 = 0.f;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < Row<D>::kNTiles; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
@@ -333,14 +347,14 @@ attention_fwd_tiled_kernel(Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < kHeadDim / 16; ++ks) {
+    for (int ks = 0; ks < Row<D>::kKSteps; ++ks) {
       uint32_t qa[4];
-      hmmc::ldsm_x4(hmmc::a_addr(base, 16 * warp, ks, lane), qa);
+      hmmc::ldsm_x4(hmmc::a_addr<D>(base, 16 * warp, ks, lane), qa);
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         if (diag && np > warp) continue;
         uint32_t kf[4];
-        hmmc::ldsm_x4(hmmc::b_addr(tk, 16 * np, ks, lane), kf);
+        hmmc::ldsm_x4(hmmc::b_addr<D>(tk, 16 * np, ks, lane), kf);
         hmmc::mma_bf16(s[2 * np], qa, kf[0], kf[1]);
         hmmc::mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
       }
@@ -358,25 +372,25 @@ attention_fwd_tiled_kernel(Args a) {
     }
     const float mn0 = fmaxf(m0, hmmc::quad_max(mx0));
     const float mn1 = fmaxf(m1, hmmc::quad_max(mx1));
-    const float al0 = hmmc::ex2((m0 - mn0) * hmmc::kScaleLog2);
-    const float al1 = hmmc::ex2((m1 - mn1) * hmmc::kScaleLog2);
+    const float al0 = hmmc::ex2((m0 - mn0) * kScaleLog2);
+    const float al1 = hmmc::ex2((m1 - mn1) * kScaleLog2);
     m0 = mn0;
     m1 = mn1;
-    const float c0 = m0 * hmmc::kScaleLog2, c1 = m1 * hmmc::kScaleLog2;
+    const float c0 = m0 * kScaleLog2, c1 = m1 * kScaleLog2;
     float t0 = 0.f, t1 = 0.f;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        s[n][e] = hmmc::ex2(fmaf(s[n][e], hmmc::kScaleLog2, -c0));
-        s[n][2 + e] = hmmc::ex2(fmaf(s[n][2 + e], hmmc::kScaleLog2, -c1));
+        s[n][e] = hmmc::ex2(fmaf(s[n][e], kScaleLog2, -c0));
+        s[n][2 + e] = hmmc::ex2(fmaf(s[n][2 + e], kScaleLog2, -c1));
         t0 += s[n][e];
         t1 += s[n][2 + e];
       }
     l0 = l0 * al0 + t0;   // this lane's columns; summed over the quad
     l1 = l1 * al1 + t1;   // at the end
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < Row<D>::kNTiles; ++n) {
       o[n][0] *= al0;
       o[n][1] *= al0;
       o[n][2] *= al1;
@@ -391,9 +405,9 @@ attention_fwd_tiled_kernel(Args a) {
                               hmmc::pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
                               hmmc::pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < kHeadDim / 16; ++dp) {
+      for (int dp = 0; dp < Row<D>::kKSteps; ++dp) {
         uint32_t vf[4];
-        hmmc::ldsm_x4_t(hmmc::bt_addr(tv, 16 * j, dp, lane), vf);
+        hmmc::ldsm_x4_t(hmmc::bt_addr<D>(tv, 16 * j, dp, lane), vf);
         hmmc::mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
         hmmc::mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
       }
@@ -403,7 +417,7 @@ attention_fwd_tiled_kernel(Args a) {
   const float inv0 = 1.f / hmmc::quad_sum(l0);
   const float inv1 = 1.f / hmmc::quad_sum(l1);
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < Row<D>::kNTiles; ++n) {
     o[n][0] *= inv0;
     o[n][1] *= inv0;
     o[n][2] *= inv1;
@@ -412,20 +426,22 @@ attention_fwd_tiled_kernel(Args a) {
   // only this warp reads its rows of the Q tile: stage o there
   const int rows = len - q0;
   __nv_bfloat16* ob = a.o + b * a.so.b + hh * a.so.h + q0 * a.so.l;
-  hmmc::frags_to_tile(smem, 16 * warp, o, rows, lane);
+  hmmc::frags_to_tile<D>(smem, 16 * warp, o, rows, lane);
   __syncwarp();
-  hmmc::tile_rows_to_global(smem, 16 * warp, ob, a.so.l, rows, lane);
+  hmmc::tile_rows_to_global<D>(smem, 16 * warp, ob, a.so.l, rows, lane);
 }
 
-constexpr size_t kSmemTiled = 5 * kTileBytes;   // Q, then 2 x (K, V)
+template <int D>   // Q, then 2 x (K, V)
+constexpr size_t kSmemTiled = 5 * hmmc::tile_bytes<D>();
 
+template <int D>
 cudaError_t launch_tiled(const Args& a, cudaStream_t stream) {
   static unsigned allowed = 0;
-  const cudaError_t err =
-      hmmc::allow_smem(attention_fwd_tiled_kernel, kSmemTiled, &allowed);
+  auto kernel = attention_fwd_tiled_kernel<D>;
+  const cudaError_t err = hmmc::allow_smem(kernel, kSmemTiled<D>, &allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.heads_total, (a.len + kTileRows - 1) / kTileRows);
-  attention_fwd_tiled_kernel<<<grid, kMmaWarps * 32, kSmemTiled, stream>>>(a);
+  kernel<<<grid, kMmaWarps * 32, kSmemTiled<D>, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -435,8 +451,11 @@ cudaError_t launch_tiled(const Args& a, cudaStream_t stream) {
 
 constexpr int kWarps = 4;
 constexpr int kRows = 4;                // query rows a warp handles at once
-constexpr int kKStride = kHeadDim + 4;  // 68 floats: a quarter-warp's float4
-                                        // loads of 8 keys hit 32 distinct banks
+// K rows of D + 4 floats: a quarter-warp's float4 loads of 8 keys step
+// D / 4 + 1 four-bank groups a row, odd at every D in the set (a multiple
+// of 8), so they hit 32 distinct banks
+template <int D>
+constexpr int kKStride = D + 4;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -453,19 +472,21 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // One CTA per (batch, head). NT = ceil(L / 32) key slots per lane.
-template <int NT>
+template <int D, int NT>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_fwd_fp32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
                           int heads, int len, Strides sq, Strides sk,
                           Strides sv, Strides so, int causal) {
+  constexpr int kHeadDim = D, kKS = kKStride<D>, kCG = kColGroups<D>;
+  constexpr float kScale = Scale<D>::kScale;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int lp = (len + 3) & ~3;
-  float* s_q = smem;                         // [lp][64]
-  float* s_k = s_q + lp * kHeadDim;          // [lp][68]
-  float* s_v = s_k + lp * kKStride;          // [lp][64]
+  float* s_q = smem;                         // [lp][D]
+  float* s_k = s_q + lp * kHeadDim;          // [lp][D + 4]
+  float* s_v = s_k + lp * kKS;               // [lp][D]
   float* s_p = s_v + lp * kHeadDim;          // [kWarps][kRows][lp]
 
   const int b = blockIdx.x / heads;
@@ -486,7 +507,7 @@ attention_fwd_fp32_kernel(const float* __restrict__ q,
     for (int u = 0; u < kUnroll; ++u) {
       const int idx = base + u * blockDim.x;
       if (idx < n) {
-        const int l = idx / kHeadDim;
+        const int l = hmmc::udiv<kHeadDim>(idx);
         const int d = idx - l * kHeadDim;
         tq[u] = qb[l * sq.l + d];
         tk[u] = kb[l * sk.l + d];
@@ -497,10 +518,10 @@ attention_fwd_fp32_kernel(const float* __restrict__ q,
     for (int u = 0; u < kUnroll; ++u) {
       const int idx = base + u * blockDim.x;
       if (idx < n) {
-        const int l = idx / kHeadDim;
+        const int l = hmmc::udiv<kHeadDim>(idx);
         const int d = idx - l * kHeadDim;
         s_q[l * kHeadDim + d] = tq[u];
-        s_k[l * kKStride + d] = tk[u];
+        s_k[l * kKS + d] = tk[u];
         s_v[l * kHeadDim + d] = tv[u];
       }
     }
@@ -537,7 +558,7 @@ attention_fwd_fp32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
         const float4 kv =
-            *reinterpret_cast<const float4*>(s_k + kj[t] * kKStride + d);
+            *reinterpret_cast<const float4*>(s_k + kj[t] * kKS + d);
 #pragma unroll
         for (int r = 0; r < kRows; ++r) {
           acc[r][t] = fmaf(qv[r].x, kv.x, acc[r][t]);
@@ -577,29 +598,38 @@ attention_fwd_fp32_kernel(const float* __restrict__ q,
     }
     __syncwarp();
 
-    // o = P . v: each lane owns output columns 2*lane and 2*lane + 1
+    // o = P . v: each lane owns output columns 2 lane and 2 lane + 1 of
+    // each 64-column group
     const int jmax = causal ? min(len, i0 + kRows) : len;
-    float2 out[kRows];
+    float2 out[kRows][kCG];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) out[r] = make_float2(0.f, 0.f);
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int g = 0; g < kCG; ++g) out[r][g] = make_float2(0.f, 0.f);
     for (int j = 0; j < jmax; ++j) {
-      const float2 vv =
-          *reinterpret_cast<const float2*>(s_v + j * kHeadDim + 2 * lane);
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = p_row[r * lp + j];
-        out[r].x = fmaf(p, vv.x, out[r].x);
-        out[r].y = fmaf(p, vv.y, out[r].y);
+      for (int g = 0; g < kCG; ++g) {
+        if (!owns_cols<D>(g, lane)) continue;
+        const float2 vv = *reinterpret_cast<const float2*>(
+            s_v + j * kHeadDim + 64 * g + 2 * lane);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float p = p_row[r * lp + j];
+          out[r][g].x = fmaf(p, vv.x, out[r][g].x);
+          out[r][g].y = fmaf(p, vv.y, out[r][g].y);
+        }
       }
     }
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int i = i0 + r;
-      if (i < len) {
-        float* op = ob + i * so.l + 2 * lane;
-        op[0] = out[r].x;
-        op[1] = out[r].y;
-      }
+#pragma unroll
+      for (int g = 0; g < kCG; ++g)
+        if (i < len && owns_cols<D>(g, lane)) {
+          float* op = ob + i * so.l + 64 * g + 2 * lane;
+          op[0] = out[r][g].x;
+          op[1] = out[r][g].y;
+        }
     }
     __syncwarp();
   }
@@ -607,19 +637,20 @@ attention_fwd_fp32_kernel(const float* __restrict__ q,
 
 // dynamic shared memory of one fp32 CTA: q, k (padded rows), v and the
 // per-warp probability rows
-size_t smem_bytes_fp32(int len) {
+template <int D>
+constexpr size_t smem_bytes_fp32(int len) {
   const size_t lp = static_cast<size_t>((len + 3) & ~3);
-  return sizeof(float) * (lp * (2 * kHeadDim + kKStride) + kWarps * kRows * lp);
+  return sizeof(float) * (lp * (2 * D + kKStride<D>) + kWarps * kRows * lp);
 }
 
-template <int NT>
+template <int D, int NT>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
                         int batch, int heads, int len, Strides sq, Strides sk,
                         Strides sv, Strides so, int causal,
                         cudaStream_t stream) {
   static unsigned allowed = 0;
-  const size_t smem = smem_bytes_fp32(len);
-  auto kernel = attention_fwd_fp32_kernel<NT>;
+  const size_t smem = smem_bytes_fp32<D>(len);
+  auto kernel = attention_fwd_fp32_kernel<D, NT>;
   const cudaError_t err = hmmc::allow_smem(kernel, smem, &allowed);
   if (err != cudaSuccess) return err;
   kernel<<<batch * heads, kWarps * 32, smem, stream>>>(
@@ -629,24 +660,19 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// the instance of NT = ceil(L / 32) key slots, L <= kMaxLen
+template <int D, int NT = 1>
 cudaError_t dispatch_fp32(const void* q, const void* k, const void* v,
                           void* o, int batch, int heads, int len, Strides sq,
                           Strides sk, Strides sv, Strides so, int causal,
                           cudaStream_t stream) {
-  switch ((len + 31) / 32) {
-    case 1:
-      return launch_fp32<1>(q, k, v, o, batch, heads, len, sq, sk, sv, so,
-                            causal, stream);
-    case 2:
-      return launch_fp32<2>(q, k, v, o, batch, heads, len, sq, sk, sv, so,
-                            causal, stream);
-    case 3:
-      return launch_fp32<3>(q, k, v, o, batch, heads, len, sq, sk, sv, so,
-                            causal, stream);
-    default:
-      return launch_fp32<4>(q, k, v, o, batch, heads, len, sq, sk, sv, so,
-                            causal, stream);
+  if constexpr (32 * NT < kMaxLen) {
+    if (len > 32 * NT)
+      return dispatch_fp32<D, NT + 1>(q, k, v, o, batch, heads, len, sq, sk,
+                                      sv, so, causal, stream);
   }
+  return launch_fp32<D, NT>(q, k, v, o, batch, heads, len, sq, sk, sv, so,
+                            causal, stream);
 }
 
 // fp32, L > 128: one CTA per (32-row Q tile, batch * head), KV tiles of 64
@@ -656,6 +682,7 @@ constexpr int kF32Rows = 8;
 constexpr int kF32QTile = kWarps * kF32Rows;   // 32
 constexpr int kF32KTile = 64;
 
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_fwd_fp32_tiled_kernel(const float* __restrict__ q,
                                 const float* __restrict__ k,
@@ -663,11 +690,14 @@ attention_fwd_fp32_tiled_kernel(const float* __restrict__ q,
                                 float* __restrict__ o, int heads, int len,
                                 Strides sq, Strides sk, Strides sv, Strides so,
                                 int causal) {
+  constexpr int kHeadDim = D, kKS = kKStride<D>, kCG = kColGroups<D>;
+  constexpr int kF4 = D / 4;                       // float4s a row
+  constexpr float kScale = Scale<D>::kScale;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* s_q = smem;                               // [32][64]
-  float* s_k = s_q + kF32QTile * kHeadDim;         // [64][68]
-  float* s_v = s_k + kF32KTile * kKStride;         // [64][64]
+  float* s_q = smem;                               // [32][D]
+  float* s_k = s_q + kF32QTile * kHeadDim;         // [64][D + 4]
+  float* s_v = s_k + kF32KTile * kKS;              // [64][D]
   float* s_p = s_v + kF32KTile * kHeadDim;         // [kWarps][8][64]
   const int head = blockIdx.x, q0 = blockIdx.y * kF32QTile;
   const int b = head / heads, h = head - b * heads;
@@ -679,8 +709,8 @@ attention_fwd_fp32_tiled_kernel(const float* __restrict__ q,
 
   // rows at or past len are staged as zeros (16-byte loads: the wrapper
   // checks every pointer and stride is 16-byte aligned)
-  for (int c = threadIdx.x; c < kF32QTile * 16; c += blockDim.x) {
-    const int row = c >> 4, col = (c & 15) * 4;
+  for (int c = threadIdx.x; c < kF32QTile * kF4; c += blockDim.x) {
+    const int row = hmmc::udiv<kF4>(c), col = hmmc::umod<kF4>(c) * 4;
     const int i = q0 + row;
     *reinterpret_cast<float4*>(s_q + row * kHeadDim + col) =
         i < len ? *reinterpret_cast<const float4*>(qb + i * sq.l + col)
@@ -691,22 +721,23 @@ attention_fwd_fp32_tiled_kernel(const float* __restrict__ q,
   const float* q_rows = s_q + warp * kF32Rows * kHeadDim;
   float* p_row = s_p + warp * kF32Rows * kF32KTile;
   float m[kF32Rows], l[kF32Rows];
-  float2 out[kF32Rows];
+  float2 out[kF32Rows][kCG];
 #pragma unroll
   for (int r = 0; r < kF32Rows; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
-    out[r] = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int g = 0; g < kCG; ++g) out[r][g] = make_float2(0.f, 0.f);
   }
   const int kv_end = causal ? min(len, q0 + kF32QTile) : len;
   for (int k0 = 0; k0 < kv_end; k0 += kF32KTile) {
     __syncthreads();   // the previous tile's readers are done
-    for (int c = threadIdx.x; c < kF32KTile * 16; c += blockDim.x) {
-      const int row = c >> 4, col = (c & 15) * 4;
+    for (int c = threadIdx.x; c < kF32KTile * kF4; c += blockDim.x) {
+      const int row = hmmc::udiv<kF4>(c), col = hmmc::umod<kF4>(c) * 4;
       const int j = k0 + row;
       const bool in = j < len;
       const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(s_k + row * kKStride + col) =
+      *reinterpret_cast<float4*>(s_k + row * kKS + col) =
           in ? *reinterpret_cast<const float4*>(kb + j * sk.l + col) : z;
       *reinterpret_cast<float4*>(s_v + row * kHeadDim + col) =
           in ? *reinterpret_cast<const float4*>(vb + j * sv.l + col) : z;
@@ -720,9 +751,9 @@ attention_fwd_fp32_tiled_kernel(const float* __restrict__ q,
 #pragma unroll 4
     for (int d = 0; d < kHeadDim; d += 4) {
       const float4 k0v =
-          *reinterpret_cast<const float4*>(s_k + lane * kKStride + d);
+          *reinterpret_cast<const float4*>(s_k + lane * kKS + d);
       const float4 k1v =
-          *reinterpret_cast<const float4*>(s_k + (lane + 32) * kKStride + d);
+          *reinterpret_cast<const float4*>(s_k + (lane + 32) * kKS + d);
 #pragma unroll
       for (int r = 0; r < kF32Rows; ++r) {
         const float4 qv =
@@ -761,22 +792,30 @@ attention_fwd_fp32_tiled_kernel(const float* __restrict__ q,
         ts += p;
       }
       l[r] = l[r] * al + warp_sum(ts);
-      out[r].x *= al;
-      out[r].y *= al;
+#pragma unroll
+      for (int g = 0; g < kCG; ++g) {
+        out[r][g].x *= al;
+        out[r][g].y *= al;
+      }
     }
     __syncwarp();
-    // out += P . v: each lane owns output columns 2 lane and 2 lane + 1;
-    // keys past the end (and, causal, past the warp's last row) add 0
+    // out += P . v: each lane owns output columns 2 lane and 2 lane + 1 of
+    // each 64-column group; keys past the end (and, causal, past the
+    // warp's last row) add 0
     int jmax = min(kF32KTile, len - k0);
     if (causal) jmax = min(jmax, i0 + kF32Rows - k0);
     for (int j = 0; j < jmax; ++j) {
-      const float2 vv =
-          *reinterpret_cast<const float2*>(s_v + j * kHeadDim + 2 * lane);
 #pragma unroll
-      for (int r = 0; r < kF32Rows; ++r) {
-        const float p = p_row[r * kF32KTile + j];
-        out[r].x = fmaf(p, vv.x, out[r].x);
-        out[r].y = fmaf(p, vv.y, out[r].y);
+      for (int g = 0; g < kCG; ++g) {
+        if (!owns_cols<D>(g, lane)) continue;
+        const float2 vv = *reinterpret_cast<const float2*>(
+            s_v + j * kHeadDim + 64 * g + 2 * lane);
+#pragma unroll
+        for (int r = 0; r < kF32Rows; ++r) {
+          const float p = p_row[r * kF32KTile + j];
+          out[r][g].x = fmaf(p, vv.x, out[r][g].x);
+          out[r][g].y = fmaf(p, vv.y, out[r][g].y);
+        }
       }
     }
     __syncwarp();
@@ -784,40 +823,81 @@ attention_fwd_fp32_tiled_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int r = 0; r < kF32Rows; ++r) {
     const int i = i0 + r;
-    if (i < len) {
-      float* op = ob + i * so.l + 2 * lane;
-      op[0] = out[r].x / l[r];
-      op[1] = out[r].y / l[r];
-    }
+#pragma unroll
+    for (int g = 0; g < kCG; ++g)
+      if (i < len && owns_cols<D>(g, lane)) {
+        float* op = ob + i * so.l + 64 * g + 2 * lane;
+        op[0] = out[r][g].x / l[r];
+        op[1] = out[r][g].y / l[r];
+      }
   }
 }
 
+template <int D>
 constexpr size_t kSmemF32Tiled =
-    sizeof(float) * (kF32QTile * kHeadDim + kF32KTile * kKStride +
-                     kF32KTile * kHeadDim + kWarps * kF32Rows * kF32KTile);
+    sizeof(float) * (kF32QTile * D + kF32KTile * kKStride<D> +
+                     kF32KTile * D + kWarps * kF32Rows * kF32KTile);
 
+template <int D>
 cudaError_t launch_fp32_tiled(const void* q, const void* k, const void* v,
                               void* o, int batch, int heads, int len,
                               Strides sq, Strides sk, Strides sv, Strides so,
                               int causal, cudaStream_t stream) {
   static unsigned allowed = 0;
-  const cudaError_t err = hmmc::allow_smem(attention_fwd_fp32_tiled_kernel,
-                                           kSmemF32Tiled, &allowed);
+  auto kernel = attention_fwd_fp32_tiled_kernel<D>;
+  const cudaError_t err = hmmc::allow_smem(kernel, kSmemF32Tiled<D>, &allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * heads, (len + kF32QTile - 1) / kF32QTile);
-  attention_fwd_fp32_tiled_kernel<<<grid, kWarps * 32, kSmemF32Tiled,
-                                    stream>>>(
+  kernel<<<grid, kWarps * 32, kSmemF32Tiled<D>, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), heads, len, sq,
       sk, sv, so, causal);
   return cudaGetLastError();
 }
 
+// the short bodies at kMaxLen fit the SM's shared memory at every D
+static_assert(smem_bytes_mma<128>(kMaxLen) <= hmmc::kMaxSmem &&
+                  smem_bytes_fp32<128>(kMaxLen) <= hmmc::kMaxSmem,
+              "K1's short bodies overflow shared memory at head_dim 128");
+
+template <int D>
+cudaError_t run(const void* q, const void* k, const void* v, void* o,
+                int dtype, int batch, int heads, int len, Strides sq,
+                Strides sk, Strides sv, Strides so, int causal,
+                cudaStream_t s) {
+  const bool tiled = len > kMaxLen;
+  if (dtype == 0)
+    return tiled ? launch_fp32_tiled<D>(q, k, v, o, batch, heads, len, sq, sk,
+                                        sv, so, causal, s)
+                 : dispatch_fp32<D>(q, k, v, o, batch, heads, len, sq, sk, sv,
+                                    so, causal, s);
+  if (dtype == 1) {
+    const Args a{static_cast<const __nv_bfloat16*>(q),
+                 static_cast<const __nv_bfloat16*>(k),
+                 static_cast<const __nv_bfloat16*>(v),
+                 static_cast<__nv_bfloat16*>(o),
+                 heads, len, causal, batch * heads,
+                 sq, sk, sv, so};
+    return tiled ? launch_tiled<D>(a, s) : dispatch_mma<D>(a, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int D>
+long long smem_bytes(int len, int dtype) {
+  if (len > kMaxLen)
+    return static_cast<long long>(dtype == 1 ? kSmemTiled<D>
+                                             : kSmemF32Tiled<D>);
+  return static_cast<long long>(dtype == 1 ? smem_bytes_mma<D>(len)
+                                           : smem_bytes_fp32<D>(len));
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t as int.
+// dtype: 0 = float32, 1 = bfloat16; head_dim 64, 80, 96 or 128. Returns a
+// cudaError_t as int (cudaErrorInvalidValue for any other head_dim).
 int hmmc_fused_attention_fwd(const void* q, const void* k, const void* v,
                              void* o, int dtype, int batch, int heads,
                              int len, int head_dim, long long q_sb,
@@ -826,42 +906,46 @@ int hmmc_fused_attention_fwd(const void* q, const void* k, const void* v,
                              long long v_sh, long long v_sl, long long o_sb,
                              long long o_sh, long long o_sl, int causal,
                              void* stream) {
-  if (head_dim != kHeadDim || len < 1 || batch < 1 || heads < 1)
+  if (len < 1 || batch < 1 || heads < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{q_sb, q_sh, q_sl}, sk{k_sb, k_sh, k_sl},
       sv{v_sb, v_sh, v_sl}, so{o_sb, o_sh, o_sl};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tiled = len > kMaxLen;
-  if (dtype == 0)
-    return static_cast<int>(
-        tiled ? launch_fp32_tiled(q, k, v, o, batch, heads, len, sq, sk, sv,
-                                  so, causal, s)
-              : dispatch_fp32(q, k, v, o, batch, heads, len, sq, sk, sv, so,
-                              causal, s));
-  if (dtype == 1) {
-    const Args a{static_cast<const __nv_bfloat16*>(q),
-                 static_cast<const __nv_bfloat16*>(k),
-                 static_cast<const __nv_bfloat16*>(v),
-                 static_cast<__nv_bfloat16*>(o),
-                 heads, len, causal, batch * heads,
-                 sq, sk, sv, so};
-    return static_cast<int>(tiled ? launch_tiled(a, s) : dispatch_mma(a, s));
+  switch (head_dim) {
+    case 64:
+      return static_cast<int>(run<64>(q, k, v, o, dtype, batch, heads, len,
+                                      sq, sk, sv, so, causal, s));
+    case 80:
+      return static_cast<int>(run<80>(q, k, v, o, dtype, batch, heads, len,
+                                      sq, sk, sv, so, causal, s));
+    case 96:
+      return static_cast<int>(run<96>(q, k, v, o, dtype, batch, heads, len,
+                                      sq, sk, sv, so, causal, s));
+    case 128:
+      return static_cast<int>(run<128>(q, k, v, o, dtype, batch, heads, len,
+                                       sq, sk, sv, so, causal, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The longest sequence the short (one CTA per head) bodies take; longer
-// ones take the tiled bodies.
-int hmmc_fused_attention_short_max_len(int dtype) {
+// The longest sequence the short (one CTA per head) bodies take at this
+// dtype and head_dim (0 for a head_dim not built); longer ones take the
+// tiled bodies.
+int hmmc_fused_attention_short_max_len(int dtype, int head_dim) {
   (void)dtype;
-  return kMaxLen;
+  return hmmc::is_head_dim(head_dim) ? kMaxLen : 0;
 }
 
-long long hmmc_fused_attention_smem_bytes(int len, int dtype) {
-  if (len > kMaxLen)
-    return static_cast<long long>(dtype == 1 ? kSmemTiled : kSmemF32Tiled);
-  return static_cast<long long>(dtype == 1 ? smem_bytes_mma(len)
-                                           : smem_bytes_fp32(len));
+// Dynamic shared memory of one CTA (-1 for a head_dim not built).
+long long hmmc_fused_attention_smem_bytes(int len, int dtype, int head_dim) {
+  switch (head_dim) {
+    case 64: return smem_bytes<64>(len, dtype);
+    case 80: return smem_bytes<80>(len, dtype);
+    case 96: return smem_bytes<96>(len, dtype);
+    case 128: return smem_bytes<128>(len, dtype);
+    default: return -1;
+  }
 }
 
 // (batch, head) pairs one CTA takes in this dtype.

@@ -7,15 +7,17 @@ and ``_flash_backward`` in ``hmmc_tpu/ops/pallas_attention.py``. The kernels
 are ``csrc/fused_attention_fwd.cu`` (K1: fp32 logits and softmax, P rounded
 to v's dtype, fp32 accumulation) and ``csrc/fused_attention_bwd.cu`` (K2: P
 recomputed in fp32 and not rounded, dq / dk / dv accumulated in fp32). Both
-take head_dim 64 and any L. Each has two bodies, chosen by L: the short one
-(one CTA per head, the whole [L, L] row block on chip) up to
-:data:`SHORT_MAX_LEN` (K2: :func:`short_max_len_backward`), and the tiled
-one past it (64-row tiles; K1 an online softmax over a ring of KV tiles, K2
-a rows pass that leaves fp32 row statistics in scratch and a keys pass, no
-atomics). In bfloat16 their products run on the tensor cores and heads are
-staged by 16-byte copies; every pointer and batch / head / sequence stride
-must be 16-byte aligned (float32, the reference checks, keeps CUDA-core
-bodies with 16-byte loads too).
+take any L and a head_dim in :data:`HEAD_DIMS` (each a compile-time
+instance of every body; the temporal transformer's head_dim is embed_dim /
+8 under ``cross-base``: 96 at ViT-L/14). Each has two bodies, chosen by L:
+the short one (one CTA per head, the whole [L, L] row block on chip) up to
+:data:`SHORT_MAX_LEN` (K2: :func:`short_max_len_backward`, by dtype and
+head_dim), and the tiled one past it (64-row tiles; K1 an online softmax
+over a ring of KV tiles, K2 a rows pass that leaves fp32 row statistics in
+scratch and a keys pass, no atomics). In bfloat16 their products run on
+the tensor cores and heads are staged by 16-byte copies; every pointer and
+batch / head / sequence stride must be 16-byte aligned (float32, the
+reference checks, keeps CUDA-core bodies with 16-byte loads too).
 
 :func:`fused_attention` is the entry point: its forward is K1 and its
 backward K2, and it saves q, k and v for the backward as the JAX
@@ -24,7 +26,8 @@ raises; a CPU tensor takes the plain forward and the plain backward, inside
 the same Function. There is no fallback from one to the other.
 ``fused_attention.launches`` and ``fused_attention_backward.launches`` count
 the wrappers' launches (a tiled K2 call, two kernels, counts once);
-``short_launches`` and ``tiled_launches`` on each split them by body.
+``short_launches`` and ``tiled_launches`` on each split them by body, and
+``head_dim_launches`` (a dict keyed by head_dim) by head_dim.
 """
 
 from __future__ import annotations
@@ -36,12 +39,15 @@ from typing import Tuple
 
 import torch
 
-HEAD_DIM = 64
-SHORT_MAX_LEN = 128      # K1's short body's longest L; longer: the tiled
-SHORT_MAX_LEN_BWD = 128  # K2's short body in bf16: q, k, v, g and P / dS
-                         # (hi and lo) staged in bf16 fit 227 KB of shared
-                         # memory up to here
-SHORT_MAX_LEN_BWD_FP32 = 112   # K2's short body in fp32 (its fp32 staging)
+HEAD_DIMS = (64, 80, 96, 128)   # the head_dims the kernels are built for
+SHORT_MAX_LEN = 128      # K1's short body's longest L at every head_dim;
+                         # longer: the tiled
+# K2's short body's longest L by dtype and head_dim: the longest multiple
+# of 16 up to 128 whose staging fits 227 KB of shared memory (bf16: q, k,
+# v, g tiles of 2 x head_dim bytes a row and P / dS hi and lo; fp32: q, k,
+# v, g rows and the P and dS rows); the CUDA entry points compute the same
+SHORT_MAX_LEN_BWD = {torch.bfloat16: {64: 128, 80: 128, 96: 112, 128: 112},
+                     torch.float32: {64: 112, 80: 96, 96: 96, 128: 80}}
 ALIGN = 16               # bytes: the bf16 kernels' copies are 16 bytes
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -106,17 +112,19 @@ def _check_common(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"fused_attention runs on cuda or cpu; got {q.device}")
 
 
-def short_max_len_backward(dtype: torch.dtype) -> int:
-    """The longest sequence K2's short body takes in this dtype."""
-    return (SHORT_MAX_LEN_BWD_FP32 if dtype == torch.float32
-            else SHORT_MAX_LEN_BWD)
+def short_max_len_backward(dtype: torch.dtype, head_dim: int) -> int:
+    """The longest sequence K2's short body takes in this dtype at this
+    head_dim (one of :data:`HEAD_DIMS`)."""
+    return SHORT_MAX_LEN_BWD[dtype][head_dim]
 
 
-def kernel_body(seq_len: int, dtype: torch.dtype,
+def kernel_body(seq_len: int, dtype: torch.dtype, head_dim: int,
                 backward: bool = False) -> str:
     """"short" or "tiled": the body K1 (``backward``: K2) runs at this
-    length and dtype; the CUDA entry points choose by the same limits."""
-    limit = short_max_len_backward(dtype) if backward else SHORT_MAX_LEN
+    length, dtype and head_dim; the CUDA entry points choose by the same
+    limits."""
+    limit = (short_max_len_backward(dtype, head_dim) if backward
+             else SHORT_MAX_LEN)
     return "short" if seq_len <= limit else "tiled"
 
 
@@ -143,7 +151,8 @@ def _check_aligned(**tensors: torch.Tensor) -> None:
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> None:
     """Raise unless the CUDA kernels take these shapes, dtypes, strides and
-    alignments (the device is checked by the caller). Any L >= 1."""
+    alignments (the device is checked by the caller). Any L >= 1, a
+    head_dim in :data:`HEAD_DIMS`."""
     _check_common(q, k, v)
     _check_kernel(q, k, v)
 
@@ -151,11 +160,12 @@ def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
 def _check_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """:func:`check_kernel_inputs` after :func:`_check_common` passed."""
     b, h, l, d = q.shape
-    if d != HEAD_DIM:
+    if d not in HEAD_DIMS:
         raise ValueError(
-            f"the fused attention kernels take head_dim {HEAD_DIM}; got {d} "
-            "(the temporal transformer's is embed_dim / the cross config's "
-            "temporal_attention_heads: 12 heads at embed_dim 768)")
+            f"the fused attention kernels take head_dim "
+            f"{', '.join(map(str, HEAD_DIMS))}; got {d} (the temporal "
+            "transformer's is embed_dim / the cross config's "
+            "temporal_attention_heads)")
     if l < 1:
         raise ValueError(f"empty sequence: {tuple(q.shape)}")
     if b < 1 or h < 1:
@@ -183,11 +193,11 @@ def _library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
     lib.hmmc_fused_attention_fwd.restype = ctypes.c_int
-    lib.hmmc_fused_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.hmmc_fused_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.hmmc_fused_attention_smem_bytes.restype = ctypes.c_longlong
     lib.hmmc_fused_attention_heads_per_cta.argtypes = [ctypes.c_int]
     lib.hmmc_fused_attention_heads_per_cta.restype = ctypes.c_int
-    lib.hmmc_fused_attention_short_max_len.argtypes = [ctypes.c_int]
+    lib.hmmc_fused_attention_short_max_len.argtypes = [ctypes.c_int] * 2
     lib.hmmc_fused_attention_short_max_len.restype = ctypes.c_int
     return lib
 
@@ -200,20 +210,21 @@ def _library_bwd() -> ctypes.CDLL:
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p, ctypes.c_int,
            ctypes.c_void_p])
     lib.hmmc_fused_attention_bwd.restype = ctypes.c_int
-    lib.hmmc_fused_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.hmmc_fused_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.hmmc_fused_attention_bwd_smem_bytes.restype = ctypes.c_longlong
-    lib.hmmc_fused_attention_bwd_short_max_len.argtypes = [ctypes.c_int]
+    lib.hmmc_fused_attention_bwd_short_max_len.argtypes = [ctypes.c_int] * 2
     lib.hmmc_fused_attention_bwd_short_max_len.restype = ctypes.c_int
-    lib.hmmc_fused_attention_bwd_stats_floats.argtypes = [ctypes.c_int] * 2
+    lib.hmmc_fused_attention_bwd_stats_floats.argtypes = [ctypes.c_int] * 3
     lib.hmmc_fused_attention_bwd_stats_floats.restype = ctypes.c_longlong
     return lib
 
 
-def kernel_smem_bytes(seq_len: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory K1 gives one CTA at this length and dtype
-    (builds the kernel if needed)."""
+def kernel_smem_bytes(seq_len: int, dtype: torch.dtype,
+                      head_dim: int) -> int:
+    """Dynamic shared memory K1 gives one CTA at this length, dtype and
+    head_dim (builds the kernel if needed)."""
     return int(_library().hmmc_fused_attention_smem_bytes(
-        seq_len, _DTYPE_CODES[dtype]))
+        seq_len, _DTYPE_CODES[dtype], head_dim))
 
 
 def kernel_heads_per_cta(dtype: torch.dtype) -> int:
@@ -223,20 +234,24 @@ def kernel_heads_per_cta(dtype: torch.dtype) -> int:
         _DTYPE_CODES[dtype]))
 
 
-def kernel_bwd_smem_bytes(seq_len: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory K2 gives one CTA at this length and dtype (the
-    tiled pair: the larger of its two kernels')."""
+def kernel_bwd_smem_bytes(seq_len: int, dtype: torch.dtype,
+                          head_dim: int) -> int:
+    """Dynamic shared memory K2 gives one CTA at this length, dtype and
+    head_dim (the tiled pair: the larger of its two kernels')."""
     return int(_library_bwd().hmmc_fused_attention_bwd_smem_bytes(
-        seq_len, _DTYPE_CODES[dtype]))
+        seq_len, _DTYPE_CODES[dtype], head_dim))
 
 
-def kernel_short_max_len(dtype: torch.dtype, backward: bool = False) -> int:
+def kernel_short_max_len(dtype: torch.dtype, head_dim: int,
+                         backward: bool = False) -> int:
     """The short body's limit as the built library has it (K1, or K2 with
-    ``backward``), to hold against :func:`kernel_body`'s."""
+    ``backward``; 0 for a head_dim it was not built for), to hold against
+    :func:`kernel_body`'s."""
     code = _DTYPE_CODES[dtype]
     if backward:
-        return int(_library_bwd().hmmc_fused_attention_bwd_short_max_len(code))
-    return int(_library().hmmc_fused_attention_short_max_len(code))
+        return int(_library_bwd().hmmc_fused_attention_bwd_short_max_len(
+            code, head_dim))
+    return int(_library().hmmc_fused_attention_short_max_len(code, head_dim))
 
 
 def _raise_on(err: int, lib: ctypes.CDLL, what: str, q: torch.Tensor) -> None:
@@ -269,12 +284,13 @@ def _head_major(q: torch.Tensor) -> torch.Tensor:
                                dtype=q.dtype, device=q.device)
 
 
-def _count(fn, body: str) -> None:
+def _count(fn, body: str, head_dim: int) -> None:
     fn.launches += 1
     if body == "tiled":
         fn.tiled_launches += 1
     else:
         fn.short_launches += 1
+    fn.head_dim_launches[head_dim] += 1
 
 
 def fused_attention_forward(q: torch.Tensor, k: torch.Tensor,
@@ -300,7 +316,7 @@ def fused_attention_forward(q: torch.Tensor, k: torch.Tensor,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             int(bool(causal)), stream)
     _raise_on(err, lib, "fused attention forward", q)
-    _count(fused_attention, kernel_body(l, q.dtype))
+    _count(fused_attention, kernel_body(l, q.dtype, d), d)
     return o
 
 
@@ -333,7 +349,7 @@ def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
     lib = _library_bwd()
     code = _DTYPE_CODES[q.dtype]
     stats = None
-    per_head = lib.hmmc_fused_attention_bwd_stats_floats(l, code)
+    per_head = lib.hmmc_fused_attention_bwd_stats_floats(l, code, d)
     if per_head:
         stats = torch.empty(b * h * per_head, dtype=torch.float32,
                             device=q.device)
@@ -346,7 +362,8 @@ def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
             None if stats is None else stats.data_ptr(), int(bool(causal)),
             stream)
     _raise_on(err, lib, "fused attention backward", q)
-    _count(fused_attention_backward, kernel_body(l, q.dtype, backward=True))
+    _count(fused_attention_backward,
+           kernel_body(l, q.dtype, d, backward=True), d)
     return dq, dk, dv
 
 
@@ -384,6 +401,7 @@ def reset_launch_counts() -> None:
     """Every launch counter of K1 and K2 to 0."""
     for fn in (fused_attention, fused_attention_backward):
         fn.launches = fn.short_launches = fn.tiled_launches = 0
+        fn.head_dim_launches = dict.fromkeys(HEAD_DIMS, 0)
 
 
 reset_launch_counts()

@@ -39,12 +39,9 @@ from chip_smoke import emit, kernel_device_ms  # noqa: E402
 from hmmc_tpu_torch.ops import fused_attention as fa  # noqa: E402
 from hmmc_tpu_torch.ops import kernel_build  # noqa: E402
 
-CUTS = {"fused_attention_fwd": (("constexpr int kMaxLen = 128;",
-                                 "constexpr int kMaxLen = 0;"),),
-        "fused_attention_bwd": (("constexpr int kMaxLenBf16 = 128;",
-                                 "constexpr int kMaxLenBf16 = 0;"),
-                                ("constexpr int kMaxLenFp32 = 112;",
-                                 "constexpr int kMaxLenFp32 = 0;"))}
+CUTS = {name: (("constexpr int kMaxLen = 128;",
+                "constexpr int kMaxLen = 0;"),)
+        for name in ("fused_attention_fwd", "fused_attention_bwd")}
 # (site, B, H, L, causal, backward): the short bodies' main-path sites
 SITES = (("vit", 768, 12, 50, False, False),
          ("vit", 768, 12, 50, False, True),
@@ -104,7 +101,7 @@ def compare(seed, smi):
     rows = []
     try:
         for site, b, h, l, causal, backward in SITES:
-            d = fa.HEAD_DIM
+            d = 64   # the ViT and text towers' head_dim
             x = torch.randn(b, l, 3 * h * d, device="cuda",
                             generator=gen).to(torch.bfloat16)
             q, k, v = (t.transpose(1, 2) for t in

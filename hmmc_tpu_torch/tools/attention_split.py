@@ -131,7 +131,7 @@ def split(seed, smi):
     rows = []
     try:
         for b, h, l, causal in SITES:
-            d = fa.HEAD_DIM
+            d = 64   # the ViT towers' head_dim
             x = torch.randn(b, l, 3 * h * d, device="cuda",
                             generator=gen).to(torch.bfloat16)
             q, k, v = (t.transpose(1, 2) for t in

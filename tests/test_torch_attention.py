@@ -9,10 +9,12 @@ rtol 1e-3, its fused-gradient tolerance (values there reach ~10, the
 products of two unit-variance heads over 64 dims, scaled).
 
 The ``gpu`` tests hold the CUDA kernels against the plain versions on the
-card, both bodies of each (short up to 128, or 112 for K2 in fp32, and
-tiled past it; the plain versions at the tiled bodies' lengths are held
-to JAX in tests/test_torch_model.py), and the gradients of an attention block on the card
-against the CPU; they skip without one.
+card at every head_dim they are built for (64, 80, 96, 128), both bodies
+of each (short up to 128, K2's up to 128, 112, 96 or 80 by dtype and
+head_dim, and tiled past it; the plain versions at the tiled bodies'
+lengths and at the other head_dims are held to JAX in
+tests/test_torch_model.py), and the gradients of an attention block on
+the card against the CPU; they skip without one.
 """
 
 import functools
@@ -28,8 +30,8 @@ from hmmc_tpu_torch.models.layers import ResidualAttentionBlock
 from hmmc_tpu_torch.ops.attention import causal_mask, multi_head_attention
 from hmmc_tpu_torch.ops import kernel_build
 from hmmc_tpu_torch.ops.fused_attention import (
-    SHORT_MAX_LEN, SHORT_MAX_LEN_BWD, SHORT_MAX_LEN_BWD_FP32,
-    check_kernel_inputs, fused_attention, fused_attention_backward,
+    HEAD_DIMS, SHORT_MAX_LEN, SHORT_MAX_LEN_BWD, check_kernel_inputs,
+    fused_attention, fused_attention_backward,
     fused_attention_backward_reference, fused_attention_reference,
     kernel_body, kernel_heads_per_cta, kernel_short_max_len,
     reset_launch_counts, short_max_len_backward)
@@ -83,10 +85,13 @@ def test_fused_attention_matches_jax(b, h, l, d, causal):
 
 
 def test_fused_attention_cpu_counts_no_launch():
-    before = fused_attention.launches
-    x = torch.zeros(1, 1, 4, 64)
-    fused_attention(x, x, x)
-    assert fused_attention.launches == before
+    before = (fused_attention.launches,
+              dict(fused_attention.head_dim_launches))
+    for d in (64, 96):
+        x = torch.zeros(1, 1, 4, d)
+        fused_attention(x, x, x)
+    assert (fused_attention.launches,
+            fused_attention.head_dim_launches) == before
 
 
 @pytest.mark.parametrize("b,h,l,d,causal", [
@@ -201,7 +206,9 @@ def test_wrapper_rejects_bad_inputs(case):
 
 
 @pytest.mark.parametrize("shape,match", [
-    ((2, 2, 8, 32), "head_dim"),
+    ((2, 2, 8, 32), "head_dim 64, 80, 96, 128; got 32"),
+    ((2, 2, 8, 72), "head_dim 64, 80, 96, 128; got 72"),
+    ((2, 2, 8, 160), "head_dim 64, 80, 96, 128; got 160"),
     ((2, 2, 0, 64), "empty sequence"),
     ((2, 0, 8, 64), "empty"),
 ])
@@ -211,32 +218,90 @@ def test_kernel_input_checks(shape, match):
         check_kernel_inputs(x, x, x)
 
 
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+def test_kernel_input_checks_take_the_head_dims(d):
+    """Exactly 64, 80, 96 and 128, each in both dtypes and on packed head
+    views (a row of 2 x head_dim bytes is a multiple of 16 at each)."""
+    assert HEAD_DIMS == (64, 80, 96, 128)
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.zeros(2, 12, 3 * 8 * d, dtype=dtype)
+        q, k, v = (t.transpose(1, 2) for t in
+                   qkv.view(2, 12, 3, 8, d).unbind(2))
+        check_kernel_inputs(q, k, v)
+
+
+def test_kernel_scales_are_the_plain_versions():
+    """The kernels' per-head_dim scale is the plain version's
+    ``head_dim ** -0.5`` rounded once to fp32, bit for bit, and the tiled
+    bodies' log2 constant is that value times log2(e) within an fp32 ulp
+    (attention_mma.cuh)."""
+    import math
+    import re
+
+    src = open(os.path.join(REPO, "hmmc_tpu_torch", "csrc",
+                            "attention_mma.cuh")).read()
+    found = {int(d): (float.fromhex(sc), float.fromhex(lg)) for d, sc, lg in
+             re.findall(r"struct Scale<(\d+)> \{\s*static constexpr float "
+                        r"kScale = (\S+)f;\s*static constexpr float kLog2 = "
+                        r"(\S+)f;", src)}
+    assert sorted(found) == list(HEAD_DIMS)
+    for d, (scale, log2) in found.items():
+        plain = np.float32(d ** -0.5)
+        assert np.float32(scale) == scale and scale == float(plain), d
+        want = np.float32(float(plain) * math.log2(math.e))
+        assert abs(np.float32(log2) - want) <= np.spacing(want), d
+        logits = torch.randn(64, generator=torch.Generator().manual_seed(d))
+        torch.testing.assert_close(logits * np.float32(scale),
+                                   logits * d ** -0.5, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("l", [129, 577, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_input_checks_take_any_length(dtype, l):
     """No length limit: past the short bodies the tiled ones run."""
     x = torch.zeros(2, 2, l, 64, dtype=dtype)
     check_kernel_inputs(x, x, x)
-    assert kernel_body(l, dtype) == kernel_body(l, dtype, True) == "tiled"
+    for d in HEAD_DIMS:
+        assert kernel_body(l, dtype, d) == kernel_body(l, dtype, d, True) \
+            == "tiled"
+
+
+def _k2_short_smem(dtype, d, l):
+    """Shared memory of K2's short body (fused_attention_bwd.cu's
+    smem_bytes_mma / smem_bytes_fp32) at head_dim d and length l."""
+    if dtype == torch.bfloat16:
+        lp = (l + 15) // 16 * 16
+        return 4 * lp * 2 * d + 4 * lp * (2 * (lp // 16) + 1) * 16
+    lp4 = (l + 3) // 4 * 4
+    return 4 * (l * (2 * d + 2 * (d + 4)) + 2 * l * lp4)
 
 
 def test_backward_input_checks():
-    """Each body's range: K1 short up to 128, K2 up to 128 in bf16 and 112
-    in fp32, tiled past (the CUDA entry points hold the same limits, see
-    test_kernel_bodies_and_counters_on_card)."""
-    assert SHORT_MAX_LEN == SHORT_MAX_LEN_BWD == 128
-    assert short_max_len_backward(torch.bfloat16) == SHORT_MAX_LEN_BWD
-    assert short_max_len_backward(torch.float32) == SHORT_MAX_LEN_BWD_FP32
-    for dtype, bwd_limit in ((torch.float32, SHORT_MAX_LEN_BWD_FP32),
-                             (torch.bfloat16, SHORT_MAX_LEN_BWD)):
-        for l, fwd, bwd in ((1, "short", "short"),
-                            (bwd_limit, "short", "short"),
-                            (bwd_limit + 1, "short" if bwd_limit
-                             < SHORT_MAX_LEN else "tiled", "tiled"),
-                            (SHORT_MAX_LEN + 1, "tiled", "tiled")):
-            assert kernel_body(l, dtype) == fwd, (dtype, l)
-            assert kernel_body(l, dtype, backward=True) == bwd, (dtype, l)
-    x = torch.zeros(2, 2, SHORT_MAX_LEN_BWD_FP32 + 1, 64)
+    """Each body's range: K1 short up to 128 at every head_dim; K2 up to
+    the longest multiple of 16 (at most 128) whose staging fits 227 KB of
+    shared memory, by dtype and head_dim (bf16 128, 128, 112, 112 and fp32
+    112, 96, 96, 80 at 64, 80, 96, 128); tiled past (the CUDA entry points
+    hold the same limits, see test_kernel_bodies_and_counters_on_card)."""
+    assert SHORT_MAX_LEN == 128
+    assert SHORT_MAX_LEN_BWD == {
+        torch.bfloat16: {64: 128, 80: 128, 96: 112, 128: 112},
+        torch.float32: {64: 112, 80: 96, 96: 96, 128: 80}}
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in HEAD_DIMS:
+            bwd_limit = short_max_len_backward(dtype, d)
+            assert bwd_limit == SHORT_MAX_LEN_BWD[dtype][d]
+            assert bwd_limit == max(
+                l for l in range(16, 129, 16)
+                if _k2_short_smem(dtype, d, l) <= 232448), (dtype, d)
+            for l, fwd, bwd in ((1, "short", "short"),
+                                (bwd_limit, "short", "short"),
+                                (bwd_limit + 1, "short" if bwd_limit
+                                 < SHORT_MAX_LEN else "tiled", "tiled"),
+                                (SHORT_MAX_LEN + 1, "tiled", "tiled")):
+                assert kernel_body(l, dtype, d) == fwd, (dtype, d, l)
+                assert kernel_body(l, dtype, d, backward=True) == bwd, (
+                    dtype, d, l)
+    x = torch.zeros(2, 2, SHORT_MAX_LEN_BWD[torch.float32][64] + 1, 64)
     check_kernel_inputs(x, x, x)   # K1's short body, K2's tiled one
     y = torch.zeros(2, 2, 8, 64)
     with pytest.raises(ValueError, match="g must match"):
@@ -355,7 +420,7 @@ def test_kernel_matches_plain_on_card(cuda, dtype, b, h, l, causal):
     (64, 8, 32, True),         # text, causal
     (64, 8, 12, False),        # temporal transformer
     (4, 3, 77, True),
-    (4, 3, SHORT_MAX_LEN_BWD_FP32, False),
+    (4, 3, SHORT_MAX_LEN_BWD[torch.float32][64], False),
     (3, 2, 1, False),
     (48, 16, 257, False),      # ViT-L/14, 4 clips x 12 frames
     (48, 16, 577, False),      # ViT-L/14@336px, 4 clips x 12 frames
@@ -420,24 +485,24 @@ def test_attention_block_gradients_on_card_match_cpu(cuda, causal, l):
 
 
 # every edge of the 16-row / 8-key mma tiles up to the short bodies' limits,
-# both sides of each limit, and the tiled bodies' 64-row tile edges up to
-# ViT-L/14@336px's 577 and an odd length past it
+# both sides of each limit at every head_dim, and the tiled bodies' 64-row
+# tile edges up to ViT-L/14@336px's 577 and an odd length past it
 SWEEP_LENGTHS = [1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 49, 50, 63, 64, 65, 77,
-                 96, 112, 113, 128, 129, 160, 191, 192, 193, 197, 256, 257,
-                 577, 613]
+                 80, 81, 96, 97, 112, 113, 128, 129, 160, 191, 192, 193, 197,
+                 256, 257, 577, 613]
 # 3 x 5 = 15 heads: not a multiple of K1's heads per CTA
 SWEEP_B, SWEEP_H = 3, 5
 
 
-def _packed_qkv(device, dtype, b, h, l, seed):
-    """Head views of a packed [B, L, 3·H·64] projection, the main path's
+def _packed_qkv(device, dtype, b, h, l, seed, d=64):
+    """Head views of a packed [B, L, 3·H·D] projection, the main path's
     layout, and an output gradient that is the transposed view of a
-    [B, L, H, 64] tensor."""
+    [B, L, H, D] tensor."""
     g = torch.Generator(device=device).manual_seed(seed)
-    qkv = torch.randn(b, l, 3 * h * 64, device=device, generator=g).to(dtype)
+    qkv = torch.randn(b, l, 3 * h * d, device=device, generator=g).to(dtype)
     q, k, v = (t.transpose(1, 2) for t in
-               qkv.view(b, l, 3, h, 64).unbind(2))
-    go = torch.randn(b, l, h, 64, device=device, generator=g).to(dtype)
+               qkv.view(b, l, 3, h, d).unbind(2))
+    go = torch.randn(b, l, h, d, device=device, generator=g).to(dtype)
     return q, k, v, go.transpose(1, 2)
 
 
@@ -451,15 +516,19 @@ def _assert_close_on_card(got, ref, dtype, grad=False):
 
 
 def test_sweep_lengths_reach_the_limits():
-    """The sweep takes each body on both sides of each limit, the towers'
-    lengths, and an odd length past the longest."""
-    for limit in (SHORT_MAX_LEN, SHORT_MAX_LEN_BWD_FP32):
+    """The sweep takes each body on both sides of each limit at every
+    head_dim, the towers' lengths, and an odd length past the longest."""
+    limits = {SHORT_MAX_LEN} | {short_max_len_backward(dtype, d)
+                                for dtype in SHORT_MAX_LEN_BWD
+                                for d in HEAD_DIMS}
+    for limit in limits:
         assert limit in SWEEP_LENGTHS and limit + 1 in SWEEP_LENGTHS
     for l in (197, 257, 577):   # ViT-B/16, ViT-L/14, ViT-L/14@336px
         assert l in SWEEP_LENGTHS
     assert max(SWEEP_LENGTHS) > 577 and max(SWEEP_LENGTHS) % 2 == 1
-    bodies = {(kernel_body(l, d), kernel_body(l, d, True))
-              for l in SWEEP_LENGTHS for d in (torch.float32, torch.bfloat16)}
+    bodies = {(kernel_body(l, dt, d), kernel_body(l, dt, d, True))
+              for l in SWEEP_LENGTHS for dt in (torch.float32, torch.bfloat16)
+              for d in HEAD_DIMS}
     assert bodies == {("short", "short"), ("short", "tiled"),
                       ("tiled", "tiled")}
 
@@ -472,45 +541,53 @@ def test_sweep_shapes_cross_heads_per_cta(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("l", SWEEP_LENGTHS)
-def test_kernel_length_sweep_on_card(cuda, dtype, causal, l):
-    """K1 at every tile edge, on packed head views, and bitwise equal over
-    two launches; the launches counted on the body the length takes."""
-    q, k, v, _ = _packed_qkv(cuda, dtype, SWEEP_B, SWEEP_H, l, l)
-    body = kernel_body(l, dtype)
+def test_kernel_length_sweep_on_card(cuda, dtype, causal, l, d):
+    """K1 at every tile edge and head_dim, on packed head views, and
+    bitwise equal over two launches; the launches counted on the body the
+    length takes and on the head_dim."""
+    q, k, v, _ = _packed_qkv(cuda, dtype, SWEEP_B, SWEEP_H, l, l, d)
+    body = kernel_body(l, dtype, d)
     before = (fused_attention.launches,
-              getattr(fused_attention, f"{body}_launches"))
+              getattr(fused_attention, f"{body}_launches"),
+              fused_attention.head_dim_launches[d])
     out = fused_attention(q, k, v, causal)
     again = fused_attention(q, k, v, causal)
     torch.cuda.synchronize()
     assert (fused_attention.launches,
-            getattr(fused_attention, f"{body}_launches")) == (
-                before[0] + 2, before[1] + 2)
+            getattr(fused_attention, f"{body}_launches"),
+            fused_attention.head_dim_launches[d]) == (
+                before[0] + 2, before[1] + 2, before[2] + 2)
     assert torch.equal(out, again)
     _assert_close_on_card(out, fused_attention_reference(q, k, v, causal),
                           dtype)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("l", SWEEP_LENGTHS)
-def test_backward_kernel_length_sweep_on_card(cuda, dtype, causal, l):
-    """K2 at every tile edge of both bodies, with the output gradient a
-    transposed view, and bitwise equal over two launches (neither body has
-    atomics); the launches counted on the body the length takes."""
-    q, k, v, go = _packed_qkv(cuda, dtype, SWEEP_B, SWEEP_H, l, 1000 + l)
-    body = kernel_body(l, dtype, backward=True)
+def test_backward_kernel_length_sweep_on_card(cuda, dtype, causal, l, d):
+    """K2 at every tile edge of both bodies and every head_dim, with the
+    output gradient a transposed view, and bitwise equal over two launches
+    (neither body has atomics); the launches counted on the body the
+    length takes and on the head_dim."""
+    q, k, v, go = _packed_qkv(cuda, dtype, SWEEP_B, SWEEP_H, l, 1000 + l, d)
+    body = kernel_body(l, dtype, d, backward=True)
     before = (fused_attention_backward.launches,
-              getattr(fused_attention_backward, f"{body}_launches"))
+              getattr(fused_attention_backward, f"{body}_launches"),
+              fused_attention_backward.head_dim_launches[d])
     got = fused_attention_backward(q, k, v, go, causal)
     again = fused_attention_backward(q, k, v, go, causal)
     torch.cuda.synchronize()
     assert (fused_attention_backward.launches,
-            getattr(fused_attention_backward, f"{body}_launches")) == (
-                before[0] + 2, before[1] + 2)
+            getattr(fused_attention_backward, f"{body}_launches"),
+            fused_attention_backward.head_dim_launches[d]) == (
+                before[0] + 2, before[1] + 2, before[2] + 2)
     ref = fused_attention_backward_reference(q, k, v, go, causal)
     for a, b, r in zip(got, again, ref):
         assert torch.equal(a, b)
@@ -542,16 +619,51 @@ def test_misaligned_inputs_on_card(cuda):
 @pytest.mark.gpu
 def test_kernel_bodies_and_counters_on_card(cuda):
     """The built libraries hold the short bodies' limits the wrapper
-    dispatches by, and each body's counter moves only for its launches."""
+    dispatches by at every head_dim (and none at another), and each
+    body's and head_dim's counter moves only for its launches."""
     for dtype in (torch.float32, torch.bfloat16):
-        assert kernel_short_max_len(dtype) == SHORT_MAX_LEN
-        assert kernel_short_max_len(dtype, backward=True) == \
-            short_max_len_backward(dtype)
+        for d in HEAD_DIMS:
+            assert kernel_short_max_len(dtype, d) == SHORT_MAX_LEN
+            assert kernel_short_max_len(dtype, d, backward=True) == \
+                short_max_len_backward(dtype, d)
+        for d in (32, 72, 160):
+            assert kernel_short_max_len(dtype, d) == 0
+            assert kernel_short_max_len(dtype, d, backward=True) == 0
     reset_launch_counts()
-    for l in (50, 577):
-        q, k, v, go = _packed_qkv(cuda, torch.bfloat16, 2, 3, l, l)
+    for l, d in ((50, 64), (577, 96)):
+        q, k, v, go = _packed_qkv(cuda, torch.bfloat16, 2, 3, l, l, d)
         fused_attention(q, k, v)
         fused_attention_backward(q, k, v, go)
     torch.cuda.synchronize()
     for fn in (fused_attention, fused_attention_backward):
         assert (fn.launches, fn.short_launches, fn.tiled_launches) == (2, 1, 1)
+        assert fn.head_dim_launches == {64: 1, 80: 0, 96: 1, 128: 0}
+
+
+@pytest.mark.gpu
+def test_other_head_dims_raise_on_card(cuda):
+    """On CUDA tensors a head_dim outside 64, 80, 96, 128 raises by name in
+    both wrappers and launches nothing; every head_dim in the set launches
+    the kernel (the counters move), none takes the plain path."""
+    reset_launch_counts()
+    for d in (32, 72, 160):
+        q, k, v, go = _packed_qkv(cuda, torch.bfloat16, 2, 3, 12, d, d)
+        with pytest.raises(ValueError, match=f"head_dim 64, 80, 96, 128; "
+                                             f"got {d}"):
+            fused_attention(q, k, v)
+        with pytest.raises(ValueError, match=f"got {d}"):
+            fused_attention_backward(q, k, v, go)
+    assert (fused_attention.launches, fused_attention_backward.launches) \
+        == (0, 0)
+    for d in HEAD_DIMS:
+        q, k, v, go = _packed_qkv(cuda, torch.float32, 2, 3, 12, d, d)
+        out = fused_attention(q, k, v)
+        grads = fused_attention_backward(q, k, v, go)
+        torch.cuda.synchronize()
+        assert fused_attention.head_dim_launches[d] == 1
+        assert fused_attention_backward.head_dim_launches[d] == 1
+        _assert_close_on_card(out, fused_attention_reference(q, k, v),
+                              torch.float32)
+        for a, r in zip(grads, fused_attention_backward_reference(
+                q, k, v, go)):
+            _assert_close_on_card(a, r, torch.float32, grad=True)

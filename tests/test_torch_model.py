@@ -15,6 +15,11 @@ shape-only OpenAI state dicts of ViT-B/16, ViT-L/14 and ViT-L/14@336px.
 The fine-tune step's tolerances are tests/test_torch_train.py's: loss atol
 1e-4, each gradient within 1e-3 of its own largest magnitude.
 
+Head_dims past 64 (the kernels take 64, 80, 96 and 128): the plain K1 and
+K2 at 80, 96 and 128 against the JAX kernels, and a tiny model whose
+temporal transformer has head_dim 96 (as cross-base's 8 heads give at
+ViT-L/14's embed_dim 768) forward and through one fine-tune step.
+
 The tokenizer copy (stdlib ``re`` instead of ``regex``) must give the JAX
 tokenizer's ids.
 """
@@ -240,26 +245,23 @@ def _long_batch():
             "video": video.astype(np.float32)}
 
 
-def _long_port_model(params):
-    model = BirdModel(ClipArch(**LONG_ARCH_KW), CrossConfig(**LONG_CROSS_KW),
-                      use_fused=True)
-    model.load_state_dict(from_jax_params(params), strict=True)
-    return model
-
-
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("l", [129, 197, 257, 577])
-def test_plain_kernels_match_jax_at_tower_lengths(l, causal):
+@pytest.mark.parametrize("l,d", [
+    (129, 64), (197, 64), (257, 64), (577, 64),
+    # the other head_dims: the temporal site's L and one past 128
+    (12, 80), (129, 80), (12, 96), (129, 96), (12, 128), (129, 128)])
+def test_plain_kernels_match_jax_at_tower_lengths(l, d, causal):
     """K1's and K2's plain versions (the CPU path of the tiled bodies) at
     one past the short bodies and at ViT-B/16's, ViT-L/14's and
-    ViT-L/14@336px's lengths against the JAX kernels in interpret mode.
-    fp32 tolerances of tests/test_torch_attention.py: outputs atol 2e-5,
-    rtol 1e-4; gradients atol 5e-5, rtol 1e-3."""
+    ViT-L/14@336px's lengths, and at head_dim 80, 96 and 128 (the
+    temporal site's L = 12 and L = 129), against the JAX kernels in
+    interpret mode. fp32 tolerances of tests/test_torch_attention.py:
+    outputs atol 2e-5, rtol 1e-4; gradients atol 5e-5, rtol 1e-3."""
     from hmmc_tpu_torch.ops.fused_attention import (
         fused_attention_backward_reference, fused_attention_reference)
 
-    rng = np.random.default_rng(l + causal)
-    q, k, v, g = (rng.normal(size=(1, 2, l, 64)).astype(np.float32)
+    rng = np.random.default_rng(l + d + causal)
+    q, k, v, g = (rng.normal(size=(1, 2, l, d)).astype(np.float32)
                   for _ in range(4))
     out = fused_attention_reference(*(torch.tensor(t) for t in (q, k, v)),
                                     causal)
@@ -274,19 +276,27 @@ def test_plain_kernels_match_jax_at_tower_lengths(l, causal):
                                    rtol=1e-3, err_msg=name)
 
 
+def _video_matches_jax(arch_kw, cross_kw, params, video):
+    """encode_video through the fused attention (JAX: its Pallas kernel in
+    interpret mode; the port: the kernels' plain versions) within ATOL."""
+    jmodel = JaxBirdModel(JaxClipArch(**arch_kw), JaxCrossConfig(**cross_kw),
+                          use_pallas=True)
+    v_ref, f_ref = jmodel.apply({"params": params}, jnp.asarray(video),
+                                method="encode_video")
+    model = BirdModel(ClipArch(**arch_kw), CrossConfig(**cross_kw),
+                      use_fused=True)
+    model.load_state_dict(from_jax_params(params), strict=True)
+    with torch.no_grad():
+        v, f = model.eval().encode_video(torch.tensor(video))
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), atol=ATOL)
+    np.testing.assert_allclose(f.numpy(), np.asarray(f_ref), atol=ATOL)
+
+
 def test_long_sequence_tower_matches_jax(long_params):
     """L = 170 through the fused attention (JAX: its Pallas kernel in
     interpret mode; the port: the plain version of the tiled bodies)."""
-    video = _long_batch()["video"]
-    jmodel = JaxBirdModel(JaxClipArch(**LONG_ARCH_KW),
-                          JaxCrossConfig(**LONG_CROSS_KW), use_pallas=True)
-    v_ref, f_ref = jmodel.apply({"params": long_params}, jnp.asarray(video),
-                                method="encode_video")
-    with torch.no_grad():
-        v, f = _long_port_model(long_params).eval().encode_video(
-            torch.tensor(video))
-    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), atol=ATOL)
-    np.testing.assert_allclose(f.numpy(), np.asarray(f_ref), atol=ATOL)
+    _video_matches_jax(LONG_ARCH_KW, LONG_CROSS_KW, long_params,
+                       _long_batch()["video"])
 
 
 def _grab_grads():
@@ -296,26 +306,26 @@ def _grab_grads():
         lambda g, s, p=None: (g, g))
 
 
-def test_long_sequence_finetune_step_matches_jax(long_params):
-    """One fine-tune step at L = 170: loss, grad norm and every gradient
-    against the JAX step (fused attention on both sides)."""
+def _finetune_step_matches_jax(arch_kw, cross_kw, params, host):
+    """One fine-tune step: loss, grad norm and every gradient against the
+    JAX step (fused attention on both sides)."""
     kw = dict(lr=1e-3, text_lr=1e-4, coef_lr=0.5, weight_decay=0.2,
               warmup_proportion=0.1)
-    cross = JaxCrossConfig(**LONG_CROSS_KW)
-    jmodel = JaxBirdModel(JaxClipArch(**LONG_ARCH_KW), cross,
-                          use_pallas=True)
+    cross = JaxCrossConfig(**cross_kw)
+    jmodel = JaxBirdModel(JaxClipArch(**arch_kw), cross, use_pallas=True)
     tx = optax.chain(_grab_grads(), jax_opt.build_optimizer(
-        long_params, t_total=4, **kw))
+        params, t_total=4, **kw))
     jstep = jax_finetune_step(jmodel, tx, cross, use_frame_fea=True)
-    host = _long_batch()
     jstate, jmetrics = jstep(JaxFinetuneState.create(
-        jax.tree_util.tree_map(jnp.asarray, long_params), tx),
+        jax.tree_util.tree_map(jnp.asarray, params), tx),
         {k: jnp.asarray(v) for k, v in host.items()})
 
-    model = _long_port_model(long_params)
+    model = BirdModel(ClipArch(**arch_kw), CrossConfig(**cross_kw),
+                      use_fused=True)
+    model.load_state_dict(from_jax_params(params), strict=True)
     state = FinetuneState(model, opt.build_optimizer(
         model.named_parameters(), t_total=4, **kw))
-    step = make_finetune_step(CrossConfig(**LONG_CROSS_KW), use_frame_fea=True)
+    step = make_finetune_step(CrossConfig(**cross_kw), use_frame_fea=True)
     batch = {k: torch.from_numpy(v) for k, v in host.items()}
     batch["query_ids"] = batch["query_ids"].long()
     state, metrics = step(state, batch)
@@ -334,6 +344,55 @@ def test_long_sequence_finetune_step_matches_jax(long_params):
             continue
         err = float((got - ref).abs().max())
         assert err <= GRAD_REL * float(ref.abs().max()), (n, err)
+
+
+def test_long_sequence_finetune_step_matches_jax(long_params):
+    """One fine-tune step at L = 170: loss, grad norm and every gradient
+    against the JAX step (fused attention on both sides)."""
+    _finetune_step_matches_jax(LONG_ARCH_KW, LONG_CROSS_KW, long_params,
+                               _long_batch())
+
+
+# embed_dim 192 with 2 temporal heads: the temporal transformer's head_dim
+# is 96, as cross-base's 8 heads give at ViT-L/14's embed_dim 768
+HD96_ARCH_KW = dict(ARCH_KW, embed_dim=192)
+HD96_CROSS_KW = dict(CROSS_KW, temporal_hidden_size=192)
+
+
+@pytest.fixture(scope="module")
+def hd96_params():
+    model = JaxBirdModel(JaxClipArch(**HD96_ARCH_KW),
+                         JaxCrossConfig(**HD96_CROSS_KW))
+    assert (HD96_CROSS_KW["temporal_hidden_size"]
+            // HD96_CROSS_KW["temporal_attention_heads"]) == 96
+    params = jax.jit(model.init)(
+        jax.random.PRNGKey(5), jnp.zeros((1, CTX), jnp.int32),
+        jnp.ones((1, CTX), jnp.int32),
+        jnp.zeros((1, FRAMES, RES, RES, 3), jnp.float32))["params"]
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def _hd96_batch():
+    rng = np.random.default_rng(23)
+    ids = rng.integers(1, 400, size=(B, CTX)).astype(np.int32)
+    mask = np.ones((B, CTX), np.int32)
+    for r in range(B):
+        ids[r, 0] = 1
+        ids[r, 5 + r] = VOCAB - 1      # EOT, the row max
+        ids[r, 6 + r:] = 0
+        mask[r, 6 + r:] = 0
+    video = rng.normal(size=(B, FRAMES, RES, RES, 3))
+    return {"query_ids": ids, "query_mask": mask,
+            "video": video.astype(np.float32)}
+
+
+def test_head_dim_96_temporal_matches_jax(hd96_params):
+    """A temporal transformer of head_dim 96 through the fused attention,
+    forward (1e-4) and one fine-tune step (loss 1e-4, each gradient within
+    1e-3 of its largest magnitude) against JAX."""
+    host = _hd96_batch()
+    _video_matches_jax(HD96_ARCH_KW, HD96_CROSS_KW, hd96_params, host["video"])
+    _finetune_step_matches_jax(HD96_ARCH_KW, HD96_CROSS_KW, hd96_params, host)
 
 
 def test_tube_tower_matches_jax():
