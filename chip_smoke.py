@@ -52,7 +52,8 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             same checks as at 224 on the towers eval's 384-frame block and
             16 frames elsewhere; nvJPEG + R1 at 336 against PIL's crops
             (R1's plain version on PIL's decode), max and mean abs
-            difference;
+            difference. R1 at 288, 384 and 448 (the ResNets' decodes): the
+            same checks on a 96-frame block and 8 frames elsewhere;
 4. eval     the full-width ViT-B/32 BirdModel (12 frames at 224 px, 32
             query tokens, temporal transformer, top-3 frame similarity;
             seeded random weights, bf16 compute) evaluated over ``--clips``
@@ -157,6 +158,26 @@ Phases (any failure raises, exits non-zero and prints no ``ok`` line):
             CPU: the L/14@336px forward, and a ViT-L/14 fine-tune step
             under cross-base (losses and every gradient; K1 and K2 at
             head_dim 96);
+   resnet   CLIP's ModifiedResNet towers, their BatchNorm with the JAX
+            package's train-mode semantics: nvJPEG + R1 at 288, 384 and
+            448 against PIL's crops of the fixture (R1 on PIL's pixels
+            bitwise its plain version); the full-width RN50 BirdModel (12
+            frames at 224, the temporal transformer at 1024 with
+            cross-base's 8 heads: head_dim 128) through the CLI: a seeded
+            OpenAI-named state dict as --clip_model (its running
+            statistics loaded), --do_train of 2 steps of 8 clips in
+            micro-batches of 4, the epoch-end eval of 32 clips, --do_eval
+            --init_model the saved file (profiled, the same metrics),
+            --do_extract of a 1024-wide bank and 8 served queries; one
+            bf16 fine-tune step in 2 micro-batches and an eval forward at
+            full width and resolution of RN101 (8 clips a micro-batch),
+            RN50x4 (4), RN50x16 (2) and RN50x64 (2); every path's K1 and
+            K2 launches by body and head_dim (64 in the text tower; 128,
+            64, 80, 96, 128 at the temporal site) against the block
+            structure, peak memory; one fp32 step of an RN50-width tower
+            cut to (1, 1, 1, 1) blocks, card against CPU (loss 1e-4,
+            gradients 1e-3 of their largest magnitude, running statistics
+            1e-5);
 6. result   the nvidia-smi line as it prints it, the kernel table as one
             JSON line (K1 and K2 with the head_dims checked and every
             launch of the run by phase and head_dim beside the
@@ -197,6 +218,7 @@ from hmmc_tpu_torch.factory import build_model
 from hmmc_tpu_torch.losses import finetune_retrieval_loss
 from hmmc_tpu_torch.metrics import logging_rank
 from hmmc_tpu_torch.ops import fused_attention as fa
+from hmmc_tpu_torch.models.resnet import ModifiedResNet
 from hmmc_tpu_torch.models.pretrain import (MOMENTUM_SUBTREES, MoCoQueues,
                                             init_key_params,
                                             sample_mask_decisions)
@@ -1041,13 +1063,14 @@ TOWER_EVAL_CLIPS = 32           # the towers CLI run's eval clips
 TOWER_BLOCK_FRAMES = TOWER_EVAL_CLIPS * 12   # its one decode of the eval
 
 
-def check_decoder_336(smi):
-    """The fixture through nvJPEG + R1 at 336 (ViT-L/14@336px's decode,
-    up-scaling the store's frames) against PIL's crops: R1's plain version
-    on PIL's decode, which is PIL's bicubic resize and crop bit for bit
-    (the CPU tests hold it so at 336), with the kernel on PIL's pixels
-    bitwise that; max and mean abs difference."""
-    res, fx = TOWER_RES, load_fixture()
+def check_decoder_at(smi, res=TOWER_RES, phase="frames"):
+    """The fixture through nvJPEG + R1 at ``res`` (336: ViT-L/14@336px's
+    decode; 288, 384, 448: RN50x4's, RN50x16's, RN50x64's; each up-scales
+    the store's frames) against PIL's crops: R1's plain version on PIL's
+    decode, which is PIL's bicubic resize and crop bit for bit (the CPU
+    tests hold it so at each), with the kernel on PIL's pixels bitwise
+    that; max and mean abs difference."""
+    fx = load_fixture()
     dev = torch.device("cuda", torch.cuda.current_device())
     pil = torch.cat([resize_crop_reference(torch.from_numpy(a)[None].to(dev),
                                            res) for a in fx["rgb"]])
@@ -1056,9 +1079,9 @@ def check_decoder_336(smi):
     card = jpeg.decode_frames(fx["blobs"], res, dev)
     torch.cuda.synchronize()
     diff = (card.int() - pil.int()).abs()
-    row = dict(phase="frames", check="nvjpeg + resize_crop at 336 against "
+    row = dict(phase=phase, check=f"nvjpeg + resize_crop at {res} against "
                "PIL's crops (R1's plain version on PIL's decode)",
-               frames=len(fx["blobs"]),
+               frames=len(fx["blobs"]), res=res,
                r1_on_pil_pixels_bitwise_equal_plain=bool(
                    torch.equal(pil_r1, pil)),
                crop_max_abs_diff=float(diff.max()),
@@ -1071,7 +1094,8 @@ def check_decoder_336(smi):
     if (not row["r1_on_pil_pixels_bitwise_equal_plain"]
             or row["crop_max_abs_diff"] > DECODE_MAX_ABS
             or row["crop_mean_abs_diff"] > DECODE_MEAN_ABS):
-        raise AssertionError(f"nvJPEG + R1 at 336 disagrees with PIL: {row}")
+        raise AssertionError(f"nvJPEG + R1 at {res} disagrees with PIL: "
+                             f"{row}")
 
 
 # ---------------------------------------------------------------------------
@@ -1916,7 +1940,8 @@ def step_device_ms(run, cross, task, batch, iters=3):
                    warmup=1), step, dev_batch
 
 
-def profile_train_step(state, step, dev_batch, step_ms):
+def profile_train_step(state, step, dev_batch, step_ms,
+                       phase="train_profile"):
     """Where the device time of one warm optimizer step goes. The profiler
     slows the host, so the idle share is also given against ``step_ms``,
     the step's time by CUDA events without the profiler; and BertAdam's
@@ -1933,7 +1958,7 @@ def profile_train_step(state, step, dev_batch, step_ms):
     kinds = device_time_by_kind(prof, wall_ms,
                                 ranges=("finetune_step.optimizer",))
     busy = kinds["device_busy_ms"]
-    row = dict(phase="train_profile", what="one warm optimizer step",
+    row = dict(phase=phase, what="one warm optimizer step",
                step_device_ms_unprofiled=step_ms,
                device_idle_share_unprofiled=(
                    1 - busy / step_ms if isinstance(busy, float)
@@ -2427,18 +2452,27 @@ def clip_archive(path, seed, name="ViT-B/32", script=True):
     names, written as OpenAI ships it: fp16 weights in a TorchScript
     archive (``torch.jit.save`` of a scripted module whose parameters carry
     the names), with its three integer entries; or, without ``script``, the
-    same dict pickled (``torch.save``). Returns the fp16 state dict."""
+    same dict pickled (``torch.save``). A ModifiedResNet's BatchNorm
+    buffers are among the entries, its running means drawn N(0, 0.05) and
+    its variances 1 + |N(0, 0.05)|. Returns the state dict (floats in
+    fp16)."""
     arch = ClipArch.by_name(name)
+    g = torch.Generator().manual_seed(seed)
     donor = build_model(TaskConfig(compute_dtype="float32"), CrossConfig(),
-                        arch=arch, device="cpu",
-                        generator=torch.Generator().manual_seed(seed))
+                        arch=arch, device="cpu", generator=g)
+    for k, v in donor.state_dict().items():
+        if k.endswith("running_mean"):
+            v.normal_(0.0, 0.05, generator=g)
+        elif k.endswith("running_var"):
+            v.normal_(0.0, 0.05, generator=g).abs_().add_(1.0)
     sd = {}
     for k, v in donor.state_dict().items():
         for prefix in ("visual_encoder.", "text_encoder."):
             if k.startswith(prefix) and not k.startswith(
                     "visual_encoder.temporal") and not k.startswith(
                     "visual_encoder.frame_position"):
-                sd[k[len(prefix):]] = v.half()
+                sd[k[len(prefix):]] = (v.half() if v.is_floating_point()
+                                       else v)
     if not script:
         torch.save(dict(sd, input_resolution=torch.tensor(
             arch.image_resolution), context_length=torch.tensor(
@@ -2453,7 +2487,11 @@ def clip_archive(path, seed, name="ViT-B/32", script=True):
             if not hasattr(m, part):
                 m.add_module(part, torch.nn.Module())
             m = getattr(m, part)
-        m.register_parameter(name, torch.nn.Parameter(v, requires_grad=False))
+        if v.is_floating_point():
+            m.register_parameter(name, torch.nn.Parameter(
+                v, requires_grad=False))
+        else:
+            m.register_buffer(name, v)
     for name, value in (("input_resolution", arch.image_resolution),
                         ("context_length", arch.context_length),
                         ("vocab_size", arch.vocab_size)):
@@ -3851,6 +3889,502 @@ def towers_phase(root, seed, smi):
     return paths, predicted
 
 
+# ---------------------------------------------------------------------------
+# phase resnet: CLIP's ModifiedResNet towers
+# ---------------------------------------------------------------------------
+
+RN_RESOLUTIONS = (288, 384, 448)     # RN50x4, RN50x16, RN50x64
+RN_BLOCK_FRAMES = 96                 # R1's timed block at those (8 clips)
+RN_CLI = "RN50"
+RN_CLI_STEPS = 2
+RN_N_ACCUM = 2
+RN_TRAIN_VIDEOS = 8         # 2 captions each: 16 samples, 2 steps of 8
+RN_EVAL_CLIPS = 32
+RN_QUERIES = 8              # served from the 1024-wide bank
+# (tower, clips of 12 frames a micro-batch) for one bf16 step of RN_N_ACCUM
+# micro-batches: the steps' rows read peaks of 16.5, 17.1, 45.1 and 57.4 GB
+# on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §5)
+RN_STEPS = (("RN101", 16), ("RN50x4", 8), ("RN50x16", 8), ("RN50x64", 4))
+RN_REF_LOSS_ATOL = 1e-4
+RN_REF_GRAD_REL = 1e-3
+RN_REF_STATS_ATOL = 1e-5
+RN_REF_REASON = (
+    "TF32 off: cuDNN's and the CPU's convolutions and the batch statistics "
+    "sum in other orders; the running statistics are ~1 and move by a tenth "
+    "of the batch's a micro-batch. The tower's gradients are held in fp64: "
+    "at random weights the train-mode BatchNorm's backward cancels most of "
+    "the gradient that reaches it (the attention pool nearly averages the "
+    "grid, so the gradient is nearly constant over each channel), which "
+    "magnifies fp32 rounding anywhere downstream: the tower's fp32 "
+    "gradients are up to a few % of their max off their own fp64 values on "
+    "either device (the CPU's own fp32 error is reported beside the card's)")
+
+
+def rn_cross(name):
+    """cross-base for ResNet ``name``: the temporal transformer as wide as
+    its embed_dim with cross-base's 8 heads (head_dim 128 at RN50 and
+    RN50x64, 64 at RN101, 80 at RN50x4, 96 at RN50x16)."""
+    arch = ClipArch.by_name(name)
+    return dataclasses.replace(CrossConfig(), pretrained_clip_name=name,
+                               temporal_hidden_size=arch.embed_dim)
+
+
+def rn_head_dims(arch, cross):
+    """(text, temporal) head_dims of a ModifiedResNet model; its tower
+    runs no K1 / K2 (the attention pool's one query takes the plain
+    attention)."""
+    return (arch.transformer_width // arch.transformer_heads,
+            arch.embed_dim // cross.temporal_attention_heads)
+
+
+def rn_launches(arch, cross, text, video, text_bwd=0, video_bwd=0):
+    """The predicted K1 / K2 launches by body and head_dim of a
+    ModifiedResNet model over ``text`` text-tower and ``video``
+    visual-encoder forwards (and the backwards of as many): a launch a
+    text layer (L = 32, causal) and a temporal layer (L = 12), all on the
+    short bodies."""
+    t, tmp = arch.transformer_layers, cross.temporal_hidden_layers
+    d_text, d_temporal = rn_head_dims(arch, cross)
+    out = {}
+    for kernel, n_text, n_video in (("k1", text, video),
+                                    ("k2", text_bwd, video_bwd)):
+        out.update({f"{kernel}_short": t * n_text + tmp * n_video,
+                    f"{kernel}_tiled": 0})
+        out.update({f"{kernel}_d{d}": 0 for d in HEAD_DIMS})
+        out[f"{kernel}_d{d_text}"] += t * n_text
+        out[f"{kernel}_d{d_temporal}"] += tmp * n_video
+    return out
+
+
+def add_counts(*counts):
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def rn_step(name, clips, seed, smi):
+    """One bf16 fine-tune step at full width and resolution (seeded
+    weights, synthetic clips, train-mode BatchNorm) in RN_N_ACCUM
+    micro-batches of ``clips``, then an eval forward of the same clips
+    (both encoders, running statistics): launches by body and head_dim
+    against the prediction, finite outputs, the warm step's device ms, the
+    forward's, and peak memory of each."""
+    arch, cross = ClipArch.by_name(name), rn_cross(name)
+    task = TaskConfig(seed=seed, batch_size=clips * RN_N_ACCUM,
+                      gradient_accumulation_steps=RN_N_ACCUM)
+    t0 = time.perf_counter()
+    model = build_model(task, cross, arch=arch)
+    build_s = time.perf_counter() - t0
+    state = FinetuneState(model, build_optimizer(
+        model.named_parameters(), lr=task.lr, text_lr=task.text_lr,
+        coef_lr=task.coef_lr, weight_decay=task.weight_decay,
+        warmup_proportion=task.warmup_proportion, t_total=4))
+    step = make_finetune_step(cross, n_accum=RN_N_ACCUM)
+    host = next(iter(SyntheticClips(task.batch_size, task.batch_size,
+                                    task.max_frames, arch.image_resolution,
+                                    task.max_words, seed)))
+    batch = runner.prepare_finetune_batch(host, "cuda",
+                                          arch.image_resolution)
+    stats0 = model.visual_encoder.visual.bn1.running_var.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    first_s = time.perf_counter() - t0
+    step_counts = tower_launch_counts()
+    moved = not torch.equal(stats0,
+                            model.visual_encoder.visual.bn1.running_var)
+    warm_ms = cuda_ms(lambda: step(state, batch), iters=1, warmup=1)
+    train_peak = torch.cuda.max_memory_allocated()
+    state.optimizer.zero_grad(set_to_none=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_attention_counts()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        v, f = model.encode_video(batch["video"])
+        q = model.encode_text(batch["query_ids"])
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+    eval_counts = tower_launch_counts()
+    eval_peak = torch.cuda.max_memory_allocated()
+    finite = (math.isfinite(loss) and bool(torch.isfinite(v).all())
+              and bool(torch.isfinite(f).all())
+              and bool(torch.isfinite(q).all()))
+    expected_step = rn_launches(arch, cross, RN_N_ACCUM, RN_N_ACCUM,
+                                RN_N_ACCUM, RN_N_ACCUM)
+    expected_eval = rn_launches(arch, cross, 1, 1)
+    row = dict(phase="resnet", what=f"one fine-tune step and an eval "
+               f"forward, {name}", resolution=arch.image_resolution,
+               vision=[arch.vision_width, list(arch.vision_layers)],
+               embed_dim=arch.embed_dim, clips=task.batch_size,
+               n_accum=RN_N_ACCUM, frames=task.max_frames,
+               head_dims=dict(zip(("text", "temporal"),
+                                  rn_head_dims(arch, cross))),
+               model_build_s=build_s, loss=loss,
+               grad_norm=float(metrics["grad_norm"]),
+               running_stats_moved=moved, finite=finite,
+               first_step_s=first_s, warm_step_device_ms=warm_ms,
+               eval_forward_ms=eval_ms,
+               max_memory_allocated=dict(train=train_peak, eval=eval_peak),
+               step_launches=step_counts, expected_step_launches=expected_step,
+               eval_launches=eval_counts, expected_eval_launches=expected_eval,
+               card=smi)
+    emit(row)
+    if not (finite and moved and step_counts == expected_step
+            and eval_counts == expected_eval):
+        raise AssertionError(f"ResNet step failed: {row}")
+    del model, state, batch, v, f, q
+    torch.cuda.empty_cache()
+    return (add_counts(step_counts, eval_counts),
+            add_counts(expected_step, expected_eval))
+
+
+def rn_cli_phase(root, seed, smi):
+    """RN50 through the CLI: a seeded OpenAI-named RN50 state dict (fp16,
+    its running statistics drawn away from their init) as --clip_model,
+    the arch read back from its shapes; --do_train of RN_CLI_STEPS steps of
+    8 clips in micro-batches of 4 over a FramePack cycled from the fixture
+    (12 frames decoded by nvJPEG + R1 at 224), the epoch-end eval of
+    RN_EVAL_CLIPS clips; --do_eval --init_model of the saved file
+    (profiled; the same metrics), --do_extract of a 1024-wide bank, and
+    RN_QUERIES queries that the retrieval service answers from it.
+    Launches of K1, K2 (by body and head_dim), R1 and the decoder against
+    the prediction."""
+    arch, cross = ClipArch.by_name(RN_CLI), rn_cross(RN_CLI)
+    os.makedirs(root)
+    cross_path = os.path.join(root, "cross-rn50.json")
+    with open(cross_path, "w") as f:
+        json.dump(dataclasses.asdict(cross), f)
+    layout = build_cli_layout(root, seed, RN_EVAL_CLIPS, RN_TRAIN_VIDEOS)
+    t0 = time.perf_counter()
+    clip_path = os.path.join(root, "RN50.pt")
+    clip_sd = clip_archive(clip_path, seed, RN_CLI, script=False)
+    archive_s = time.perf_counter() - t0
+    from_shapes = ClipArch.from_state_dict(clip_sd) == arch
+    argv = ["--do_train", "--do_eval", "--dataset", "msrvtt",
+            "--language", "english", "--use_temp", "--use_frame_fea",
+            "--data_dir", root, "--output_dir", os.path.join(root, "out"),
+            "--batch_size", str(RN_TRAIN_VIDEOS),
+            "--gradient_accumulation_steps", str(RN_N_ACCUM),
+            "--batch_size_val", str(RN_EVAL_CLIPS), "--epochs", "1",
+            "--n_display", "1", "--num_thread_reader", "2",
+            "--seed", str(seed), "--cross_model", cross_path]
+    task = cli.to_task_config(cli.get_args(argv=argv))
+    loaded = build_model(task, cross, device="cpu",
+                         clip_model_path=clip_path).state_dict()
+    stats_loaded = all(
+        torch.equal(loaded["visual_encoder." + k].cpu(), v.float())
+        for k, v in clip_sd.items() if "running_" in k)
+    del loaded, clip_sd
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with EvalProbe() as train_probe:
+        run = runner.main(cli.get_args(argv=argv + ["--clip_model",
+                                                    clip_path]))
+    train_s = time.perf_counter() - t0
+    train_counts = dict(launch_counts(), **tower_launch_counts())
+    train_peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in run.displayed]
+    step_s = [r["step_s"] for r in run.displayed]
+    ckpt = os.path.join(root, "out", "pytorch_model.bin.0")
+    step_ms, step, dev_batch = step_device_ms(
+        run, cross, task, next(iter(SyntheticClips(
+            RN_TRAIN_VIDEOS, RN_TRAIN_VIDEOS, task.max_frames,
+            arch.image_resolution, task.max_words, seed))), iters=2)
+    profile = profile_train_step(run.state, step, dev_batch, step_ms,
+                                 phase="resnet_profile")
+    del run, step, dev_batch
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with EvalProbe(profile=True) as eval_probe:
+        metrics = runner.main(cli.get_args(argv=argv[1:] + [
+            "--init_model", ckpt, "--output_dir",
+            os.path.join(root, "out_eval")]))
+    eval_s = time.perf_counter() - t0
+    eval_counts = dict(launch_counts(), **tower_launch_counts())
+    eval_peak = torch.cuda.max_memory_allocated()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    bank_path = runner.main(cli.get_args(argv=[
+        "--do_extract"] + argv[2:] + ["--init_model", ckpt, "--output_dir",
+                                      os.path.join(root, "out_extract")]))
+    extract_s = time.perf_counter() - t0
+    bank = dict(np.load(bank_path))
+    from hmmc_tpu_torch import serve
+
+    sargs = cli.get_args(argv=argv[1:] + ["--init_model", ckpt])
+    sargs.features, sargs.device_rank = bank_path, False
+    svc = serve.RetrievalService(sargs)
+    captions = [" ".join(np.random.default_rng(seed + i).choice(WORDS, 8))
+                for i in range(RN_QUERIES)]
+    t0 = time.perf_counter()
+    answers = [svc.search(c, topk=5) for c in captions]
+    query_ms = (time.perf_counter() - t0) / RN_QUERIES * 1e3
+    extract_counts = dict(launch_counts(), **tower_launch_counts())
+    served = all(len(a["results"]) == 5 for a in answers)
+    del svc
+    torch.cuda.empty_cache()
+
+    micro = RN_CLI_STEPS * RN_N_ACCUM
+    text_blocks = math.ceil(RN_EVAL_CLIPS / 512)
+    video_blocks = math.ceil(RN_EVAL_CLIPS / 64)    # auto_video_block: 64
+    decodes = 1                # one eval batch of RN_EVAL_CLIPS clips
+    eval_k = rn_launches(arch, cross, text_blocks, video_blocks)
+    expected_eval = dict(eval_k, k1=eval_k["k1_short"], k2=0, r1=decodes,
+                         r2=0, decoder=decodes)
+    train_k = add_counts(eval_k, rn_launches(arch, cross, micro, micro,
+                                             micro, micro))
+    expected_train = dict(train_k, k1=train_k["k1_short"],
+                          k2=train_k["k2_short"], r1=RN_CLI_STEPS + decodes,
+                          r2=0, decoder=RN_CLI_STEPS + decodes)
+    # the extract, then the service's warm-up query and RN_QUERIES more
+    serve_k = add_counts(eval_k, rn_launches(arch, cross, RN_QUERIES + 1, 0))
+    expected_extract = dict(serve_k, k1=serve_k["k1_short"], k2=0,
+                            r1=decodes, r2=0, decoder=decodes)
+    ev_call = eval_probe.calls[0]
+    row = dict(
+        phase="resnet", what=f"{RN_CLI} BirdModel through the CLI",
+        resolution=arch.image_resolution,
+        vision=[arch.vision_width, list(arch.vision_layers)],
+        embed_dim=arch.embed_dim,
+        temporal_heads=cross.temporal_attention_heads,
+        head_dims=dict(zip(("text", "temporal"), rn_head_dims(arch, cross))),
+        clip_model_bytes=os.path.getsize(clip_path), archive_s=archive_s,
+        arch_from_shapes_equal=from_shapes,
+        running_stats_loaded_from_file=stats_loaded,
+        train_clips=RN_TRAIN_VIDEOS * 2, steps=RN_CLI_STEPS,
+        micro_batch_clips=RN_TRAIN_VIDEOS // RN_N_ACCUM,
+        losses=losses, finite=all(math.isfinite(x) for x in losses),
+        step_s=step_s,
+        train_run_s=train_s, eval_run_s=eval_s, extract_run_s=extract_s,
+        step_device_ms=step_ms,
+        step_device_ms_by_kind=profile["device_ms_by_kind"],
+        epoch_metrics=train_probe.calls[0]["metrics"],
+        reload_metrics=metrics,
+        reload_equal=metrics == train_probe.calls[0]["metrics"],
+        eval_clips=RN_EVAL_CLIPS, eval_video_blocks=video_blocks,
+        eval_wall_ms=ev_call["wall_ms"],
+        eval_device_busy_ms=ev_call["profile"]["device_busy_ms"],
+        eval_device_idle_share=ev_call["profile"]["device_idle_share"],
+        eval_device_ms_by_kind=ev_call["profile"]["device_ms_by_kind"],
+        r1_launches_at_224=dict(train=train_counts["r1"],
+                                eval=eval_counts["r1"],
+                                extract=extract_counts["r1"]),
+        max_memory_allocated=dict(train=train_peak, eval=eval_peak),
+        train_launches=train_counts, expected_train_launches=expected_train,
+        eval_launches=eval_counts, expected_eval_launches=expected_eval,
+        extract_and_query_launches=extract_counts,
+        expected_extract_and_query_launches=expected_extract,
+        bank_shapes={k: list(a.shape) for k, a in bank.items()},
+        served_queries=RN_QUERIES, served_ok=served,
+        query_ms_host_ranking=query_ms,
+        decode_failures=jpeg.decode_frames.decode_failures,
+        layout_s=layout["seconds"], card=smi)
+    emit(row)
+    ok = (from_shapes and stats_loaded and row["finite"]
+          and row["reload_equal"] and served and row["decode_failures"] == 0
+          and row["bank_shapes"].get("video", [0, 0])[-1] == arch.embed_dim
+          and train_counts == expected_train
+          and eval_counts == expected_eval
+          and extract_counts == expected_extract
+          and all(math.isfinite(x) for x in metrics.values()))
+    if not ok:
+        raise AssertionError(f"ResNet CLI run failed: {row}")
+    keys = [k for k in train_counts if k.startswith(("k1_", "k2_"))]
+    return ({k: train_counts[k] + eval_counts[k] + extract_counts[k]
+             for k in keys},
+            {k: expected_train[k] + expected_eval[k] + expected_extract[k]
+             for k in keys},
+            train_counts["r1"] + eval_counts["r1"] + extract_counts["r1"])
+
+
+def fp64(model):
+    """``model`` in fp64, its compute dtype too (the attention logits stay
+    fp32 or wider, as the attention op computes them)."""
+    model = model.double()
+    for m in model.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float64
+    return model
+
+
+def rn_reference_check(seed):
+    """The RN50-width tower cut to (1, 1, 1, 1) blocks, card against CPU,
+    TF32 off, the same inputs on both (the fixture's crops, normalised on
+    the CPU). (1) One fp32 fine-tune step in RN_N_ACCUM micro-batches of 2
+    clips, the text and temporal transformers cut to 2 layers (cross-base's
+    8 temporal heads: head_dim 128), the kernels on the card and the plain
+    attention on the CPU: the loss, the running statistics after the step
+    and every gradient outside the tower; the tower's gradients reported
+    beside the CPU's own fp32 error against its fp64 step. (2) The tower
+    alone in fp64 (cuDNN's fp64 convolutions), train mode, over the step's
+    first micro-batch's frames under a seeded gradient of its output: the
+    output, every gradient and the running statistics."""
+    arch = dataclasses.replace(ClipArch.by_name(RN_CLI),
+                               vision_layers=(1, 1, 1, 1),
+                               transformer_layers=2)
+    cross = dataclasses.replace(rn_cross(RN_CLI), temporal_hidden_layers=2)
+    task = TaskConfig(seed=seed, compute_dtype="float32",
+                      batch_size=2 * RN_N_ACCUM,
+                      gradient_accumulation_steps=RN_N_ACCUM)
+    host = next(iter(SyntheticClips(task.batch_size, task.batch_size,
+                                    task.max_frames, arch.image_resolution,
+                                    task.max_words, seed + 9)))
+    crops = load_fixture()["crop"]
+    host["video"] = np.stack([np.stack([
+        crops[(3 * c + j) % len(crops)] for j in range(task.max_frames)])
+        for c in range(task.batch_size)])
+    batch = runner.prepare_finetune_batch(host, "cpu")
+    tower = "visual_encoder.visual."
+
+    def step(dev, switch, wide=False):
+        model = build_model(task.replace(use_fused_attention=switch), cross,
+                            arch=arch, device=dev)
+        mb = {k: v.to(dev) for k, v in batch.items()}
+        if wide:
+            model = fp64(model)
+            mb["video"] = mb["video"].double()
+        state = FinetuneState(model, build_optimizer(
+            model.named_parameters(), lr=task.lr, text_lr=task.text_lr,
+            coef_lr=task.coef_lr, weight_decay=task.weight_decay,
+            warmup_proportion=task.warmup_proportion, t_total=1))
+        before = (fused_attention.head_dim_launches[128],
+                  fused_attention_backward.head_dim_launches[128])
+        _, metrics = make_finetune_step(cross, n_accum=RN_N_ACCUM)(state, mb)
+        return dict(
+            loss=float(metrics["loss"]),
+            d128=[fused_attention.head_dim_launches[128] - before[0],
+                  fused_attention_backward.head_dim_launches[128]
+                  - before[1]],
+            grads={n: p.grad.double().cpu() for n, p in
+                   model.named_parameters() if p.grad is not None},
+            stats={k: v.double().cpu() for k, v in model.state_dict().items()
+                   if "running_" in k})
+
+    def tower_fp64(dev):
+        g = torch.Generator().manual_seed(seed + 11)
+        net = ModifiedResNet(arch.vision_layers, arch.embed_dim,
+                             arch.vision_heads, arch.image_resolution,
+                             arch.vision_width, torch.float64)
+        net.reset_parameters(g)
+        net = net.double().to(dev)
+        frames = batch["video"][:2].flatten(0, 1).double()
+        cot = torch.randn(len(frames), arch.embed_dim, generator=g,
+                          dtype=torch.float64)
+        out = net(frames.to(dev), True)
+        (out * cot.to(dev)).sum().backward()
+        return dict(out=out.detach().cpu(),
+                    grads={n: p.grad.cpu() for n, p in net.named_parameters()},
+                    stats={k: v.cpu() for k, v in net.state_dict().items()
+                           if "running_" in k})
+
+    card, cpu, cpu64 = (step("cuda", "on"), step("cpu", "off"),
+                        step("cpu", "off", wide=True))
+    card_t, cpu_t = tower_fp64("cuda"), tower_fp64("cpu")
+
+    def grad_rel(got, want, names):
+        """Each gradient's max abs difference over its max magnitude; the
+        attention pool's key bias is left out (its gradient is 0 in exact
+        arithmetic: a key bias moves a query's logits all alike)."""
+        out = {}
+        for n in names:
+            if n.endswith("attnpool.k_proj.bias"):
+                continue
+            ref = want["grads"][n]
+            scale = float(ref.abs().max())
+            err = float((got["grads"][n] - ref).abs().max())
+            out[n] = err / scale if scale > 0 else err
+        return out
+
+    def worst(rel):
+        return [dict(name=n, rel_diff=r) for n, r in
+                sorted(rel.items(), key=lambda kv: -kv[1])[:5]]
+
+    def stats_diff(a, b):
+        return max(float((a["stats"][k] - v).abs().max())
+                   for k, v in b["stats"].items())
+
+    names = sorted(cpu["grads"])
+    outside = [n for n in names if not n.startswith(tower)]
+    inside = [n for n in names if n.startswith(tower)]
+    rel_out = grad_rel(card, cpu, outside)
+    rel_in, own_in = grad_rel(card, cpu, inside), grad_rel(cpu, cpu64, inside)
+    rel_t = grad_rel(card_t, cpu_t, sorted(cpu_t["grads"]))
+    loss_diff = abs(card["loss"] - cpu["loss"])
+    out_diff = float((card_t["out"] - cpu_t["out"]).abs().max())
+    ok = (set(card["grads"]) == set(cpu["grads"]) and rel_out and rel_t
+          and min(card["d128"]) > 0 and loss_diff <= RN_REF_LOSS_ATOL
+          and stats_diff(card, cpu) <= RN_REF_STATS_ATOL
+          and max(rel_out.values()) <= RN_REF_GRAD_REL
+          and out_diff <= RN_REF_LOSS_ATOL
+          and max(rel_t.values()) <= RN_REF_GRAD_REL
+          and stats_diff(card_t, cpu_t) <= RN_REF_STATS_ATOL)
+    row = dict(phase="resnet_reference", what="card against CPU: one fp32 "
+               f"fine-tune step of {task.batch_size} clips in {RN_N_ACCUM} "
+               "micro-batches (card: cuDNN and the kernels), and the tower "
+               "alone in fp64 (card: cuDNN) under a seeded output gradient",
+               arch=dataclasses.asdict(arch),
+               temporal=[cross.temporal_hidden_size,
+                         cross.temporal_hidden_layers,
+                         cross.temporal_attention_heads],
+               fp32_step=dict(
+                   loss_card=card["loss"], loss_cpu=cpu["loss"],
+                   loss_abs_diff=loss_diff,
+                   running_stats_max_abs_diff=stats_diff(card, cpu),
+                   grads_outside_tower=len(rel_out),
+                   grad_max_rel_diff_outside_tower=max(rel_out.values()),
+                   worst_outside_tower=worst(rel_out),
+                   tower_grad_max_rel_diff_reported=max(rel_in.values()),
+                   tower_worst=worst(rel_in),
+                   cpu_fp32_vs_fp64_tower_grad_max_rel_diff=max(
+                       own_in.values()),
+                   cpu_fp32_vs_fp64_tower_worst=worst(own_in),
+                   card_launches_at_head_dim_128=card["d128"]),
+               fp64_tower=dict(
+                   frames=2 * task.max_frames, output_max_abs_diff=out_diff,
+                   grads=len(rel_t), grad_max_rel_diff=max(rel_t.values()),
+                   worst=worst(rel_t),
+                   running_stats_max_abs_diff=stats_diff(card_t, cpu_t)),
+               loss_atol=RN_REF_LOSS_ATOL, grad_rel_tolerance=RN_REF_GRAD_REL,
+               running_stats_atol=RN_REF_STATS_ATOL,
+               reason=RN_REF_REASON, ok=ok)
+    emit(row)
+    if not ok:
+        raise AssertionError(f"ResNet card step disagrees with the CPU: "
+                             f"{row}")
+
+
+def resnet_phase(root, seed, smi):
+    """Phase resnet; returns each path's K1 / K2 launches by body and
+    head_dim, their predictions, and R1's launches on the RN50 CLI path."""
+    for res in RN_RESOLUTIONS:
+        check_decoder_at(smi, res, phase="resnet")
+    paths, predicted = {}, {}
+    counts, expected, r1 = rn_cli_phase(root, seed, smi)
+    paths["resnet_cli_rn50"], predicted["resnet_cli_rn50"] = counts, expected
+    for name, clips in RN_STEPS:
+        key = f"resnet_step_{name}"
+        paths[key], predicted[key] = rn_step(name, clips, seed, smi)
+    reset_attention_counts()
+    rn_reference_check(seed)
+    at = {f"{k}_d{d}": sum(c[f"{k}_d{d}"] for c in paths.values())
+          for k in ("k1", "k2") for d in HEAD_DIMS}
+    emit(dict(phase="resnet_head_dims", launches_by_head_dim=at,
+              predicted={k: sum(c[k] for c in predicted.values())
+                         for k in at}, card=smi))
+    if not all(at[f"{k}_d{d}"] > 0 for k in ("k1", "k2") for d in (80, 128)):
+        raise AssertionError(f"the ResNet paths ran no K1 / K2 at head_dim "
+                             f"80 or 128: {at}")
+    return paths, predicted, r1
+
+
 def launches_of(by_path, kernel):
     """One kernel's launches over phase ddp's paths (a list per group
     holds each rank's counts)."""
@@ -4004,7 +4538,9 @@ def main(argv=None) -> int:
     r2_rows = check_resize_area(gen)
     check_aug_decoder(smi)
     check_resize_crop(gen, TOWER_RES, TOWER_BLOCK_FRAMES, 16)   # R1 at 336
-    check_decoder_336(smi)
+    check_decoder_at(smi)
+    for res in RN_RESOLUTIONS:              # the ResNets' up-scaled decodes
+        check_resize_crop(gen, res, RN_BLOCK_FRAMES, 8)
     start_phase("eval")
     eval_k1 = eval_phase(args, smi)
     start_phase("train")
@@ -4027,7 +4563,12 @@ def main(argv=None) -> int:
         start_phase("towers")
         tower_paths, tower_predicted = towers_phase(
             os.path.join(root, "towers"), args.seed, smi)
+        start_phase("resnet")
+        rn_paths, rn_predicted, rn_r1 = resnet_phase(
+            os.path.join(root, "resnet"), args.seed, smi)
     start_phase("result")
+    tower_paths.update(rn_paths)
+    tower_predicted.update(rn_predicted)
     rows += tower_rows + hd_rows
     bwd_rows += tower_bwd_rows + hd_bwd_rows
 
@@ -4035,14 +4576,15 @@ def main(argv=None) -> int:
     def head_dim_launches(kernel):
         """Every launch of the run by phase and head_dim beside the
         prediction: the ViT-B/32 phases run head_dim 64 only, the towers'
-        paths as their block structure gives (phase kernels' checks and
-        phase towers' reference checks are measured, not predicted)."""
+        and the ResNets' paths as their block structure gives (phase
+        kernels' checks and the reference checks and warm steps of phases
+        towers and resnet are measured, not predicted)."""
         by_phase = {ph: t[kernel] for ph, t in HEAD_DIM_LAUNCHES.items()
                     if kernel in t and any(t[kernel].values())}
         predicted = {ph: {d: sum(c.values()) if d == 64 else 0
                           for d in HEAD_DIMS}
                      for ph, c in by_phase.items()
-                     if ph not in ("kernels", "towers")}
+                     if ph not in ("kernels", "towers", "resnet")}
         predicted.update({
             p: {d: c[f"{kernel}_d{d}"] for d in HEAD_DIMS}
             for p, c in tower_predicted.items()})
@@ -4087,7 +4629,8 @@ def main(argv=None) -> int:
     # phase ddp's paths; a 2-rank group's entry sums its ranks' launches
     k1_paths.update(launches_of(ddp, "k1"))
     k2_paths.update(launches_of(ddp, "k2"))
-    # phase towers: the only paths with L > 128, where the tiled bodies run
+    # phases towers (the only paths with L > 128, where the tiled bodies
+    # run) and resnet (head_dims 80, 96 and 128 at the temporal site)
     for kernel, paths in (("k1", k1_paths), ("k2", k2_paths)):
         paths.update({p: c[f"{kernel}_short"] + c[f"{kernel}_tiled"]
                       for p, c in tower_paths.items()})
@@ -4108,11 +4651,11 @@ def main(argv=None) -> int:
                       "bicubic resize and centre crop: a host PIL step, "
                       "not a Pallas kernel)",
              launches=(cli_counts["r1"] + serve_counts["r1"] + cli_pre["r1"]
-                       + sum(r1_ddp.values())),
+                       + sum(r1_ddp.values()) + rn_r1),
              launches_by_path={"cli_finetune_and_evals": cli_counts["r1"],
                                "serve_extract": serve_counts["r1"],
                                "cli_pretrain_eval": cli_pre["r1"],
-                               **r1_ddp},
+                               **r1_ddp, "resnet_cli_rn50": rn_r1},
              max_abs_err=r1_row["max_abs_err"], ms=r1_row["launch_ms"],
              kernel_device_ms=r1_row["kernel_device_ms"],
              wrapper_from_frame_list_ms=r1_row["ms"],

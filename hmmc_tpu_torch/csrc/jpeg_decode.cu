@@ -16,7 +16,8 @@
 //                (every frame where the card exposes no JPEG engine: the
 //                hardware handle then fails to create and is left null);
 //   2 single     a frame of a batch that failed, decoded alone
-//                (nvjpegDecode);
+//                (nvjpegDecode; the stream is synchronised after each, as
+//                the next one reuses the state's staging buffers);
 //  -1 failed     a blob whose header does not parse, or that fails alone
 //                too: the wrapper zero-fills it and counts it.
 // The probe reports each frame's components and plane sizes; the wrapper
@@ -109,6 +110,12 @@ int decode_group(Ctx* ctx, int route, const unsigned char* const* data,
                                           fmt, &img[j], stream);
     if (t == NVJPEG_STATUS_SUCCESS) {
       routes[which[j]] = 2;
+      // nvjpegDecode returns before its copies to the card have run, and
+      // the next frame's host phase refills the same state's staging
+      // buffers: wait for this frame first
+      if (cudaStreamSynchronize(stream) != cudaSuccess) {
+        return NVJPEG_STATUS_EXECUTION_FAILED;
+      }
     } else if (per_frame_fault(t)) {
       routes[which[j]] = -1;
     } else {

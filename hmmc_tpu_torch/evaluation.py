@@ -9,9 +9,10 @@ Two phases on one device, under ``torch.inference_mode()``:
    batch that carries compressed frames (``video_blobs``, the frame-store
    datasets') is decoded on the evaluator's device first
    (:func:`hmmc_tpu_torch.data.jpeg.decode_video_blobs`: nvJPEG and R1 on
-   the card); one that carries host uint8 ``video`` is copied over.
-   Multi-sentence datasets encode every sentence but only the videos at
-   the cut-off indices.
+   the card); one that carries host uint8 ``video`` is copied over. A
+   ModifiedResNet tower runs its BatchNorm on the running statistics
+   (``hmmc_tpu/evaluation.py:213-221``). Multi-sentence datasets encode
+   every sentence but only the videos at the cut-off indices.
 2. Similarity: ``scale * cos(q, v)`` plus, with ``use_frame_fea``, the
    mean of each query's top-``top_frames`` frame logits, blocked over
    queries so the [Q, V, F] frame logits never exceed one block; then

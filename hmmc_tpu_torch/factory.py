@@ -5,7 +5,8 @@
 weights drawn on the CPU from an explicit ``torch.Generator`` (so a seed
 gives the same weights on every device), overlays an OpenAI CLIP file
 (``--clip_model``: its architecture read from its tensor shapes, its
-visual tower, ``logit_scale`` and, in English, its text tower), then an
+visual tower, a ModifiedResNet's BatchNorm running statistics included,
+``logit_scale`` and, in English, its text tower), then an
 HMMC checkpoint (``pytorch_model.bin.N``, ``--init_model``), which wins, as
 in the JAX factory; then it moves the model to the device. Orbax
 directories are not read. A pretrain checkpoint's key towers and queues
@@ -72,10 +73,12 @@ def build_model(task: TaskConfig, cross: CrossConfig,
             "vision_layers=%s width=%d patch=%s", arch.embed_dim,
             arch.image_resolution, arch.vision_layers, arch.vision_width,
             arch.vision_patch_size or None)
-        if arch.is_resnet:
-            raise NotImplementedError(
-                f"{clip_model_path} holds a ResNet CLIP tower, not ported "
-                "yet (ROADMAP.md Queue A 10)")
+        if task.image_resolution not in (0, arch.image_resolution):
+            raise ValueError(
+                f"{clip_model_path} holds a tower for "
+                f"{arch.image_resolution}-px frames, but frames decode at "
+                f"{task.image_resolution}: name its tower as "
+                "pretrained_clip_name in the --cross_model JSON")
     elif arch is None:
         arch = ClipArch.by_name(cross.pretrained_clip_name)
     common = dict(language=task.language, use_temp=task.use_temp,

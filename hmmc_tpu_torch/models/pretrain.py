@@ -4,7 +4,10 @@ modeling.py:88-436).
 
 - :class:`BirdPretrainModel`: the query towers, ``t_projector``,
   ``v_projector``, ``v_predictor`` and the MLM head ``cls``, under the
-  reference checkpoint's names.
+  reference checkpoint's names. Its ``encode_video`` runs a ModifiedResNet
+  tower's BatchNorm on its running statistics (frozen, as the JAX
+  pretrain step keeps them); the key towers' copy carries the same
+  buffers, which the EMA leaves alone (it pairs parameters only).
 - :class:`MomentumTowers`: the key side, copies of the four
   :data:`MOMENTUM_SUBTREES` (:func:`init_key_params`), never trained; its
   projectors keep their own BatchNorm running statistics (the JAX

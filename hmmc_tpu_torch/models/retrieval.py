@@ -40,12 +40,14 @@ class BirdModel(nn.Module):
         return self.text_encoder(input_ids)
 
     def encode_video(self, video: torch.Tensor,
-                     frame_mask: Optional[torch.Tensor] = None
+                     frame_mask: Optional[torch.Tensor] = None,
+                     train: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B, F, H, W, 3] normalized floats (and an optional [B, F] frame
         mask, 1 = real frame) -> (video feature [B, D], frame features
-        [B, F, D]), fp32."""
-        return self.visual_encoder(video, frame_mask)
+        [B, F, D]), fp32. ``train``: a ResNet tower's BatchNorm on the
+        batch's statistics (moving the running ones)."""
+        return self.visual_encoder(video, frame_mask, train)
 
     def logit_scale(self) -> torch.Tensor:
         """exp(logit_scale) clamped to 100; no gradient reaches it

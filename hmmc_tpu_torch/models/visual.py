@@ -1,9 +1,12 @@
-"""Visual encoder: per-frame CLIP ViT + temporal transformer (counterpart
-of ``hmmc_tpu/models/visual.py``, module_cross.py:152-237).
+"""Visual encoder: per-frame CLIP tower + temporal transformer
+(counterpart of ``hmmc_tpu/models/visual.py``, module_cross.py:152-237).
 
-- every frame goes through the ViT (the 3d tube patch takes the video
-  whole: its convolution spans neighbouring frames); the per-frame features
-  BEFORE the temporal transformer are returned as ``frame_output``;
+- every frame goes through the tower: the ViT (the 3d tube patch takes the
+  video whole: its convolution spans neighbouring frames) or the
+  ModifiedResNet (:mod:`hmmc_tpu_torch.models.resnet`; ``train`` puts its
+  BatchNorm on the batch's statistics, as the JAX encoder's flag does); the
+  per-frame features, in fp32, BEFORE the temporal transformer are
+  returned as ``frame_output``;
 - with ``use_temp``: add the frame position embeddings (sized from the
   tower's output width), run the temporal transformer, add the residual.
   The reference's temporal mask is all ones, so no mask is applied; a
@@ -22,6 +25,7 @@ import torch.nn as nn
 
 from hmmc_tpu_torch.config import ClipArch, CrossConfig
 from hmmc_tpu_torch.models.layers import Transformer, normal_
+from hmmc_tpu_torch.models.resnet import ModifiedResNet
 from hmmc_tpu_torch.models.vit import VisionTransformer
 
 
@@ -30,13 +34,15 @@ class VisualEncoder(nn.Module):
                  use_temp: bool = True, dtype: torch.dtype = torch.float32,
                  use_fused: bool = False):
         super().__init__()
-        if arch.is_resnet:
-            raise NotImplementedError(
-                "ResNet CLIP towers are not ported yet (ROADMAP.md Queue A "
-                "10, 'Other towers': ModifiedResNet)")
+        self.arch = arch
         self.use_temp = use_temp
         self.dtype = dtype
-        self.visual = VisionTransformer(arch, dtype, use_fused)
+        if arch.is_resnet:
+            self.visual = ModifiedResNet(
+                tuple(arch.vision_layers), arch.embed_dim, arch.vision_heads,
+                arch.image_resolution, arch.vision_width, dtype)
+        else:
+            self.visual = VisionTransformer(arch, dtype, use_fused)
         if use_temp:
             cc = cross_config
             self.frame_position_embeddings = nn.Embedding(
@@ -53,13 +59,17 @@ class VisualEncoder(nn.Module):
             self.temporal_transformer.reset_parameters(generator)
 
     def forward(self, video: torch.Tensor,
-                frame_mask: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                frame_mask: Optional[torch.Tensor] = None,
+                train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """video: [B, F, H, W, 3] normalized floats; frame_mask: [B, F] or
-        None. Returns (video_feature [B, D] fp32, frame_output [B, F, D]
-        fp32)."""
+        None; ``train``: the ResNet's BatchNorm in train mode (the ViT has
+        no train-time behaviour). Returns (video_feature [B, D] fp32,
+        frame_output [B, F, D] fp32)."""
         b, f, h, w, c = video.shape
-        if self.visual.arch.linear_patch == "3d":
+        if self.arch.is_resnet:
+            per_frame = self.visual(video.reshape(b * f, h, w, c),
+                                    train).float()
+        elif self.arch.linear_patch == "3d":
             per_frame = self.visual(video)
         else:
             per_frame = self.visual(video.reshape(b * f, h, w, c))

@@ -53,7 +53,9 @@ _CLIP_TEXT = ("token_embedding.", "positional_embedding", "transformer.",
 
 def clip_to_port(sd: StateDict, language: str) -> StateDict:
     """An OpenAI CLIP state dict under the port's names: ``visual.*`` ->
-    ``visual_encoder.visual.*``, ``logit_scale`` ->
+    ``visual_encoder.visual.*`` (a ModifiedResNet's BatchNorm
+    ``running_mean``, ``running_var`` and ``num_batches_tracked`` among
+    them), ``logit_scale`` ->
     ``text_encoder.logit_scale``, and in English the text tower's keys ->
     ``text_encoder.*`` (the split of ``import_clip_weights`` and of the JAX
     factory's overlay, ``hmmc_tpu/factory.py:151-167``). Other keys
@@ -135,7 +137,9 @@ def save_reference_checkpoint(path: str, model: torch.nn.Module,
                               pretrain_state=None) -> None:
     """Write ``model``'s state dict in fp32 under the reference names,
     readable by the reference and by ``hmmc_tpu``'s
-    ``load_torch_state_dict``. With ``pretrain_state`` (a
+    ``load_torch_state_dict`` (a ModifiedResNet's BatchNorm buffers
+    included, which ``import_hmmc_state_dict`` reads as its
+    ``batch_stats``). With ``pretrain_state`` (a
     ``PretrainState``; ``model`` is its query model) the file is the
     reference pretrain's (modeling.py:88-157; the JAX package's
     ``save_reference_checkpoint``, ``hmmc_tpu/train/orbax_io.py:189-260``):

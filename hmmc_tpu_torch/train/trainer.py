@@ -1,5 +1,5 @@
 """The fine-tune and pretrain steps (counterparts of ``make_finetune_step``
-and ``_accumulate``, the non-BatchNorm branch, and of ``PretrainState`` and
+and ``_accumulate``, both branches, and of ``PretrainState`` and
 ``make_pretrain_step`` in ``hmmc_tpu/train/trainer.py``; reference
 train_epoch, main_task_retrieval.py:250-318, and modeling.py:334-436).
 
@@ -10,7 +10,12 @@ gradients into ``.grad``; then divide by ``n_accum`` (the mean of the
 micro-batch gradients, summed first as the JAX scan does), read the global
 gradient norm before clipping, and take one optimizer step. Parameters stay
 fp32 and the towers compute in their compute dtype; gradients arrive in
-fp32. Metrics are device tensors (the mean over micro-batches) so the step
+fp32. A ModifiedResNet tower runs its BatchNorm in train mode (the JAX
+step's BatchNorm branch, ``hmmc_tpu/train/trainer.py:194-240``): each
+micro-batch normalises over its own frames, the gradient flows through
+those statistics, and the running statistics move once a micro-batch, in
+turn (the JAX scan threads ``batch_stats`` through its micro-batches).
+Metrics are device tensors (the mean over micro-batches) so the step
 never waits for the card; the caller reads them when it logs.
 
 Over several ranks (:mod:`hmmc_tpu_torch.parallel.distributed`) each rank
@@ -25,7 +30,8 @@ by the global count of masked tokens, and the metrics are summed over
 ranks. After the micro-batches one flat all-reduce sums the gradients, so
 every rank holds the single-process gradient before ``grad_norm`` is read
 and the optimizer steps; the projectors' BatchNorm takes the global
-batch's statistics, the mask and augmentation draws are made for the
+batch's statistics, as does a ModifiedResNet's BatchNorm in the
+fine-tune, the mask and augmentation draws are made for the
 global batch and applied to this rank's rows, and each micro-batch's keys
 are gathered before the enqueue, so the queues, ``ptr`` and the key
 towers stay identical on every rank.
@@ -38,8 +44,10 @@ in order: the momentum EMA of the key towers; the key forwards under
 ``no_grad`` (the key projector in train mode, moving the key BatchNorm
 statistics); the query forwards; FAM, VTM and FTM against the queues as
 they stand, then MLM; the backward; the enqueue of this micro-batch's keys
-(after the backward: the losses' saved tensors read the queues). The mean
-of the micro-batch gradients feeds one BertAdam update, as in the
+(after the backward: the losses' saved tensors read the queues). A
+ModifiedResNet tower's BatchNorm stays frozen on both sides (its running
+statistics, as the JAX step reads them); only the projectors' move. The
+mean of the micro-batch gradients feeds one BertAdam update, as in the
 fine-tune. Its ranges are ``pretrain_step.grads`` (which holds
 ``pretrain_step.keys``: the EMA and the key forwards) and
 ``pretrain_step.optimizer``.
@@ -132,7 +140,8 @@ def make_finetune_step(cross_config: CrossConfig, use_frame_fea: bool = True,
 
     def loss_fn(model, batch: Batch) -> Metrics:
         q = model.encode_text(batch["query_ids"])
-        v, f = model.encode_video(batch["video"], frame_mask(batch))
+        v, f = model.encode_video(batch["video"], frame_mask(batch),
+                                  train=True)
         q, v, f = gather_rows(q, v, f if use_frame_fea else None)
         scale = model.logit_scale().detach()
         return losses.finetune_retrieval_loss(q, v, f, scale, w_vtm, w_ftm)

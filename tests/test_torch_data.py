@@ -10,14 +10,19 @@ the committed fixture's cv2 JPEGs). What is held to what:
   ``BatchLoader``'s order, shards and skips are equal to the JAX
   package's;
 - R1's plain version (``resize_crop_reference``) is bitwise equal to PIL's
-  bicubic resize and crop; the port's CPU decode (PIL, then R1's plain
+  bicubic resize and crop (at 32 and at every tower's resolution: 224,
+  288, 336, 384, 448); the port's CPU decode (PIL, then R1's plain
   version) gives the JAX ``FrameSource``'s frames bit for bit;
 - the CLI fine-tune from a checkpoint that the JAX package wrote: the
   displayed losses (printed to 4 decimals) within 1e-4 of the JAX run's
   (fp32, the same weights and batches; the train step's own parity is
   1e-4, tests/test_torch_train.py), and the epoch-end rank metrics equal;
   the port's ``pytorch_model.bin.0`` reloads to the same metrics and loads
-  in the JAX package with the same keys.
+  in the JAX package with the same keys;
+- a ModifiedResNet CLIP file: arch, weights and running statistics in
+  both factories, the video encoder on them (1e-4); the CLI fine-tune with
+  it, reload, extract (the JAX package's bank from the port's checkpoint
+  within 1e-4) and the retrieval service.
 
 The ``gpu`` tests hold R1's kernel to its plain version bitwise and the
 nvJPEG decode to the fixture's PIL decodes on the card; they import no JAX
@@ -120,7 +125,8 @@ R1_SWEEP = [(341, 256), (256, 341), (320, 240), (640, 360), (1280, 720),
             (17, 300), (225, 224), (224, 500), (35, 1)]
 
 
-@pytest.mark.parametrize("res", [32, 224, 336])   # 336: ViT-L/14@336px
+# 336: ViT-L/14@336px; 288, 384, 448: RN50x4, RN50x16, RN50x64
+@pytest.mark.parametrize("res", [32, 224, 336, 288, 384, 448])
 def test_resize_crop_reference_equals_pil(res):
     rng = np.random.default_rng(res)
     for w, h in R1_SWEEP:
@@ -1013,7 +1019,9 @@ def test_clip_archive_both_forms_match_jax(reference, tmp_path):
     to the JAX factory and to the port's. The arch read from the shapes
     and the overlaid weights agree; the encoders (fp32, 1e-4) are compared
     on the first form, and the second gives both packages the same
-    models."""
+    models. Then a ModifiedResNet file: the arch, its weights and
+    BatchNorm running statistics in both packages, and the video encoder
+    on them (1e-4)."""
     import dataclasses
 
     from hmmc_tpu import factory as jfactory
@@ -1084,16 +1092,152 @@ def test_clip_archive_both_forms_match_jax(reference, tmp_path):
         np.testing.assert_allclose(q, np.asarray(jq), atol=1e-4)
         np.testing.assert_allclose(v, np.asarray(jv), atol=1e-4)
         np.testing.assert_allclose(f, np.asarray(jf), atol=1e-4)
-    resnet = {"text_projection": torch.zeros(8, 4),
-              "visual.layer1.0.conv1.weight": torch.zeros(2, 2, 1, 1),
-              "visual.attnpool.positional_embedding": torch.zeros(50, 2),
-              "ln_final.weight": torch.zeros(8),
-              "positional_embedding": torch.zeros(4, 8),
-              "token_embedding.weight": torch.zeros(10, 8)}
-    torch.save(resnet, str(tmp_path / "rn.pt"))
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        pfactory.build_model(task, cross, device="cpu",
-                             clip_model_path=str(tmp_path / "rn.pt"))
+    # a ModifiedResNet file (OpenAI's RN names, running statistics and
+    # num_batches_tracked included), as a torch.save dict in fp16
+    rn = _rn_clip_state_dict(CLIP_TEST_RN_ARCH, sd)
+    path = str(tmp_path / "RN-Tiny.pt")
+    torch.save(rn, path)
+    arch = pconfig.ClipArch.from_state_dict(rn)
+    assert arch == pconfig.ClipArch(**CLIP_TEST_RN_ARCH)
+    assert dataclasses.asdict(arch) == dataclasses.asdict(
+        jconfig.ClipArch.from_state_dict(rn))
+    jmodel, variables = jfactory.build_model(jtask, jcross,
+                                             clip_model_path=path)
+    model = pfactory.build_model(task, cross, device="cpu",
+                                 clip_model_path=path)
+    jsd = from_jax_params(variables["params"], variables["batch_stats"])
+    own = model.state_dict()
+    clip_keys = pckpt.clip_to_port(
+        {k: v.float() if v.is_floating_point() else v for k, v in rn.items()},
+        "english")
+    assert any(k.endswith("running_var") for k in clip_keys)
+    assert len(clip_keys) == len(rn) and set(clip_keys) < set(own)
+    for k, v in clip_keys.items():
+        assert torch.equal(own[k], v.reshape(own[k].shape)), k
+        if not k.endswith("num_batches_tracked"):    # flax keeps no count
+            np.testing.assert_allclose(jsd[k].numpy(), own[k].numpy(),
+                                       atol=1e-7, err_msg=k)
+    model.load_state_dict({k: v for k, v in jsd.items()
+                           if k not in clip_keys}, strict=False)
+    with torch.no_grad():
+        v, f = (t.numpy() for t in model.encode_video(
+            torch.from_numpy(video)))
+    jv, jf = jmodel.apply(variables, video, method="encode_video")
+    np.testing.assert_allclose(v, np.asarray(jv), atol=1e-4)
+    np.testing.assert_allclose(f, np.asarray(jf), atol=1e-4)
+
+
+# the tiny RN the JAX tests pretrain (tests/test_resnet_import.py), its
+# text tower CLIP_TEST_ARCH's
+CLIP_TEST_RN_ARCH = dict(CLIP_TEST_ARCH, vision_layers=(1, 1, 1, 1),
+                         vision_width=8, vision_patch_size=0)
+
+
+def _rn_clip_state_dict(arch, text_sd, seed=1):
+    """An OpenAI ModifiedResNet CLIP state dict at ``arch`` in fp16: the
+    visual part seeded at the port tower's names and shapes (running
+    means N(0, 0.05), variances 1 + |N(0, 0.05)|, ``num_batches_tracked``
+    int64), the text part ``text_sd``'s."""
+    from hmmc_tpu_torch.models.resnet import ModifiedResNet
+
+    a = pconfig.ClipArch(**arch)
+    tower = ModifiedResNet(a.vision_layers, a.embed_dim, a.vision_heads,
+                           a.image_resolution, a.vision_width)
+    g = np.random.default_rng(seed)
+    sd = {k: v for k, v in text_sd.items() if not k.startswith("visual.")}
+    for k, v in tower.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd["visual." + k] = torch.tensor(7)
+            continue
+        x = g.normal(size=tuple(v.shape)) * 0.05
+        if k.endswith("running_var"):
+            x = 1.0 + np.abs(x)
+        elif k.endswith("weight") and v.ndim == 1:      # BatchNorm scales
+            x = 1.0 + x
+        sd["visual." + k] = torch.tensor(x, dtype=torch.float16)
+    return sd
+
+
+RN_TINY_NAME = "RN-Test"
+
+
+def test_cli_resnet_runs_reload_and_serve(reference, cli_layout, tmp_path):
+    """The CLI with a ModifiedResNet tower from an OpenAI-named file
+    (--clip_model): --do_train --do_eval (train-mode BatchNorm, 3 steps of
+    8 in 2 micro-batches), the saved ``pytorch_model.bin.0`` (its running
+    statistics moved, as the model's) --do_eval'd again to the same
+    metrics; the JAX package imports the file with those statistics and
+    its --do_extract bank from it equals the port's (1e-4); the retrieval
+    service answers from the port's bank."""
+    from hmmc_tpu.cli import get_args as jax_args
+    from hmmc_tpu.runner import run_extract as jax_run_extract
+    from hmmc_tpu.train.checkpoint import (import_hmmc_state_dict,
+                                           load_torch_state_dict)
+
+    from hmmc_tpu_torch import serve
+
+    data_dir, _ = cli_layout
+    arch = dict(CLIP_TEST_RN_ARCH, context_length=64, vocab_size=49408)
+    text = _clip_state_dict(dict(CLIP_TEST_ARCH, context_length=64,
+                                 vocab_size=49408))
+    clip_path = str(tmp_path / "RN-Test.pt")
+    torch.save(_rn_clip_state_dict(arch, text), clip_path)
+    cross = tmp_path / "cross-rn.json"
+    cross.write_text(json.dumps({
+        "pretrained_clip_name": RN_TINY_NAME, "temporal_hidden_size": 32,
+        "temporal_attention_heads": 2, "temporal_hidden_layers": 2,
+        "max_position_embeddings": 8}))
+    cross = str(cross)
+    for cfg in (pconfig, jconfig):
+        cfg.CLIP_ARCH[RN_TINY_NAME] = arch
+    try:
+        out = str(tmp_path / "train")
+        run = prunner.main(pcli.get_args(argv=_argv(data_dir, cross, out, (
+            "--do_train", "--do_eval", "--clip_model", clip_path,
+            "--gradient_accumulation_steps", "2"))), device="cpu")
+        saved = os.path.join(out, "pytorch_model.bin.0")
+        again = prunner.main(pcli.get_args(argv=_argv(
+            data_dir, cross, str(tmp_path / "eval"),
+            ("--do_eval", "--init_model", saved))), device="cpu")
+        extract = ("--do_extract", "--init_model", saved)
+        bank = prunner.main(pcli.get_args(argv=_argv(
+            data_dir, cross, str(tmp_path / "extract"), extract)),
+            device="cpu")
+        jbank = jax_run_extract(jax_args(argv=_argv(
+            data_dir, cross, str(tmp_path / "jax_extract"), extract)))
+        sargs = pcli.get_args(argv=_argv(data_dir, cross, str(tmp_path),
+                                         ("--do_eval", "--init_model",
+                                          saved)))
+        sargs.features, sargs.device_rank = bank, False
+        answer = serve.RetrievalService(sargs, device="cpu").search(
+            "a clip about video3", topk=3)
+    finally:
+        for cfg in (pconfig, jconfig):
+            cfg.CLIP_ARCH.pop(RN_TINY_NAME, None)
+    assert run.state.model.arch.is_resnet and run.state.step == 3
+    assert again == run.best_metrics
+    file = load_torch_state_dict(saved)
+    own = run.state.model.state_dict()
+    moved = 0
+    for k, v in own.items():
+        np.testing.assert_array_equal(np.asarray(file[k]), v.numpy(),
+                                      err_msg=k)
+        if "running_" in k:
+            start = torch.load(clip_path, weights_only=True)[
+                k[len("visual_encoder."):]].float()
+            moved += not torch.equal(v, start)
+    assert moved == sum("running_" in k for k in own)
+    stats = import_hmmc_state_dict(file, language="english",
+                                   use_temp=True)["batch_stats"]
+    np.testing.assert_array_equal(
+        np.asarray(stats["visual_encoder"]["visual"]["layer4_0"]["bn3"]
+                   ["var"]),
+        own["visual_encoder.visual.layer4.0.bn3.running_var"].numpy())
+    pb, jb = dict(np.load(bank)), dict(np.load(jbank))
+    assert pb["video"].shape == (N_VIDEOS, 32)
+    for k in ("query", "video", "frames"):
+        np.testing.assert_allclose(pb[k], jb[k], atol=1e-4, err_msg=k)
+    assert len(answer["results"]) == 3
 
 
 @pytest.fixture(scope="module")

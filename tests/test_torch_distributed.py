@@ -4,7 +4,9 @@ JAX package's single-process step on the same global batch and weights.
 
 What is held:
 - (a) a fine-tune step with ``n_accum=2``: losses, ``grad_norm`` and the
-  parameters after 2 steps;
+  parameters after 2 steps; the same with a ModifiedResNet tower (train-
+  mode BatchNorm over the global micro-batch), its running statistics
+  too, against one rank;
 - (b) a pretrain step with ``n_accum=2``: the four losses, ``grad_norm``,
   the queues, ``ptr``, the BatchNorm running statistics and the
   parameters and key towers after 2 steps;
@@ -105,8 +107,8 @@ def _local(batch, rank=0, world=1):
 
 
 def finetune_run(inputs, zero=False):
-    model = BirdModel(ClipArch(**ARCH_KW), CrossConfig(**CROSS_KW),
-                      use_fused=True)
+    model = BirdModel(ClipArch(**inputs.get("arch", ARCH_KW)),
+                      CrossConfig(**CROSS_KW), use_fused=True)
     model.load_state_dict(inputs["weights"], strict=True)
     state = FinetuneState(model, opt.build_optimizer(
         model.named_parameters(), t_total=10, zero=zero, **FT_OPT))
@@ -121,6 +123,7 @@ def finetune_run(inputs, zero=False):
             out[k].append(float(metrics[k]))
     out["params"] = {n: p.detach().clone()
                      for n, p in model.named_parameters()}
+    out["buffers"] = {n: b.clone() for n, b in model.named_buffers()}
     out["moments"] = state.optimizer.moments()
     return out
 
@@ -231,6 +234,7 @@ def preempted_zero_run(layout, out):
 
 
 SCENARIOS = {"finetune": lambda s, i: finetune_run(i["finetune"]),
+             "finetune_rn": lambda s, i: finetune_run(i["finetune_rn"]),
              "finetune_zero": lambda s, i: finetune_run(i["finetune"], True),
              "pretrain": lambda s, i: pretrain_run(i["pretrain"]),
              "eval": lambda s, i: eval_run(s["layout"]),
@@ -462,6 +466,26 @@ def _jax_pretrain(j):
     return inputs, run
 
 
+# the JAX tests' tiny RN (tests/test_resnet_import.py) at ARCH_KW's text
+RN_ARCH_KW = dict(ARCH_KW, vision_layers=[1, 1, 1, 1], vision_width=8,
+                  vision_patch_size=0)
+
+
+def _resnet_finetune_inputs(batch):
+    """A ModifiedResNet model's seeded weights (running statistics drawn
+    away from their init) and the fine-tune batch."""
+    model = BirdModel(ClipArch(**RN_ARCH_KW), CrossConfig(**CROSS_KW))
+    g = torch.Generator().manual_seed(8)
+    model.reset_parameters(g)
+    sd = model.state_dict()
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            v.normal_(0.0, 0.1, generator=g)
+        elif k.endswith("running_var"):
+            v.uniform_(1.0, 1.5, generator=g)
+    return {"arch": RN_ARCH_KW, "weights": sd, "batch": batch}
+
+
 @pytest.fixture(scope="module")
 def runs(jax_ref, layout, tmp_path_factory):
     """Both 2-rank groups, started as soon as their inputs exist (the JAX
@@ -470,12 +494,14 @@ def runs(jax_ref, layout, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dist")
     ft_inputs, ft_jax_run = _jax_finetune(jax_ref)
     pre_inputs, pre_jax_run = _jax_pretrain(jax_ref)
+    rn_inputs = _resnet_finetune_inputs(ft_inputs["batch"])
     path = str(tmp / "inputs.pt")
-    torch.save({"finetune": ft_inputs, "pretrain": pre_inputs}, path)
+    torch.save({"finetune": ft_inputs, "pretrain": pre_inputs,
+                "finetune_rn": rn_inputs}, path)
     spec = dict(layout=list(layout), extract=str(tmp / "extract2"),
                 preempt=str(tmp / "preempt2"))
-    groups = (Group(tmp, "steps", ["finetune", "finetune_zero", "pretrain"],
-                    inputs=path),
+    groups = (Group(tmp, "steps", ["finetune", "finetune_zero", "pretrain",
+                                   "finetune_rn"], inputs=path),
               Group(tmp, "cli", ["eval", "extract", "preempted_zero"],
                     **spec))
     out = dict(spec=spec)
@@ -483,6 +509,7 @@ def runs(jax_ref, layout, tmp_path_factory):
     out["pre_jax"], out["pre_jax_final"] = pre_jax_run()
     out["one"] = {
         "finetune": finetune_run(ft_inputs),
+        "finetune_rn": finetune_run(rn_inputs),
         "pretrain": pretrain_run(pre_inputs),
         "eval": eval_run(layout),
         "extract": extract_run(layout, str(tmp / "extract1")),
@@ -527,6 +554,32 @@ def test_finetune_two_ranks_equal_one_and_jax(steps):
     # the ranks hold the same parameters, bit for bit
     _assert_close_dicts(two[1]["finetune"]["params"],
                         two[0]["finetune"]["params"], 0.0, "rank 1 vs 0")
+
+
+def test_resnet_finetune_two_ranks_equal_one(steps):
+    """A ModifiedResNet tower's fine-tune over two ranks: its train-mode
+    BatchNorm takes the global micro-batch's statistics (sums over the
+    ranks, and its backward's two sums too), so the parameters and
+    running statistics equal one rank's within 1e-5 and every rank holds
+    the same, bit for bit; the losses (about 30 here: fp32 steps of 4e-6)
+    and grad norm within 1e-5 relative."""
+    one, two = steps["one"]["finetune_rn"], steps["two"]
+    assert any(k.endswith("running_var") for k in one["buffers"])
+    for r in range(WORLD):
+        got = two[r]["finetune_rn"]
+        for k in ("loss", "sim_loss", "frame_loss", "grad_norm"):
+            np.testing.assert_allclose(got[k], one[k], rtol=WORLD_ATOL,
+                                       atol=0, err_msg=f"rank {r} {k}")
+        _assert_close_dicts(got["params"], one["params"], WORLD_ATOL,
+                            f"rank {r} vs one rank")
+        _assert_close_dicts(got["buffers"], one["buffers"], WORLD_ATOL,
+                            f"rank {r} statistics vs one rank")
+        for k, v in got["buffers"].items():
+            if k.endswith("num_batches_tracked"):
+                assert int(v) == int(one["buffers"][k]) == STEPS * N_ACCUM
+    for kind in ("params", "buffers"):
+        _assert_close_dicts(two[1]["finetune_rn"][kind],
+                            two[0]["finetune_rn"][kind], 0.0, "rank 1 vs 0")
 
 
 def test_zero_opt_equals_no_zero(steps):

@@ -20,6 +20,20 @@ K2 at 80, 96 and 128 against the JAX kernels, and a tiny model whose
 temporal transformer has head_dim 96 (as cross-base's 8 heads give at
 ViT-L/14's embed_dim 768) forward and through one fine-tune step.
 
+The ModifiedResNet towers: the tower alone against the JAX
+``ModifiedResNet.apply`` in eval mode (1e-4) and in train mode (output
+1e-4, the updated ``batch_stats`` 1e-5) at the JAX tests' tiny RN arch;
+at ``tests/test_resnet_import.py``'s scaled RN (3, 4, 6, 3 blocks) in eval
+mode at fp32 and in train mode at fp64 on both sides (statistics 1e-9,
+output 1e-6 behind the attention pool's fp32 logits; in fp32 the JAX
+side's own error, against its fp64 run, exceeds those bounds there:
+train-mode BatchNorm over 16 values a channel at layer4 amplifies the
+rounding of 16 blocks); the BatchNorm's hand-written backward against
+autograd of its formula (fp64); the bridge against the JAX package's
+``export_clip_resnet`` and ``save_reference_checkpoint``; all five zoo
+towers built on the meta device and loaded strictly from
+``from_jax_params`` of their JAX shapes.
+
 The tokenizer copy (stdlib ``re`` instead of ``regex``) must give the JAX
 tokenizer's ids.
 """
@@ -40,12 +54,14 @@ import hmmc_tpu.ops.pallas_attention as pa
 from hmmc_tpu.config import CLIP_ARCH as JAX_CLIP_ARCH
 from hmmc_tpu.config import ClipArch as JaxClipArch
 from hmmc_tpu.config import CrossConfig as JaxCrossConfig
+from hmmc_tpu.models.resnet import ModifiedResNet as JaxModifiedResNet
 from hmmc_tpu.models.retrieval import BirdModel as JaxBirdModel
 from hmmc_tpu.train import optimization as jax_opt
 from hmmc_tpu.train.trainer import FinetuneState as JaxFinetuneState
 from hmmc_tpu.train.trainer import make_finetune_step as jax_finetune_step
 from hmmc_tpu_torch.config import ClipArch, CrossConfig, TaskConfig
 from hmmc_tpu_torch.factory import build_model
+from hmmc_tpu_torch.models import resnet
 from hmmc_tpu_torch.models.retrieval import BirdModel
 from hmmc_tpu_torch.train import checkpoint as ckpt_io
 from hmmc_tpu_torch.train import optimization as opt
@@ -188,9 +204,10 @@ def test_build_model_seeded_and_on_cpu(jax_params):
 
 @pytest.mark.parametrize("what", ["3d", "resnet", "chinese"])
 def test_unported_paths_raise(what):
-    """ResNet towers and the Chinese text tower raise naming the ROADMAP;
-    the 3d tube patch is ported and builds its ``conv2`` (and no
-    ``conv1``), as the JAX tower does."""
+    """The Chinese text tower raises naming the ROADMAP; the 3d tube patch
+    is ported and builds its ``conv2`` (and no ``conv1``), as the JAX tower
+    does; RN50 is ported and builds its tower under OpenAI's names (the
+    JAX package's ``export_clip_resnet`` of the JAX tower's variables)."""
     cross = CrossConfig(**CROSS_KW)
     if what == "3d":
         model = BirdModel(ClipArch(**ARCH_KW, linear_patch="3d"), cross)
@@ -199,11 +216,20 @@ def test_unported_paths_raise(what):
         assert "visual_encoder.visual.conv1.weight" not in names
         return
     if what == "resnet":
-        arch, lang = ClipArch.by_name("RN50"), "english"
-    else:
-        arch, lang = ClipArch(**ARCH_KW), "chinese"
+        from hmmc_tpu.train.checkpoint import export_clip_resnet
+
+        views = _jax_shape_views("RN50")
+        want = export_clip_resnet(views["params"]["visual_encoder"]["visual"],
+                                  views["batch_stats"]["visual_encoder"]
+                                  ["visual"], prefix="visual_encoder.visual.")
+        with torch.device("meta"):
+            model = BirdModel(ClipArch.by_name("RN50"), cross)
+        got = {k: tuple(v.shape) for k, v in model.state_dict().items()
+               if k.startswith("visual_encoder.visual.")}
+        assert got == {k: np.shape(v) for k, v in want.items()}
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BirdModel(arch, cross, language=lang)
+        BirdModel(ClipArch(**ARCH_KW), cross, language="chinese")
 
 
 # ---------------------------------------------------------------------------
@@ -446,29 +472,43 @@ def test_inflate_3d_matches_jax_import(jax_params):
 
 
 def _clip_shapes(name):
-    """An OpenAI CLIP state dict of ``name``'s shapes, values left out."""
+    """An OpenAI CLIP state dict of ``name``'s shapes, values left out (a
+    ResNet's visual part: the port's tower built on the meta device)."""
     a = ClipArch.by_name(name)
     w, e, tw = a.vision_width, a.embed_dim, a.transformer_width
-    shapes = {"visual.conv1.weight": (w, 3, a.vision_patch_size,
-                                      a.vision_patch_size),
-              "visual.class_embedding": (w,),
-              "visual.positional_embedding": (a.grid_size ** 2 + 1, w),
-              "visual.proj": (w, e), "text_projection": (tw, e),
+    shapes = {"text_projection": (tw, e),
               "positional_embedding": (a.context_length, tw),
               "token_embedding.weight": (a.vocab_size, tw),
               "ln_final.weight": (tw,), "logit_scale": ()}
-    for prefix, layers, width in (("visual.transformer", a.vision_layers, w),
-                                  ("transformer", a.transformer_layers, tw)):
-        for i in range(layers):
-            shapes[f"{prefix}.resblocks.{i}.attn.in_proj_weight"] = (
-                3 * width, width)
+    if a.is_resnet:
+        with torch.device("meta"):
+            tower = resnet.ModifiedResNet(a.vision_layers, e, a.vision_heads,
+                                          a.image_resolution, w)
+        shapes.update({f"visual.{k}": tuple(v.shape)
+                       for k, v in tower.state_dict().items()})
+    else:
+        shapes.update({
+            "visual.conv1.weight": (w, 3, a.vision_patch_size,
+                                    a.vision_patch_size),
+            "visual.class_embedding": (w,),
+            "visual.positional_embedding": (a.grid_size ** 2 + 1, w),
+            "visual.proj": (w, e)})
+        for i in range(a.vision_layers):
+            shapes[f"visual.transformer.resblocks.{i}.attn.in_proj_weight"] \
+                = (3 * w, w)
+    for i in range(a.transformer_layers):
+        shapes[f"transformer.resblocks.{i}.attn.in_proj_weight"] = (3 * tw,
+                                                                     tw)
     return {k: types.SimpleNamespace(shape=v) for k, v in shapes.items()}
 
 
-@pytest.mark.parametrize("name", ["ViT-B/16", "ViT-L/14", "ViT-L/14@336px"])
+@pytest.mark.parametrize("name", ["ViT-B/16", "ViT-L/14", "ViT-L/14@336px",
+                                  "RN50", "RN101", "RN50x4", "RN50x16",
+                                  "RN50x64"])
 def test_clip_arch_from_state_dict_matches_jax(name):
     """The towers' architecture from shapes alone equals the named one and
-    the JAX package's reading; every head is 64 wide (the kernels')."""
+    the JAX package's reading; every head is 64 wide (the kernels'; a
+    ResNet's attention pool heads over its width * 32 channels)."""
     sd = _clip_shapes(name)
     ours = ClipArch.from_state_dict(sd)
     ref = JaxClipArch.from_state_dict(sd)
@@ -477,9 +517,234 @@ def test_clip_arch_from_state_dict_matches_jax(name):
             == {f: getattr(ref, f) for f in ref.__dataclass_fields__})
     assert JAX_CLIP_ARCH[name] == {
         f: getattr(ours, f) for f in JAX_CLIP_ARCH[name]}
-    assert ours.vision_width // ours.vision_heads == 64
+    pooled = ours.vision_width * (32 if ours.is_resnet else 1)
+    assert pooled // ours.vision_heads == 64
     assert ours.transformer_width // ours.transformer_heads == 64
     assert ours.embed_dim % 64 == 0   # the temporal transformer's width
+
+
+# ---------------------------------------------------------------------------
+# the ModifiedResNet towers
+# ---------------------------------------------------------------------------
+
+# the JAX tests' tiny RN (tests/test_resnet_import.py's pretrain test) and
+# their scaled RN (``_rn_clip_sd``: the RN50 stage pattern at width 16)
+RN_ARCH_KW = dict(
+    embed_dim=32, image_resolution=32, vision_layers=(1, 1, 1, 1),
+    vision_width=8, vision_patch_size=0, context_length=CTX,
+    vocab_size=VOCAB, transformer_width=32, transformer_heads=2,
+    transformer_layers=2)
+RN_CROSS_KW = dict(temporal_hidden_size=32, temporal_attention_heads=2,
+                   temporal_hidden_layers=1, max_position_embeddings=8)
+SCALED_RN_ARCH_KW = dict(RN_ARCH_KW, embed_dim=48, image_resolution=64,
+                         vision_layers=(3, 4, 6, 3), vision_width=16,
+                         transformer_width=64, transformer_layers=1)
+SCALED_RN_CROSS_KW = dict(RN_CROSS_KW, temporal_hidden_size=48)
+RN_FRAMES = 8
+STATS_ATOL = 1e-5
+
+
+def _jax_shape_views(name):
+    """The JAX ``BirdModel`` variables of zoo tower ``name`` as zero-stride
+    numpy views of their shapes (``jax.eval_shape``: no memory)."""
+    a = JaxClipArch.by_name(name)
+    res = a.image_resolution
+    shapes = jax.eval_shape(
+        JaxBirdModel(a, JaxCrossConfig()).init, jax.random.PRNGKey(0),
+        jnp.zeros((1, 8), jnp.int32), jnp.ones((1, 8), jnp.int32),
+        jnp.zeros((1, 2, res, res, 3), jnp.float32))
+    return jax.tree_util.tree_map(
+        lambda t: np.broadcast_to(np.zeros((), np.float32), t.shape), shapes)
+
+
+def _rn_variables(arch_kw, cross_kw, seed):
+    """A JAX ``BirdModel``'s params and ``batch_stats``, the running
+    statistics drawn away from their init (means N(0, 0.1), variances
+    1 + 0.5 |N(0, 1)|)."""
+    model = JaxBirdModel(JaxClipArch(**arch_kw), JaxCrossConfig(**cross_kw))
+    res = arch_kw["image_resolution"]
+    variables = jax.jit(model.init)(
+        jax.random.PRNGKey(seed), jnp.zeros((1, CTX), jnp.int32),
+        jnp.ones((1, CTX), jnp.int32),
+        jnp.zeros((1, 2, res, res, 3), jnp.float32))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, a):
+        z = rng.normal(size=np.shape(a)).astype(np.float32)
+        return 1.0 + 0.5 * np.abs(z) if path[-1].key == "var" else 0.1 * z
+
+    return (jax.tree_util.tree_map(np.asarray, variables["params"]),
+            jax.tree_util.tree_map_with_path(draw, variables["batch_stats"]))
+
+
+def _jax_tower(arch_kw, dtype=jnp.float32):
+    a = JaxClipArch(**arch_kw)
+    return JaxModifiedResNet(
+        layers=tuple(a.vision_layers), output_dim=a.embed_dim,
+        heads=a.vision_heads, input_resolution=a.image_resolution,
+        width=a.vision_width, dtype=dtype, param_dtype=dtype)
+
+
+def _tower_matches_jax(arch_kw, cross_kw, seed, train, dtype=torch.float32,
+                       atol=ATOL, stats_atol=STATS_ATOL):
+    """The port's tower (loaded through ``from_jax_params``) against
+    ``ModifiedResNet.apply`` on RN_FRAMES frames; in train mode also the
+    running statistics after the forward against JAX's mutated
+    ``batch_stats`` (in its dtype, through ``export_clip_resnet``)."""
+    from hmmc_tpu.train.checkpoint import export_clip_resnet
+
+    params, stats = _rn_variables(arch_kw, cross_kw, seed)
+    res = arch_kw["image_resolution"]
+    frames = np.random.default_rng(seed + 1).normal(
+        size=(RN_FRAMES, res, res, 3))
+    model = BirdModel(ClipArch(**arch_kw), CrossConfig(**cross_kw))
+    model.load_state_dict(from_jax_params(params, stats), strict=True)
+    tower = model.visual_encoder.visual.to(dtype)
+    tower.dtype = dtype
+    jdtype = jnp.float64 if dtype == torch.float64 else jnp.float32
+    with jax.enable_x64(dtype == torch.float64):
+        cast = functools.partial(jax.tree_util.tree_map,
+                                 lambda a: jnp.asarray(a, jdtype))
+        variables = {"params": cast(params["visual_encoder"]["visual"]),
+                     "batch_stats": cast(stats["visual_encoder"]["visual"])}
+        x = jnp.asarray(frames, jdtype)
+        if train:
+            ref, mutated = _jax_tower(arch_kw, jdtype).apply(
+                variables, x, True, mutable=["batch_stats"])
+            want = export_clip_resnet(
+                params["visual_encoder"]["visual"], jax.tree_util.tree_map(
+                    np.asarray, mutated["batch_stats"]),
+                prefix="visual_encoder.visual.")
+        else:
+            ref = _jax_tower(arch_kw, jdtype).apply(variables, x)
+        ref = np.asarray(ref)
+    with torch.no_grad():
+        out = tower(torch.tensor(frames, dtype=dtype), train)
+    assert out.shape == (RN_FRAMES, arch_kw["embed_dim"])
+    np.testing.assert_allclose(out.numpy(), ref, atol=atol, rtol=0)
+    if train:
+        got = model.state_dict()
+        for k, v in want.items():
+            if "running_" in k:
+                np.testing.assert_allclose(got[k].numpy(), v,
+                                           atol=stats_atol, rtol=0,
+                                           err_msg=k)
+            elif k.endswith("num_batches_tracked"):
+                assert int(got[k]) == 1, k
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_resnet_tower_matches_jax(train):
+    """The tiny RN tower: output within 1e-4; in train mode the updated
+    running statistics within 1e-5 (an unbiased running variance would be
+    8/7 of flax's over the 8 values a channel of layer4's 1x1 grid)."""
+    _tower_matches_jax(RN_ARCH_KW, RN_CROSS_KW, 31, train)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_scaled_resnet_tower_matches_jax(train):
+    """The scaled RN (3, 4, 6, 3 blocks, width 16, 64 px): eval mode in
+    fp32 within 1e-4; train mode in fp64 on both sides, the running
+    statistics within 1e-9 and the output within 1e-6 (the attention
+    pool's logits and softmax are fp32 on both sides whatever the compute
+    dtype, as the shared attention op computes them)."""
+    if train:
+        _tower_matches_jax(SCALED_RN_ARCH_KW, SCALED_RN_CROSS_KW, 37, True,
+                           torch.float64, atol=1e-6, stats_atol=1e-9)
+    else:
+        _tower_matches_jax(SCALED_RN_ARCH_KW, SCALED_RN_CROSS_KW, 37, False)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_resnet_batch_norm_backward_matches_autograd(train):
+    """The BatchNorm's hand-written backward (x, weight, bias) against
+    autograd of its formula, fp64: batch statistics (biased variance, fast
+    form) in train mode, running statistics otherwise; and the running
+    statistics it moves by momentum 0.1 with the biased variance."""
+    g = torch.Generator().manual_seed(3)
+    bn = resnet.BatchNorm2d(5).double()
+    with torch.no_grad():
+        for t in (bn.weight, bn.bias, bn.running_mean):
+            t.copy_(torch.randn(5, generator=g, dtype=torch.float64))
+        bn.running_var.uniform_(0.5, 2.0, generator=g)
+    x = torch.randn(3, 5, 4, 2, generator=g, dtype=torch.float64) * 2 + 1
+    dy = torch.randn(3, 5, 4, 2, generator=g, dtype=torch.float64)
+    rm, rv = bn.running_mean.clone(), bn.running_var.clone()
+    xs = [x.clone().requires_grad_(True) for _ in range(2)]
+    y = bn(xs[0], train)
+    y.backward(dy)
+    view = (1, -1, 1, 1)
+    if train:
+        mean = xs[1].mean((0, 2, 3))
+        var = (xs[1] * xs[1]).mean((0, 2, 3)) - mean * mean
+    else:
+        mean, var = rm, rv
+    y_ref = ((xs[1] - mean.view(view)) * torch.rsqrt(var + 1e-5).view(view)
+             * bn.weight.view(view) + bn.bias.view(view))
+    grads = torch.autograd.grad(y_ref, [xs[1], bn.weight, bn.bias], dy)
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=1e-12)
+    for got, want in zip((xs[0].grad, bn.weight.grad, bn.bias.grad), grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-10)
+    if train:
+        torch.testing.assert_close(bn.running_mean,
+                                   0.9 * rm + 0.1 * mean.detach())
+        torch.testing.assert_close(bn.running_var,
+                                   0.9 * rv + 0.1 * var.detach())
+    else:
+        assert torch.equal(bn.running_mean, rm)
+        assert int(bn.num_batches_tracked) == 0
+
+
+def test_resnet_bridge_matches_reference_export(tmp_path):
+    """``from_jax_params(params, batch_stats)``: keys and values equal the
+    JAX package's ``export_clip_resnet`` (the tower, running statistics
+    and zeroed ``num_batches_tracked``) and its whole
+    ``save_reference_checkpoint`` file, and load strictly into the port."""
+    from hmmc_tpu.train.checkpoint import export_clip_resnet
+    from hmmc_tpu.train.orbax_io import save_reference_checkpoint
+
+    params, stats = _rn_variables(SCALED_RN_ARCH_KW, SCALED_RN_CROSS_KW, 41)
+    sd = from_jax_params(params, stats)
+    visual = export_clip_resnet(params["visual_encoder"]["visual"],
+                                stats["visual_encoder"]["visual"],
+                                prefix="visual_encoder.visual.")
+    assert set(visual) == {k for k in sd
+                           if k.startswith("visual_encoder.visual.")}
+    for k, v in visual.items():
+        np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
+    path = str(tmp_path / "pytorch_model.bin.0")
+    save_reference_checkpoint(path, params, language="english",
+                              batch_stats=stats)
+    full = torch.load(path, map_location="cpu", weights_only=True)
+    assert set(full) == set(sd)
+    for k, v in full.items():
+        np.testing.assert_array_equal(sd[k].numpy(),
+                                      np.asarray(v).reshape(sd[k].shape),
+                                      err_msg=k)
+    model = BirdModel(ClipArch(**SCALED_RN_ARCH_KW),
+                      CrossConfig(**SCALED_RN_CROSS_KW))
+    model.load_state_dict(sd, strict=True)
+
+
+@pytest.mark.parametrize("name", ["RN50", "RN101", "RN50x4", "RN50x16",
+                                  "RN50x64"])
+def test_resnet_zoo_towers_load_strictly_from_jax_params(name):
+    """Each zoo ResNet's ``BirdModel`` (built on the meta device) loads
+    ``from_jax_params`` of the JAX model's variable shapes strictly: the
+    same names, shapes and buffers; its temporal transformer's head_dim is
+    embed_dim / 8 under cross-base (128, 64, 80, 96, 128)."""
+    views = _jax_shape_views(name)
+    arch = ClipArch.by_name(name)
+    with torch.device("meta"):
+        sd = from_jax_params(views["params"], views["batch_stats"])
+        model = BirdModel(arch, CrossConfig())
+    model.load_state_dict(sd, strict=True)
+    assert sum(k.endswith("running_var") for k in sd) == sum(
+        isinstance(m, resnet.BatchNorm2d) for m in model.modules())
+    block = model.visual_encoder.temporal_transformer.resblocks[0]
+    assert arch.embed_dim // block.attn.num_heads == {
+        "RN50": 128, "RN101": 64, "RN50x4": 80, "RN50x16": 96,
+        "RN50x64": 128}[name]
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,10 @@ Tolerances, each with its reason:
   fp32 forward agrees to ~1e-6; BertAdam's first update is multiplied by
   0, its second moves parameters by at most lr = 1e-4, and an Adam step
   turns a gradient difference at the noise floor into a step difference
-  of at most that size).
+  of at most that size). The same with a ModifiedResNet tower (the JAX
+  tests' tiny RN), whose BatchNorm running statistics stay bit for bit
+  unchanged in the query model and in the key towers (frozen, as the JAX
+  step keeps them) while the projectors' move.
 
 The ``gpu`` tests hold R2 against its plain version on the card.
 """
@@ -256,17 +259,26 @@ def test_batchnorm_running_stats_match_jax_and_batchnorm1d():
 # the pretrain step
 # ---------------------------------------------------------------------------
 
-def _arch():
-    return ClipArch(**ARCH_KW), CrossConfig(**CROSS_KW)
+# the JAX tests' tiny RN (tests/test_resnet_import.py) at ARCH_KW's text
+RN_ARCH_KW = dict(ARCH_KW, vision_layers=(1, 1, 1, 1), vision_width=8,
+                  vision_patch_size=0)
+
+
+def _arch(arch_kw=ARCH_KW):
+    return ClipArch(**arch_kw), CrossConfig(**CROSS_KW)
 
 
 @pytest.fixture(scope="module")
 def jax_setup():
-    """One JAX ``PretrainState`` at the tiny geometry (numpy leaves), its
-    optimizer, and a batch. The state is created under one jit: op by op,
-    its optimizer init, key-tower copies and queues are dozens of small
-    programs to compile."""
-    arch, cross = JaxClipArch(**ARCH_KW), JaxCrossConfig(**CROSS_KW)
+    return _jax_setup(ARCH_KW)
+
+
+def _jax_setup(arch_kw):
+    """One JAX ``PretrainState`` at the tiny geometry ``arch_kw`` (numpy
+    leaves), its optimizer, and a batch. The state is created under one
+    jit: op by op, its optimizer init, key-tower copies and queues are
+    dozens of small programs to compile."""
+    arch, cross = JaxClipArch(**arch_kw), JaxCrossConfig(**CROSS_KW)
     model = jax_pretrain.BirdPretrainModel(arch, cross, vocab_size=512)
     rng = np.random.default_rng(7)
     ids = rng.integers(1, 500, (B, CTX)).astype(np.int32)
@@ -331,8 +343,8 @@ def _step_decisions(rng, n_accum):
             for r in keys]
 
 
-def _port_state(start):
-    arch, cross = _arch()
+def _port_state(start, arch_kw=ARCH_KW):
+    arch, cross = _arch(arch_kw)
     conv = from_jax_pretrain_state(start)
     model = BirdPretrainModel(arch, cross, vocab_size=512, use_fused=True)
     model.load_state_dict(conv["model"], strict=True)
@@ -408,6 +420,47 @@ def test_pretrain_step_matches_jax(jax_setup, n_accum, use_tag, tmp_path):
                             vocab_size=512)
         loaded = prunner.pretrain_state(task, model, 10)
         _assert_state(loaded, want)
+
+
+def test_resnet_pretrain_step_keeps_visual_bn_frozen_as_jax():
+    """Two pretrain steps (2 micro-batches each) with a ModifiedResNet
+    tower against ``make_pretrain_step``: the losses (1e-5 relative) and
+    the whole state after each step (1e-4: parameters, key towers, the
+    projectors' running statistics, which move) as in
+    ``test_pretrain_step_matches_jax``; the tower's running statistics, in
+    the query model and in the key towers, stay bit for bit what they
+    were (its BatchNorm runs on them, frozen, as in JAX)."""
+    setup = _jax_setup(RN_ARCH_KW)
+    start, ref, ref_metrics, rngs = _jax_run(setup, 2, 2, False)
+    state, cross = _port_state(start, RN_ARCH_KW)
+
+    def stats(module, prefix):
+        return {k: v.clone() for k, v in module.state_dict().items()
+                if k.startswith(prefix) and "running_" in k}
+
+    visual = "visual_encoder.visual."
+    before = [stats(state.model, visual), stats(state.towers, visual),
+              stats(state.model, "v_projector.")]
+    assert before[0] and before[2]
+    step = make_pretrain_step(cross, MASK_ID, PAD_ID, CLS_ID,
+                              temperature=TEMP, momentum=MOMENTUM, n_accum=2)
+    batch = {k: torch.tensor(v).long() if k.endswith("_ids")
+             else torch.tensor(v) for k, v in setup[2].items()
+             if not k.endswith("_mask") and not k.startswith("tag")}
+    for s in range(2):
+        state, metrics = step(state, batch,
+                              decisions=_step_decisions(rngs[s], 2))
+        for k in ("loss", "loss_FAM", "loss_VTM", "loss_FTM", "loss_MLM"):
+            np.testing.assert_allclose(float(metrics[k]), ref_metrics[s][k],
+                                       rtol=1e-5, err_msg=f"step {s} {k}")
+        _assert_state(state, from_jax_pretrain_state(ref[s]), atol=1e-4)
+    for module, was in ((state.model, before[0]), (state.towers, before[1])):
+        for k, v in stats(module, visual).items():
+            assert torch.equal(v, was[k]), k
+    moved = stats(state.model, "v_projector.")
+    assert all(not torch.equal(v, before[2][k]) for k, v in moved.items())
+    assert int(state.model.visual_encoder.visual.bn1.num_batches_tracked) \
+        == 0
 
 
 def _assert_state(state, want, atol=0.0):

@@ -27,7 +27,16 @@ Tolerances, each with its reason:
   difference of up to that order for gradients near zero, so a bound
   tighter than a share of lr * steps is not one the arithmetic can keep).
 
-The ``gpu`` test runs a tiny fine-tune step on the card against the CPU.
+The ModifiedResNet fine-tune (the JAX step's BatchNorm branch): the
+tiny RN of tests/test_resnet_import.py with running statistics drawn away
+from their init, steps with 1 and 2 micro-batches: the tolerances above,
+and the running statistics after each step within 1e-5 of JAX's
+``batch_stats`` (each micro-batch normalises over its own frames and moves
+them in turn). A resumed RN CLI run equals the uncut one, its BatchNorm
+buffers included.
+
+The ``gpu`` tests run a tiny fine-tune step on the card against the CPU,
+for a ViT and for a ModifiedResNet tower (its forward in both modes too).
 """
 
 import contextlib
@@ -367,6 +376,129 @@ def test_finetune_step_matches_jax(jax_params, n_accum, use_fused,
     assert float(named["text_encoder.logit_scale"]) < np.log(100.0)
 
 
+# the JAX tests' tiny RN (tests/test_resnet_import.py), at this file's
+# text and temporal widths
+RN_ARCH_KW = dict(ARCH_KW, vision_layers=(1, 1, 1, 1), vision_width=8,
+                  vision_patch_size=0)
+STATS_ATOL = 1e-5
+ZERO_GRAD_ATOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def rn_variables():
+    """A JAX RN ``BirdModel``'s params and ``batch_stats`` (running means
+    N(0, 0.1), variances 1 + 0.5 |N(0, 1)|)."""
+    if pa is None:
+        pytest.skip("needs jax and hmmc_tpu (the reference)")
+    model = JaxBirdModel(JaxClipArch(**RN_ARCH_KW), JaxCrossConfig(**CROSS_KW))
+    variables = jax.jit(model.init)(
+        jax.random.PRNGKey(6), jnp.zeros((1, CTX), jnp.int32),
+        jnp.ones((1, CTX), jnp.int32),
+        jnp.zeros((1, FRAMES, 32, 32, 3), jnp.float32))
+    rng = np.random.default_rng(6)
+
+    def draw(path, a):
+        z = rng.normal(size=np.shape(a)).astype(np.float32)
+        return 1.0 + 0.5 * np.abs(z) if path[-1].key == "var" else 0.1 * z
+
+    return (jax.tree_util.tree_map(np.asarray, variables["params"]),
+            jax.tree_util.tree_map_with_path(draw, variables["batch_stats"]))
+
+
+def _running_stats(sd):
+    return {k: v.clone() for k, v in sd.items() if "running_" in k}
+
+
+@pytest.mark.parametrize("n_accum", [1, 2])
+def test_resnet_finetune_step_matches_jax(rn_variables, n_accum):
+    """Two steps of the fine-tune with a ModifiedResNet tower (fp32)
+    against ``make_finetune_step``'s BatchNorm branch computing in fp64
+    (fp32 parameters and BertAdam, fp64 activations and statistics): losses,
+    grad norm, every gradient and BertAdam's moments after step 1, the
+    running statistics after each step (1e-5), the parameters after both
+    (within 5% of lr * 1: step 0's update is multiplied by 0). The JAX
+    step computes in fp64 because its own fp32 gradients below layer3 are off
+    by up to 22% of their largest magnitude from its fp64 ones here
+    (train-mode BatchNorm backward over 2-16 values a channel); the
+    port's fp32 gradients are within 1e-5 of them. The attention pool's
+    key bias has a gradient of 0 in exact arithmetic: held to 1e-6
+    absolute (fp32 rounding), its moments not compared."""
+    params, stats = rn_variables
+    t_total, steps = 10, 2
+    with jax.enable_x64(True):
+        cross = JaxCrossConfig(**CROSS_KW)
+        jmodel = JaxBirdModel(JaxClipArch(**RN_ARCH_KW), cross,
+                              dtype=jnp.float64)
+        tx = optax.chain(_grab_grads(), jax_opt.build_optimizer(
+            params, t_total=t_total, **OPT_KW))
+        jstep = jax_make_finetune_step(jmodel, tx, cross, use_frame_fea=True,
+                                       n_accum=n_accum)
+        jstate = JaxFinetuneState.create(params, tx, jax.tree_util.tree_map(
+            lambda a: jnp.asarray(a, jnp.float64), stats))
+
+    model = BirdModel(ClipArch(**RN_ARCH_KW), CrossConfig(**CROSS_KW),
+                      use_fused=True)
+    model.load_state_dict(from_jax_params(params, stats), strict=True)
+    named = dict(model.named_parameters())
+    state = FinetuneState(model, opt.build_optimizer(
+        model.named_parameters(), t_total=t_total, **OPT_KW))
+    step = make_finetune_step(CrossConfig(**CROSS_KW), use_frame_fea=True,
+                              n_accum=n_accum)
+    host = _train_batch(seed=13)
+    batch = {k: torch.from_numpy(v) for k, v in host.items()}
+    batch["query_ids"] = batch["query_ids"].long()
+    start = _running_stats(model.state_dict())
+    for i in range(steps):
+        with jax.enable_x64(True):
+            jbatch = {k: jnp.asarray(v, jnp.float64 if k == "video" else None)
+                      for k, v in host.items()}
+            jstate, jmetrics = jstep(jstate, jbatch)
+            jstate = jax.tree_util.tree_map(np.asarray, jstate)
+        state, metrics = step(state, batch)
+        for k in ("loss", "sim_loss", "frame_loss"):
+            np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]),
+                                       atol=STEP_LOSS_ATOL,
+                                       err_msg=f"step {i} {k}")
+        np.testing.assert_allclose(float(metrics["grad_norm"]),
+                                   float(jmetrics["grad_norm"]), rtol=GRAD_REL)
+        want = _running_stats(from_jax_params(
+            params, jax.tree_util.tree_map(np.asarray, jstate.batch_stats)))
+        got = model.state_dict()
+        for k, ref in want.items():
+            np.testing.assert_allclose(got[k].numpy(), ref.numpy(),
+                                       atol=STATS_ATOL, rtol=0,
+                                       err_msg=f"step {i} {k}")
+            assert not torch.equal(got[k], start[k]), k
+        if i == 0:
+            for n, ref in _to_port(jstate.opt_state[0]).items():
+                if n not in named:
+                    continue              # the statistics' init values
+                got = named[n].grad
+                if n.endswith("logit_scale"):
+                    assert got is None and float(ref) == 0.0
+                    continue
+                if n.endswith("attnpool.k_proj.bias"):
+                    # zero: a key bias moves a query's logits all alike
+                    assert float(got.abs().max()) <= ZERO_GRAD_ATOL, n
+                    continue
+                _close_rel(got.numpy(), ref.numpy(), GRAD_REL, f"grad {n}")
+            adam = jstate.opt_state[1][1]
+            for key, tree in (("m", adam.m), ("v", adam.v)):
+                for n, ref in _to_port(tree).items():
+                    if n in named and not n.endswith("k_proj.bias"):
+                        _close_rel(
+                            state.optimizer.state[named[n]][key].numpy(),
+                            ref.numpy(), GRAD_REL, f"{key} {n}")
+    assert int(model.visual_encoder.visual.bn1.num_batches_tracked) == (
+        steps * n_accum)
+    for n, ref in _to_port(jstate.params).items():
+        if n in named:
+            lr = opt.lr_tree([n], LR, TEXT_LR, COEF_LR)[n]
+            np.testing.assert_allclose(named[n].detach().numpy(),
+                                       ref.numpy(), atol=0.05 * lr, rtol=0,
+                                       err_msg=n)
+
+
 def test_split_microbatches_and_config():
     batch = {"query_ids": torch.arange(8).reshape(4, 2),
              "video": torch.arange(4)}
@@ -597,6 +729,49 @@ def test_resume_after_sigterm_equals_uncut_run(resume_layout, uncut_run,
     assert state_io.load_progress_meta(ckpt, 3)["epoch_end"]
 
 
+RN_RESUME_ARCH = "RN-ResumeTest"
+
+
+def test_resnet_resume_after_sigterm_equals_uncut_run(resume_layout,
+                                                      tmp_path):
+    """The resume check with a ModifiedResNet tower (train-mode BatchNorm):
+    an uncut run, and a run cut by SIGTERM after step 1 then --resume'd,
+    end with the same parameters, running statistics and
+    ``num_batches_tracked``, bit for bit, and the same later losses."""
+    from hmmc_tpu_torch import config as pconfig
+    from hmmc_tpu_torch import runner
+
+    pconfig.CLIP_ARCH[RN_RESUME_ARCH] = dict(
+        RN_ARCH_KW, vocab_size=49408, context_length=64)
+    cross = tmp_path / "cross-rn.json"
+    cross.write_text(json.dumps({"pretrained_clip_name": RN_RESUME_ARCH,
+                                 **CROSS_KW}))
+    layout = (resume_layout[0], str(cross))
+    try:
+        uncut = runner.main(_resume_args(layout, str(tmp_path / "uncut")),
+                            device="cpu")
+        out = str(tmp_path / "cut")
+        with sigterm_after(runner, "make_finetune_step", 1):
+            runner.main(_resume_args(layout, out, "--save_steps", "1"),
+                        device="cpu")
+        resumed = runner.main(_resume_args(layout, out, "--resume"),
+                              device="cpu")
+    finally:
+        pconfig.CLIP_ARCH.pop(RN_RESUME_ARCH, None)
+    assert resumed.state.model.arch.is_resnet
+    assert resumed.state.step == uncut.state.step == 3
+    assert [r["loss"] for r in resumed.displayed] == [
+        r["loss"] for r in uncut.displayed[1:]]
+    want = uncut.state.model.state_dict()
+    got = resumed.state.model.state_dict()
+    assert set(got) == set(want)
+    for k, v in got.items():
+        assert torch.equal(v, want[k]), k
+    # 3 steps of 2 micro-batches moved every BatchNorm's statistics
+    assert int(got["visual_encoder.visual.bn1.num_batches_tracked"]) == 6
+    assert resumed.epoch_metrics == uncut.epoch_metrics
+
+
 def test_parallel_flags(tmp_path):
     """--tp_size / --sp_size > 1 raise naming their ROADMAP item; one
     process refuses --dp_size 2 and --multihost (no torchrun world)."""
@@ -630,6 +805,58 @@ def test_parallel_flags(tmp_path):
 GPU_ARCH_KW = dict(ARCH_KW, embed_dim=128, vision_width=128,
                    transformer_width=128)
 GPU_CROSS_KW = dict(CROSS_KW, temporal_hidden_size=128)
+# a ModifiedResNet at 64 px: its attention pool 512 wide in 8 heads
+GPU_RN_ARCH_KW = dict(GPU_ARCH_KW, image_resolution=64,
+                      vision_layers=(1, 1, 1, 1), vision_width=16,
+                      vision_patch_size=0)
+
+
+@pytest.mark.gpu
+def test_resnet_tower_and_step_on_card_match_cpu():
+    """fp32, TF32 off: the ModifiedResNet tower's forward in eval and in
+    train mode (output atol 1e-4, running statistics after it 1e-5), then
+    one fine-tune step of 2 micro-batches (loss 1e-4, gradients within 1e-3
+    of their largest magnitude, running statistics 1e-5), cuDNN's
+    convolutions and the kernels on the card against the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch, cross = ClipArch(**GPU_RN_ARCH_KW), CrossConfig(**GPU_CROSS_KW)
+    host = _u8_batch(B, 7)
+    host["video"] = np.random.default_rng(7).integers(
+        0, 256, size=(B, FRAMES, 64, 64, 3), dtype=np.uint8)
+    runs = {}
+    for name, dev, switch in (("card", "cuda", "on"), ("cpu", "cpu", "off")):
+        task = TaskConfig(compute_dtype="float32", max_frames=FRAMES,
+                          use_fused_attention=switch, seed=4)
+        model = build_model(task, cross, arch=arch, device=dev)
+        batch = prepare_finetune_batch(host, dev)
+        frames = batch["video"].flatten(0, 1)
+        with torch.no_grad():
+            towers = [model.visual_encoder.visual(frames, t).cpu()
+                      for t in (False, True)]
+        state = FinetuneState(model, opt.build_optimizer(
+            model.named_parameters(), t_total=10, **OPT_KW))
+        _, metrics = make_finetune_step(cross, n_accum=2)(state, batch)
+        runs[name] = dict(
+            towers=towers, loss=float(metrics["loss"]),
+            grads={n: p.grad.cpu() for n, p in model.named_parameters()
+                   if p.grad is not None},
+            stats={k: v.cpu() for k, v in model.state_dict().items()
+                   if "running_" in k})
+    for got, want in zip(runs["card"]["towers"], runs["cpu"]["towers"]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert abs(runs["card"]["loss"] - runs["cpu"]["loss"]) <= STEP_LOSS_ATOL
+    assert set(runs["card"]["grads"]) == set(runs["cpu"]["grads"])
+    for n, ref in runs["cpu"]["grads"].items():
+        if n.endswith("attnpool.k_proj.bias"):
+            continue                      # 0 in exact arithmetic
+        _close_rel(runs["card"]["grads"][n].numpy(), ref.numpy(), GRAD_REL,
+                   f"grad {n}")
+    for k, ref in runs["cpu"]["stats"].items():
+        torch.testing.assert_close(runs["card"]["stats"][k], ref, rtol=0,
+                                   atol=STATS_ATOL, msg=k)
 
 
 @pytest.mark.gpu
