@@ -194,6 +194,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -268,6 +269,12 @@ SIM_ON_OFF_REASON = (
 REFERENCE_ATOL = 1e-3
 REFERENCE_REASON = ("fp32 with TF32 off on both sides: sums in another "
                     "order through 12 + 4 layers")
+# K1's row statistics (log2-sum-exp of the scaled logits) against the
+# plain version's
+STATS_TOLERANCE = dict(atol=1e-4, rtol=1e-5, reason=(
+    "fp32 statistics of the same bf16 inputs: the kernel sums the logits' "
+    "exact products in another order and takes ex2 / lg2 approximations "
+    "(about 2^-22 relative each); a wrong row is off by far more"))
 BWD_TOLERANCE = {
     torch.float32: dict(atol=5e-5, rtol=1e-3, reason=(
         "same arithmetic, sums in another order: the JAX package's own "
@@ -335,6 +342,48 @@ def ptxas_by_function(lines):
             out[-1].setdefault("info", []).append(
                 ln.replace("ptxas info    : ", ""))
     return out
+
+
+# the tiled bf16 kernel instances: K1's body and K2's two passes
+TILED_KERNELS = {"fused_attention_fwd": ("attention_fwd_tiled_kernel",),
+                 "fused_attention_bwd": ("attention_bwd_rows_kernel",
+                                         "attention_bwd_keys_kernel")}
+
+
+def tiled_kernel_resources(info):
+    """Registers, spill bytes and shared memory of each tiled bf16 kernel
+    instance by head_dim (K1's: with and without its statistics), from the
+    build's ``-Xptxas -v`` lines (a library reused from an earlier build
+    has none), beside the dynamic shared memory its launch asks for (K2's
+    pair: the larger of its two)."""
+    out = []
+    for lib, names in TILED_KERNELS.items():
+        for f in ptxas_by_function(info.get(lib, {}).get("ptxas", [])):
+            name = next((n for n in names if n in f["entry"]), None)
+            d = re.search(r"ILi(\d+)E", f["entry"])
+            if name is None or d is None:
+                continue
+            text = " ".join(f.get("info", []))
+            def num(pattern):
+                m = re.search(pattern, text)
+                return int(m.group(1)) if m else None
+            d = int(d.group(1))
+            smem = (fa.kernel_smem_bytes(TILED_LEN, torch.bfloat16, d)
+                    if lib.endswith("fwd") else fa.kernel_bwd_smem_bytes(
+                        TILED_LEN, torch.bfloat16, d))
+            stats = re.search(r"ILi\d+ELb([01])E", f["entry"])
+            out.append(dict(kernel=name, head_dim=d,
+                            writes_statistics=(bool(int(stats.group(1)))
+                                               if stats else None),
+                            registers=num(r"Used (\d+) registers"),
+                            spill_store_bytes=num(r"(\d+) bytes spill stores"),
+                            spill_load_bytes=num(r"(\d+) bytes spill loads"),
+                            static_smem_bytes=num(r"(\d+) bytes smem"),
+                            dynamic_smem_bytes=smem))
+    return out
+
+
+TILED_LEN = 129     # a length every tiled body takes (its smem is fixed)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3, windows: int = 1,
@@ -448,12 +497,14 @@ def attention_bound(b, h, l, d, causal, dtype):
 def kernel_ctas(bh, l, dtype, d, backward=False):
     """CTAs a launch runs: the short bodies take a (batch, head) per CTA
     (K1 in bf16: two), the tiled ones a 64-row tile of one (fp32: K1's
-    and K2's rows pass 32 rows); K2's tiled pair runs two grids of this
-    size."""
+    and K2's rows pass 32 rows; K2's bf16 pair two 64-row tiles, one a
+    consumer warpgroup); K2's tiled pair runs two grids of this size."""
     if kernel_body(l, dtype, d, backward) == "short":
         per = 1 if backward else fa.kernel_heads_per_cta(dtype)
         return math.ceil(bh / per)
-    return bh * math.ceil(l / (64 if dtype == torch.bfloat16 else 32))
+    if dtype != torch.bfloat16:
+        return bh * math.ceil(l / 32)
+    return bh * math.ceil(l / (128 if backward else 64))
 
 
 def check_attention(site, b, h, l, causal, dtype, gen, iters=50,
@@ -522,17 +573,40 @@ def attention_bwd_bound(b, h, l, d, causal, dtype):
             nbytes, flops)
 
 
+def k1_statistics(q, k, v, causal):
+    """K1's output and row statistics, as the forward saves them for K2's
+    bf16 tiled pair (an empty dict where K2 takes neither), and the
+    statistics' max abs difference from the plain version's (None where
+    there are none). Raises where they disagree."""
+    b, h, l, d = q.shape
+    if not fa.saves_statistics(l, q.dtype, d):
+        return {}, None
+    o, lse = fa.fused_attention_forward(q, k, v, causal, with_stats=True)
+    _, ref = fused_attention_reference(q, k, v, causal, with_stats=True)
+    err, ok = _within(lse, ref, STATS_TOLERANCE)
+    if not ok:
+        raise AssertionError(f"K1's statistics disagree with the plain "
+                             f"version's at {tuple(q.shape)} causal={causal}: "
+                             f"max abs {err}")
+    return dict(o=o, lse=lse), err
+
+
 def check_attention_backward(site, b, h, l, causal, dtype, gen, iters=30,
                              host_calls=200, d=64, profile=True):
     """K2 on the fine-tune path's layout: q, k, v head views of a packed
     qkv projection, the output gradient the transposed view of a
-    [B, L, H, D] tensor (as the merge of heads hands it back)."""
+    [B, L, H, D] tensor (as the merge of heads hands it back). Where K2
+    runs its bf16 tiled pair, K1's output and statistics come from one K1
+    launch before, outside the timed region: K2 is timed alone, as SDPA's
+    backward is after one forward (K1 with its statistics is timed beside,
+    ``k1_stats_ms``)."""
     qkv = torch.randn(b, l, 3 * h * d, device="cuda", generator=gen).to(dtype)
     q, k, v = (t.transpose(1, 2) for t in qkv.view(b, l, 3, h, d).unbind(2))
     g = torch.randn(b, l, h, d, device="cuda", generator=gen).to(dtype)
     g = g.transpose(1, 2)
-    got = fused_attention_backward(q, k, v, g, causal)
-    again = fused_attention_backward(q, k, v, g, causal)
+    saved, stats_err = k1_statistics(q, k, v, causal)
+    got = fused_attention_backward(q, k, v, g, causal, **saved)
+    again = fused_attention_backward(q, k, v, g, causal, **saved)
     torch.cuda.synchronize()
     bitwise_repeat = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
     ref = fused_attention_backward_reference(q, k, v, g, causal)
@@ -542,9 +616,13 @@ def check_attention_backward(site, b, h, l, causal, dtype, gen, iters=30,
         diff = (a.float() - r.float()).abs()
         errs.append(float(diff.max()))
         ok &= bool((diff <= tol["atol"] + tol["rtol"] * r.float().abs()).all())
-    ms = cuda_ms(lambda: fused_attention_backward(q, k, v, g, causal), iters)
+    ms = cuda_ms(lambda: fused_attention_backward(q, k, v, g, causal,
+                                                  **saved), iters)
     host_us = host_us_per_call(
-        lambda: fused_attention_backward(q, k, v, g, causal), host_calls)
+        lambda: fused_attention_backward(q, k, v, g, causal, **saved),
+        host_calls)
+    k1_stats_ms = (cuda_ms(lambda: fa.fused_attention_forward(
+        q, k, v, causal, with_stats=True), iters) if saved else None)
     plain_ms = cuda_ms(lambda: fused_attention_backward_reference(
         q, k, v, g, causal), iters)
     # the library yardstick: SDPA's backward alone, after one forward
@@ -560,9 +638,10 @@ def check_attention_backward(site, b, h, l, causal, dtype, gen, iters=30,
     kernel_only_ms = library_kernels_ms = "not measured"
     if profile:
         kernel_only_ms = kernel_device_ms(
-            lambda: fused_attention_backward(q, k, v, g, causal), prof_iters)
+            lambda: fused_attention_backward(q, k, v, g, causal, **saved),
+            prof_iters)
         library_kernels_ms = kernel_device_ms(library, prof_iters)
-    del out, leaf, library
+    del out, leaf, library, saved
     bound_ms, bound_by, nbytes, flops = attention_bwd_bound(b, h, l, d, causal,
                                                             dtype)
     row = dict(phase="kernel", kernel="fused_attention_bwd", site=site,
@@ -570,6 +649,7 @@ def check_attention_backward(site, b, h, l, causal, dtype, gen, iters=30,
                head_dim=d, body=kernel_body(l, dtype, d, backward=True),
                max_abs_err=max(errs), max_abs_err_dq_dk_dv=errs,
                tolerance=tol, bitwise_repeat=bitwise_repeat, ok=ok, ms=ms,
+               k1_stats_max_abs_err=stats_err, k1_stats_ms=k1_stats_ms,
                host_us_per_call=host_us, plain_ms=plain_ms,
                library_ms=library_ms, kernel_device_ms=kernel_only_ms,
                library_kernels_device_ms=library_kernels_ms,
@@ -624,7 +704,11 @@ def head_dim_sweep(gen):
                                     generator=gen).to(dtype).transpose(1, 2)
                     outs = [(fa.fused_attention_forward(q, k, v, causal),)
                             for _ in range(2)]
-                    grads = [fused_attention_backward(q, k, v, g, causal)
+                    saved, stats_err = k1_statistics(q, k, v, causal)
+                    if saved:   # the statistics leave K1's output as it is
+                        outs[1] = (saved["o"],)
+                    grads = [fused_attention_backward(q, k, v, g, causal,
+                                                      **saved)
                              for _ in range(2)]
                     torch.cuda.synchronize()
                     for name, (one, two), ref, tol, bwd in (
@@ -643,6 +727,8 @@ def head_dim_sweep(gen):
                             within=all(ok for _, ok in errs),
                             bitwise_repeat=all(bool(torch.equal(x, y))
                                                for x, y in zip(one, two)))
+                        if not bwd and stats_err is not None:
+                            case["k1_stats_max_abs_err"] = stats_err
                         res[name].append(case)
             for name, cases in res.items():
                 bad = [c for c in cases
@@ -658,6 +744,10 @@ def head_dim_sweep(gen):
                            max_abs_err=max(c["max_abs_err"] for c in cases),
                            tolerance=tol, bitwise_repeat=all(
                                c["bitwise_repeat"] for c in cases),
+                           k1_stats_max_abs_err=max(
+                               (c["k1_stats_max_abs_err"] for c in cases
+                                if "k1_stats_max_abs_err" in c),
+                               default=None),
                            ok=not bad, failed=bad)
                 emit(row)
                 rows.append(row)
@@ -4525,6 +4615,7 @@ def main(argv=None) -> int:
               kernels={n: dict(seconds=i["seconds"], cached=i["cached"],
                                functions=ptxas_by_function(i["ptxas"]))
                        for n, i in info.items()}))
+    tiled_resources = tiled_kernel_resources(info)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     start_phase("kernels")
@@ -4595,6 +4686,8 @@ def main(argv=None) -> int:
                     predicted=predicted)
 
     def kernel_row(name, replaces, rows, launches, by_path, by_body):
+        tiled_kernels = [r for r in tiled_resources
+                         if r["kernel"] in TILED_KERNELS[name]]
         vit = next(r for r in rows if r["site"] == "vit"
                    and r["dtype"] == str(torch.bfloat16))
         main_rows = [r for r in rows if r["dtype"] == str(torch.bfloat16)]
@@ -4604,6 +4697,7 @@ def main(argv=None) -> int:
             replaces=replaces, launches=launches, launches_by_path=by_path,
             tiled_launches_by_path=by_body,
             head_dims_checked=sorted({r["head_dim"] for r in rows}),
+            tiled_kernels=tiled_kernels,
             launches_by_head_dim=head_dim_launches(kernel),
             max_abs_err=max(r["max_abs_err"] for r in main_rows),
             ms=vit["ms"], plain_ms=vit["plain_ms"], bound_ms=vit["bound_ms"],

@@ -245,6 +245,19 @@ __device__ __forceinline__ void stage_head(uint32_t dst, int tile_bytes,
 
 // The tiled bodies (L > 128) cut a head into tiles of kTileRows rows.
 constexpr int kTileRows = 64;
+
+// The shortest L at which K2 runs its bf16 tiled pair at some head_dim
+// (K2's short limit is 112 or 128 in bf16), which takes K1's row
+// statistics: K1's short body writes them only past this length, so its
+// shorter instances keep their code.
+constexpr int kStatsMinLen = 113;
+
+// L rounded up to whole tiles: the row stride (in floats, per (batch,
+// head)) of K1's statistics and of K2's per-row scratch, so a tile's 64
+// values are one aligned block
+__host__ __device__ inline int tiles_len(int len) {
+  return (len + kTileRows - 1) / kTileRows * kTileRows;
+}
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
   return kTileRows * Row<D>::kBytes;

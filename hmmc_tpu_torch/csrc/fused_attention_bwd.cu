@@ -27,7 +27,8 @@
 // [64, 8, 32, causal] and 0.0016 ms at the temporal site [64, 8, 12]
 // (3.35 TB/s); the towers' by bytes at ViT-B/16's [192, 12, 197] (0.1214
 // ms) and ViT-L/14's [48, 16, 257] (0.0528), by operations at
-// ViT-L/14@336px's [48, 16, 577] (0.1655 ms at 989 TFLOPS).
+// ViT-L/14@336px's [48, 16, 577] (0.1655 ms at 989 TFLOPS). The tiled
+// pair below does 1.6x those operations (0.265 ms there at that rate).
 //
 // bf16, L <= 128: `attention_bwd_mma_kernel`, one CTA of 4 warps per
 // (batch, head). 16-byte cp.async copies stage the head's q, k, v and g as
@@ -59,31 +60,62 @@
 // 71-164 over NT = 1..8, no spills (the other D: PERF.md).
 //
 // bf16, L > 128: two kernels over 64-row tiles, one launch each, in stream
-// order; the first leaves fp32 row statistics in scratch the wrapper
-// allocates (3 x L rounded up to 64 floats a head), as no CTA can own a
-// whole head's rows and keys at once without atomics:
-//   rows  `attention_bwd_rows_kernel`, a CTA per (Q tile, batch * head),
-//         walks the head's KV tiles twice through a 2-stage cp.async ring.
-//         First S and dP for the row max m, the row sum and D =
-//         rowsum(dP o P), online (rescaled as the max moves, as in K1's
-//         tiled body); then S and dP again for P (fp32, not rounded) and dS,
-//         and dQ = dS . k with dS split into hi + lo as above. It writes dQ
-//         and m, 1 / sum and D per row.
-//   keys  `attention_bwd_keys_kernel`, a CTA per (KV tile, batch * head),
-//         each warp owning 16 keys: for every Q tile (with its statistics)
-//         S^T = k . q^T and dP^T = v . g^T for its keys, P^T and dS^T from
-//         the statistics, and dV += P^T g, dK += dS^T q (hi + lo) in
-//         registers; causal starts at the diagonal tile.
-// As in K1's tiled body, only the tiles that hold a masked pair are masked
-// and exp is one ex2 of an FMA on unscaled logits. S and dP are computed
-// three times a tile pair and the three products are split, so the pair
-// does ~3.6x the five products' operations; at L = 577 each kernel takes
-// about half the time, masking every tile would cost 13%, and a register
-// cap (3 or 4 CTAs an SM) did not help (tools/attention_split.py). Per
-// CTA: 6 x 64 x 2D bytes (rows) and 6 x 64 x 2D + 1,536 (keys) of shared
-// memory (49,152 and 50,688 at D = 64), 149 (rows) and 168 (keys, 16
-// bytes of spill stores) registers at D = 64; at D = 128 168 and 255, no
-// spills (PERF.md).
+// order, on Hopper's warpgroup products (wgmma, attention_wgmma.cuh) with
+// TMA staging, no atomics. They take K1's output o and its row statistics
+// (lse: each row's log-sum-exp of its scaled logits in log2 units, which
+// K1 writes when a gradient will flow here), so P = 2^(S c - lse) (c =
+// scale log2 e: one ex2 of an FMA) needs no walk of its own:
+//   rows  `attention_bwd_rows_kernel`, a CTA per (two Q tiles, batch *
+//         head): one consumer warpgroup per Q tile holds its q and g tiles
+//         in shared memory; thread 0 streams the head's (K, V) tile pairs
+//         through a 4-stage ring (TMA, mbarriers: a stage is refilled once
+//         both warpgroups have released it). Per pair: S = q .
+//         k^T and dP = g . v^T (both operands from shared memory), P, the
+//         exact D = rowsum(P o dP) summed as it goes, dS~ = P o (dP - D~)
+//         scale with the shift D~ = rowsum(g o o), then dQ~ += dS~ . k and
+//         Y += P . k with the A operands from registers (the fp32
+//         accumulators packed to bf16 in place). At the end dQ = dQ~ -
+//         scale (D - D~) Y, and D goes to scratch (tiles_len(L) floats a
+//         head) for the keys pass.
+//   keys  `attention_bwd_keys_kernel`, a CTA per (two KV tiles, batch *
+//         head): one warpgroup per KV tile holds k and v; the ring brings
+//         the Q tiles (causal: from the diagonal) with their rows' lse and
+//         D. Per tile: S^T = k . q^T, dP^T = v . g^T, P^T and dS^T = P^T o
+//         (dP^T - D) scale, dV += P^T g and dK += dS^T q (q and g read
+//         MN-major: the descriptor's transpose bit).
+// Why the shift: D = rowsum(g o o) alone is not the plain version's fp32
+// sum (o was made with P rounded to bf16, and is rounded) and breaks the
+// tolerance (1.48x at worst in tests/test_torch_attention_tiled.py's
+// emulation), and dQ = scale ((P o dP) k - D P k) in one walk cancels in
+// bf16 (1.87x); with the shift dS~ is as small as dS and the correction's
+// factor D - D~ is ~1e-3 of D, so one bf16 operand in every product keeps
+// all three outputs within 0.81 of it, and no product is split into hi +
+// lo. S and dP are computed twice a tile pair and Y is one extra product:
+// eight 64 x 64 x D products against the function's five (1.6x its
+// operations). Only the tiles that hold a masked pair are masked (the
+// causal diagonal, a ragged last tile; rows and queries past L take lse =
+// +inf, so P = 0); causal skips the tiles past the diagonal. Head tiles
+// are 64 rows of D bf16 in one or two column blocks (64 columns with the
+// 128-byte swizzle, then D - 64 with their width's: 80 and 96 without
+// padding); the tensor maps are encoded per launch over the strided [B,
+// H, L, D] views (cuTensorMapEncodeTiled through the runtime's driver
+// entry point; rows past L arrive as zeros). dQ, dK, dV leave through the
+// warp's own rows of a tile no one reads any more, as 16-byte row stores.
+// Per CTA: 256 threads, two warpgroups and no producer warpgroup (a third
+// warpgroup would cap every thread at 168 registers; these take 159-235,
+// no spills), 1 KB alignment slack + 4 resident tiles + 4 stages of 2
+// tiles (keys: + 1 KB of lse and D a stage) of shared memory: 99,400
+// (rows) and 103,496 (keys) bytes at D = 64, 197,704 and 201,800 at
+// D = 128. Thread 0 refills the stage of the tile before the one it has
+// just finished, which the other warpgroup has most likely left, so it
+// seldom waits for it. Each tile's products complete before the next
+// tile's S and dP are issued: keeping the register-A products in flight
+// across the next tile's barrier wait made ptxas serialise every wgmma of
+// the kernel (C7518: a dependence in a divergent path), 1.2x slower. What
+// holds each pass at 34-45% of the tensor cores' rate over its padded
+// tiles is latency: a warpgroup's products and its exponentials run one
+// after the other, and the two warpgroups overlap each other only in part
+// (PERF.md).
 //
 // fp32 (reference checks only): `attention_bwd_fp32_kernel` (L <= 112 at
 // D = 64), the CUDA-core body of the first version: q, k, v, g staged as
@@ -108,6 +140,7 @@
 #include <cuda_runtime.h>
 
 #include "attention_mma.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -126,6 +159,14 @@ struct Args {
   void *dq, *dk, *dv;
   int heads, len, causal;
   Strides sq, sk, sv, sg, sdq, sdk, sdv;
+};
+
+// What the bf16 tiled pair takes from K1: its output o (strides so) and
+// its statistics lse
+struct TiledIn {
+  const void* o;
+  const float* lse;
+  Strides so;
 };
 
 // ---------------------------------------------------------------------------
@@ -411,367 +452,585 @@ cudaError_t dispatch_mma(const Args& a, int batch, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16, L > 128: two passes over tiles, no atomics
+// bf16, L > 128: two passes over 64-row tiles on wgmma, no atomics
 // ---------------------------------------------------------------------------
 
 using hmmc::kTileRows;
+using hmmc::tiles_len;
+using hmmc::TmaTile;
 
-// Per-row statistics the rows pass leaves for the keys pass, fp32, three
-// planes of `lp` = L rounded up to 64 per (batch, head): the row max m of
-// the unscaled logits q . k, 1 / the row sum of exp((q . k - m) * scale),
-// and D = rowsum(dP o P). Rows past L hold zeros.
+// Scratch the fp32 tiled pair needs per (batch, head): three planes of
+// tiles_len(L) floats, the row max m of the unscaled logits, 1 / the row
+// sum and D = rowsum(dP o P), written by its rows pass (zeros past L).
 __host__ __device__ inline long long stats_floats(int len) {
-  return 3LL * ((len + kTileRows - 1) / kTileRows) * kTileRows;
+  return 3LL * tiles_len(len);
 }
 
-// S = q . k^T (unscaled) and dP = g . v^T of one warp's 16
-// rows of the staged A tiles (`ta`, `tg`) against the 64 keys of the staged
-// B tiles (`tb`, `tv`); key pairs np with skip(np) are left 0.
-template <int D, typename Skip>
-__device__ __forceinline__ void tile_products(uint32_t ta, uint32_t tg,
-                                              uint32_t tb, uint32_t tv,
-                                              int r0, int lane, Skip skip,
-                                              float (&s)[8][4],
-                                              float (&dp)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < Row<D>::kKSteps; ++ks) {
-    uint32_t qa[4], ga[4];
-    hmmc::ldsm_x4(hmmc::a_addr<D>(ta, r0, ks, lane), qa);
-    hmmc::ldsm_x4(hmmc::a_addr<D>(tg, r0, ks, lane), ga);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      if (skip(np)) continue;
-      uint32_t kf[4], vf[4];
-      hmmc::ldsm_x4(hmmc::b_addr<D>(tb, 16 * np, ks, lane), kf);
-      hmmc::mma_bf16(s[2 * np], qa, kf[0], kf[1]);
-      hmmc::mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
-      hmmc::ldsm_x4(hmmc::b_addr<D>(tv, 16 * np, ks, lane), vf);
-      hmmc::mma_bf16(dp[2 * np], ga, vf[0], vf[1]);
-      hmmc::mma_bf16(dp[2 * np + 1], ga, vf[2], vf[3]);
-    }
-  }
-}
+constexpr int kWG = 2;        // consumer warpgroups a CTA, one 64-row tile each
+constexpr int kStages = 4;    // depth of the ring of streamed tiles
+// Two warpgroups and no more: registers are handed out by whole
+// warpgroups, so a third (a producer) would cap every thread at 168
+// registers (65,536 / 384), where one of these needs up to 235 (keys, D =
+// 128). Thread 0 issues the copies itself (TMA costs it a few instructions
+// a tile).
+constexpr int kThreadsTiled = kWG * 128;
 
-// acc (16 x D) += X . B for X the 16 x 64 fp32 C fragments of one warp
-// (split into bf16 hi + lo, as the short body does) and B the staged tile
-// `tb` read with its rows as the k index; k-steps j with skip(j) are 0.
-template <int D, typename Skip>
-__device__ __forceinline__ void frag_product(
-    const float (&x)[8][4], uint32_t tb, int lane, Skip skip,
-    float (&acc)[Row<D>::kNTiles][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (skip(j)) continue;
-    uint32_t hi[4], lo[4];
-    hmmc::split_bf16(x[2 * j][0], x[2 * j][1], hi[0], lo[0]);
-    hmmc::split_bf16(x[2 * j][2], x[2 * j][3], hi[1], lo[1]);
-    hmmc::split_bf16(x[2 * j + 1][0], x[2 * j + 1][1], hi[2], lo[2]);
-    hmmc::split_bf16(x[2 * j + 1][2], x[2 * j + 1][3], hi[3], lo[3]);
-#pragma unroll
-    for (int c = 0; c < Row<D>::kKSteps; ++c) {
-      uint32_t bf[4];
-      hmmc::ldsm_x4_t(hmmc::bt_addr<D>(tb, 16 * j, c, lane), bf);
-      hmmc::mma_bf16(acc[2 * c], hi, bf[0], bf[1]);
-      hmmc::mma_bf16(acc[2 * c], lo, bf[0], bf[1]);
-      hmmc::mma_bf16(acc[2 * c + 1], hi, bf[2], bf[3]);
-      hmmc::mma_bf16(acc[2 * c + 1], lo, bf[2], bf[3]);
-    }
-  }
-}
+struct TiledParams {
+  hmmc::TileMaps q, k, v, g;   // TMA maps over the [B, H, L, D] views
+  const __nv_bfloat16* o;      // K1's output, for the shift of D (rows pass)
+  const float* lse;            // K1's log2-sum-exp, tiles_len(L) a head
+  float* delta;                // D = rowsum(dP o P), tiles_len(L) a head
+  __nv_bfloat16 *dq, *dk, *dv;
+  Strides so, sdq, sdk, sdv;
+  int heads, len, causal;
+};
 
-// Rows pass: CTA (Q tile, batch * head), 4 warps of 16 query rows; shared
-// memory the Q and g tiles, then two stages of (K, V) tiles. It walks the
-// head's KV tiles twice: first for m, the row sum and D (online: rescaled
-// as the max moves), then for dS and dQ = dS . k. It writes dQ and the
-// statistics.
+// The shared memory of a tiled CTA: 1 KB of slack to align the tiles on
+// 1024 bytes (the swizzle's period), the resident tiles (two a warpgroup),
+// the ring of streamed stages, and the mbarriers.
 template <int D>
-__global__ void __launch_bounds__(kWarpsBwd * 32)
-attention_bwd_rows_kernel(Args a, float* stats) {
-  using bf16 = __nv_bfloat16;
-  constexpr int kTileBytes = hmmc::tile_bytes<D>();
-  constexpr int kNT = Row<D>::kNTiles;
-  constexpr float kScale = Scale<D>::kScale, kScaleLog2 = Scale<D>::kLog2;
-  extern __shared__ uint4 smem_raw[];
-  char* smem = reinterpret_cast<char*>(smem_raw);
-  const uint32_t base = hmmc::smem_u32(smem);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int len = a.len, head = blockIdx.x, qt = blockIdx.y;
-  const int q0 = qt * kTileRows;
-  const int b = head / a.heads, hh = head - b * a.heads;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sk.b + hh * a.sk.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sv.b + hh * a.sv.h;
-  const int n_kv = a.causal ? qt + 1 : (len + kTileRows - 1) / kTileRows;
-  const uint32_t tq = base, tg = base + kTileBytes;
-  auto stage_of = [&](int step) {
-    return base + 2 * kTileBytes + (step & 1) * 2 * kTileBytes;
-  };
-  auto issue = [&](int step) {   // step t reads KV tile t % n_kv
-    const int kt = step % n_kv;
-    const uint32_t dst = stage_of(step);
-    hmmc::stage_tile<D>(dst, kb, a.sk.l, kt * kTileRows, len);
-    hmmc::stage_tile<D>(dst + kTileBytes, vb, a.sv.l, kt * kTileRows, len);
-  };
-  hmmc::stage_tile<D>(tq, static_cast<const bf16*>(a.q) + b * a.sq.b +
-                              hh * a.sq.h, a.sq.l, q0, len);
-  hmmc::stage_tile<D>(tg, static_cast<const bf16*>(a.g) + b * a.sg.b +
-                              hh * a.sg.h, a.sg.l, q0, len);
-  issue(0);
-  hmmc::cp_async_commit();
+constexpr int kResident = 2 * kWG * TmaTile<D>::kBytes;
+template <int D>
+constexpr int kStageRows = 2 * TmaTile<D>::kBytes;          // k, v
+template <int D>   // q, g, then lse and D of the tile's rows (512 bytes,
+constexpr int kStageKeys = 2 * TmaTile<D>::kBytes + 1024;   // padded)
+constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+template <int D>
+constexpr size_t kSmemRows = 1024 + kResident<D> + kStages * kStageRows<D> +
+                             kBarBytes;
+template <int D>
+constexpr size_t kSmemKeys = 1024 + kResident<D> + kStages * kStageKeys<D> +
+                             kBarBytes;
 
-  const int r = q0 + 16 * warp + (lane >> 2);   // rows r and r + 8
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, d0 = 0.f,
-        d1 = 0.f, inv0 = 0.f, inv1 = 0.f;
-  float acc[kNT][4];
+// fp32 dot product of eight bf16 pairs (two 16-byte chunks)
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    const float2 xf = __bfloat1622float2(x[i]), yf = __bfloat1622float2(y[i]);
+    acc = fmaf(xf.x, yf.x, acc);
+    acc = fmaf(xf.y, yf.y, acc);
+  }
+  return acc;
+}
 
-  for (int step = 0; step < 2 * n_kv; ++step) {
-    if (step + 1 < 2 * n_kv) issue(step + 1);
-    hmmc::cp_async_commit();
-    hmmc::cp_async_wait<1>();
-    __syncthreads();
-    const int kt = step % n_kv, k0 = kt * kTileRows;
-    const uint32_t tk = stage_of(step), tv = tk + kTileBytes;
-    const bool diag = a.causal && kt == qt;
-    float s[8][4], dp[8][4];
-    tile_products<D>(tq, tg, tk, tv, 16 * warp, lane,
-                     [&](int np) { return diag && np > warp; }, s, dp);
-    // unscaled logits; -inf on the tiles that mask any (the causal
-    // diagonal, the last tile of a ragged L)
-    if (diag || k0 + kTileRows > len) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = k0 + 8 * n + 2 * (lane & 3) + e;
-          if (j >= len || (a.causal && j > r)) s[n][e] = -INFINITY;
-          if (j >= len || (a.causal && j > r + 8)) s[n][2 + e] = -INFINITY;
-        }
+// The CTA's mbarriers: full_a (the resident tiles), then full and empty
+// per stage; thread 0 initialises them.
+struct Ring {
+  uint32_t full_a, full0, empty0;
+  __device__ Ring(uint32_t bars)
+      : full_a(bars), full0(bars + 8), empty0(bars + 8 + 8 * kStages) {}
+  __device__ uint32_t full(int s) const { return full0 + 8 * s; }
+  __device__ uint32_t empty(int s) const { return empty0 + 8 * s; }
+  __device__ void init() const {
+    hmmc::mbar_init(full_a, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hmmc::mbar_init(full(s), 1);
+      hmmc::mbar_init(empty(s), kWG * 128);
     }
-    if (step < n_kv) {
-      // statistics: key 0 is in the first tile and kept for every row,
-      // so the running max is finite from there on
-      float mx0 = -INFINITY, mx1 = -INFINITY;
+    hmmc::mbar_init_fence();
+  }
+};
+
+// The tiles' base in shared memory, aligned on 1024 bytes: its shared
+// address and its generic pointer
+struct SmemBase {
+  uint32_t addr;
+  char* ptr;
+};
+__device__ __forceinline__ SmemBase aligned_smem(void* raw) {
+  const uint32_t a = hmmc::smem_u32(raw);
+  const uint32_t aligned = (a + 1023) & ~1023u;
+  return {aligned, static_cast<char*>(raw) + (aligned - a)};
+}
+
+// A warp's rows of the 64 x D fp32 product `acc` (the wgmma fragment
+// layout, which is mma.sync's per warp), rounded to bf16, to rows
+// 16 w..16 w + 15 of a tile (those below `rows`) through that warp's rows
+// of the shared tile `stage`, which no one reads any more
+template <int D>
+__device__ __forceinline__ void store_rows(char* stage, const float* acc,
+                                           int wwarp, __nv_bfloat16* dst,
+                                           long long row_stride, int rows,
+                                           int lane) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  const auto& frags =
+      *reinterpret_cast<const float(*)[Row<D>::kNTiles][4]>(acc);
+  hmmc::frags_to_tile<D>(stage, 16 * wwarp, frags, rows, lane);
+  __syncwarp();
+  hmmc::tile_rows_to_global<D>(stage, 16 * wwarp, dst, row_stride, rows,
+                               lane);
+}
+
+// A warpgroup of the rows pass: warpgroup wg, its warp wwarp owns rows
+// r0 and r0 + 8 of Q tile kWG * blockIdx.y + wg. release(t): the
+// warpgroup is done with KV tile t (its stage may be refilled).
+template <int D, typename Release>
+__device__ __forceinline__ void rows_consumer(const TiledParams& p,
+                                              const SmemBase& sm,
+                                              const Ring& ring,
+                                              Release release) {
+  using T = TmaTile<D>;
+  constexpr int kTile = T::kBytes;
+  constexpr int kAcc = D / 2;   // fp32 accumulators a thread of a D product
+  constexpr float kScale = Scale<D>::kScale, kLog2 = Scale<D>::kLog2;
+  const int len = p.len, head = blockIdx.x;
+  const int b = head / p.heads, hh = head - b * p.heads;
+  const int n_q = (len + kTileRows - 1) / kTileRows;
+  const int qt0 = kWG * blockIdx.y;
+  const int n_act = min(kWG, n_q - qt0);
+  const int n_it = p.causal ? min(n_q, qt0 + kWG) : n_q;
+  const int lp = tiles_len(len);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, wwarp = warp % 4;
+  const int qt = qt0 + wg;
+  const bool active = wg < n_act;
+  const uint32_t tq = sm.addr + 2 * wg * kTile, tg = tq + kTile;
+  const int r0 = 16 * wwarp + lane / 4;
+  const int i0 = qt * kTileRows + r0, i1 = i0 + 8;
+  // K1's statistics; rows past L get +inf, so P = 0 on them
+  float lse0 = INFINITY, lse1 = INFINITY;
+  const float* lse_h = p.lse + static_cast<long long>(head) * lp;
+  if (active && i0 < len) lse0 = lse_h[i0];
+  if (active && i1 < len) lse1 = lse_h[i1];
+  // D~ = rowsum(g o o) of rows i0, i1, over the quad: lane l % 4 takes
+  // the 16-byte chunks c = l % 4 + 4 t; its o chunks are loaded before the
+  // wait for the resident tiles, so their latency overlaps the copies
+  constexpr int kChunks = D / 8, kMine = (kChunks + 3) / 4;
+  uint4 o0[kMine], o1[kMine];
+  const __nv_bfloat16* ob = p.o + b * p.so.b + hh * p.so.h;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+  for (int t = 0; t < kMine; ++t) {
+    const int cc = 4 * t + (lane & 3);
+    const bool in = active && cc < kChunks;
+    o0[t] = in && i0 < len
+                ? *reinterpret_cast<const uint4*>(ob + i0 * p.so.l + 8 * cc)
+                : make_uint4(0, 0, 0, 0);
+    o1[t] = in && i1 < len
+                ? *reinterpret_cast<const uint4*>(ob + i1 * p.so.l + 8 * cc)
+                : make_uint4(0, 0, 0, 0);
+  }
+  hmmc::mbar_wait(ring.full_a, 0);
+  float dt0 = 0.f, dt1 = 0.f;
+  if (active) {
+    const char* sg = sm.ptr + 2 * wg * kTile + kTile;
+#pragma unroll
+    for (int t = 0; t < kMine; ++t) {
+      const int cc = 4 * t + (lane & 3);
+      if (cc < kChunks) {
+        dt0 = dot8(*reinterpret_cast<const uint4*>(
+                       sg + hmmc::tma_chunk_off<D>(r0, cc)), o0[t], dt0);
+        dt1 = dot8(*reinterpret_cast<const uint4*>(
+                       sg + hmmc::tma_chunk_off<D>(r0 + 8, cc)), o1[t], dt1);
       }
-      const float mn0 = fmaxf(m0, hmmc::quad_max(mx0));
-      const float mn1 = fmaxf(m1, hmmc::quad_max(mx1));
-      const float al0 = hmmc::ex2((m0 - mn0) * kScaleLog2);
-      const float al1 = hmmc::ex2((m1 - mn1) * kScaleLog2);
-      m0 = mn0;
-      m1 = mn1;
-      const float c0 = m0 * kScaleLog2, c1 = m1 * kScaleLog2;
-      float t0 = 0.f, t1 = 0.f, u0 = 0.f, u1 = 0.f;
+    }
+    dt0 = hmmc::quad_sum(dt0);
+    dt1 = hmmc::quad_sum(dt1);
+  }
+
+  float dq[kAcc], y[kAcc];
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p0 = hmmc::ex2(fmaf(s[n][e], kScaleLog2, -c0));
-          const float p1 = hmmc::ex2(fmaf(s[n][2 + e], kScaleLog2,
-                                          -c1));
-          t0 += p0;
-          t1 += p1;
-          u0 = fmaf(dp[n][e], p0, u0);
-          u1 = fmaf(dp[n][2 + e], p1, u1);
-        }
-      l0 = l0 * al0 + t0;   // this lane's columns, summed over the quad
-      l1 = l1 * al1 + t1;   // after the pass
-      d0 = d0 * al0 + u0;
-      d1 = d1 * al1 + u1;
-      if (step == n_kv - 1) {
-        inv0 = 1.f / hmmc::quad_sum(l0);
-        inv1 = 1.f / hmmc::quad_sum(l1);
-        d0 = hmmc::quad_sum(d0) * inv0;
-        d1 = hmmc::quad_sum(d1) * inv1;
-      }
-      __syncthreads();   // the stage is refilled two steps on
+  for (int i = 0; i < kAcc; ++i) dq[i] = y[i] = 0.f;
+  float dsum0 = 0.f, dsum1 = 0.f;   // this lane's part of D
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    hmmc::mbar_wait(ring.full(s), (it / kStages) & 1);
+    if (!active || (p.causal && it > qt)) {
+      release(it);
       continue;
     }
-    // dS = P o (dP - D) * scale, in place of dP
-    const float c0 = m0 * kScaleLog2, c1 = m1 * kScaleLog2;
+    const uint32_t tk = sm.addr + kResident<D> + s * kStageRows<D>;
+    const uint32_t tv = tk + kTile;
+    float sc[32], dp[32];
+    hmmc::wgmma_fence();
+    hmmc::wgmma_ss_tiles<D>(sc, tq, tk);
+    hmmc::wgmma_ss_tiles<D>(dp, tg, tv);
+    hmmc::wgmma_commit();
+    hmmc::wgmma_wait<0>();
+    hmmc::fence_regs<32>(sc);
+    hmmc::fence_regs<32>(dp);
+    // masked pairs only on the tiles that hold any: the causal diagonal
+    // and the last tile of a ragged L
+    const int k0 = it * kTileRows;
+    const bool edge = (p.causal && it == qt) || k0 + kTileRows > len;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float p0 =
-            hmmc::ex2(fmaf(s[n][e], kScaleLog2, -c0)) * inv0;
-        const float p1 =
-            hmmc::ex2(fmaf(s[n][2 + e], kScaleLog2, -c1)) * inv1;
-        dp[n][e] = p0 * (dp[n][e] - d0) * kScale;
-        dp[n][2 + e] = p1 * (dp[n][2 + e] - d1) * kScale;
+        float p0 = hmmc::ex2(fmaf(sc[4 * n + e], kLog2, -lse0));
+        float p1 = hmmc::ex2(fmaf(sc[4 * n + 2 + e], kLog2, -lse1));
+        if (edge) {
+          const int j = k0 + 8 * n + 2 * (lane & 3) + e;
+          if (j >= len || (p.causal && j > i0)) p0 = 0.f;
+          if (j >= len || (p.causal && j > i1)) p1 = 0.f;
+        }
+        const float d0 = dp[4 * n + e], d1 = dp[4 * n + 2 + e];
+        dsum0 = fmaf(p0, d0, dsum0);
+        dsum1 = fmaf(p1, d1, dsum1);
+        sc[4 * n + e] = p0;
+        sc[4 * n + 2 + e] = p1;
+        dp[4 * n + e] = p0 * (d0 - dt0) * kScale;
+        dp[4 * n + 2 + e] = p1 * (d1 - dt1) * kScale;
       }
-    frag_product<D>(dp, tk, lane, [&](int j) { return diag && j > warp; },
-                    acc);
-    __syncthreads();
-  }
-
-  // statistics of rows r and r + 8 (zeros past L), one lane of the quad
-  const int lp = static_cast<int>(stats_floats(len) / 3);
-  float* st = stats + static_cast<long long>(head) * 3 * lp;
-  if ((lane & 3) == 0) {
-    const bool in0 = r < len, in1 = r + 8 < len;
-    st[r] = in0 ? m0 : 0.f;
-    st[lp + r] = in0 ? inv0 : 0.f;
-    st[2 * lp + r] = in0 ? d0 : 0.f;
-    st[r + 8] = in1 ? m1 : 0.f;
-    st[lp + r + 8] = in1 ? inv1 : 0.f;
-    st[2 * lp + r + 8] = in1 ? d1 : 0.f;
-  }
-  // only this warp reads its rows of the Q tile: stage dQ there
-  const int rows = len - q0;
-  bf16* dqb = static_cast<bf16*>(a.dq) + b * a.sdq.b + hh * a.sdq.h +
-              q0 * a.sdq.l;
-  hmmc::frags_to_tile<D>(smem, 16 * warp, acc, rows, lane);
-  __syncwarp();
-  hmmc::tile_rows_to_global<D>(smem, 16 * warp, dqb, a.sdq.l, rows, lane);
-}
-
-// Keys pass: CTA (KV tile, batch * head), 4 warps of 16 keys; shared
-// memory the K and V tiles, then two stages of (Q tile, g tile, the
-// tile's statistics). For each Q tile a warp computes S^T = k . q^T and
-// dP^T = v . g^T for its keys, P^T and dS^T from the statistics, and
-// accumulates dV = P^T g and dK = dS^T q in registers.
-template <int D>
-__global__ void __launch_bounds__(kWarpsBwd * 32)
-attention_bwd_keys_kernel(Args a, const float* stats) {
-  using bf16 = __nv_bfloat16;
-  constexpr int kTileBytes = hmmc::tile_bytes<D>();
-  constexpr int kNT = Row<D>::kNTiles;
-  constexpr float kScale = Scale<D>::kScale, kScaleLog2 = Scale<D>::kLog2;
-  constexpr int kStatBytes = 3 * kTileRows * 4;
-  constexpr int kStage = 2 * kTileBytes + kStatBytes;
-  extern __shared__ uint4 smem_raw[];
-  char* smem = reinterpret_cast<char*>(smem_raw);
-  const uint32_t base = hmmc::smem_u32(smem);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int len = a.len, head = blockIdx.x, kt = blockIdx.y;
-  const int k0 = kt * kTileRows;
-  const int b = head / a.heads, hh = head - b * a.heads;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.sq.b + hh * a.sq.h;
-  const bf16* gb = static_cast<const bf16*>(a.g) + b * a.sg.b + hh * a.sg.h;
-  const int n_q = (len + kTileRows - 1) / kTileRows;
-  const int lp = n_q * kTileRows;
-  const float* st = stats + static_cast<long long>(head) * 3 * lp;
-  const int first = a.causal ? kt : 0;   // causal: no query before the keys
-  const uint32_t tk = base, tv = base + kTileBytes;
-  auto stage_off = [&](int it) { return 2 * kTileBytes + (it & 1) * kStage; };
-  auto issue = [&](int it) {
-    const int qt = first + it;
-    const uint32_t dst = base + stage_off(it);
-    hmmc::stage_tile<D>(dst, qb, a.sq.l, qt * kTileRows, len);
-    hmmc::stage_tile<D>(dst + kTileBytes, gb, a.sg.l, qt * kTileRows, len);
-    // m, 1 / sum, D of the tile's 64 rows: 3 x 16 chunks of 16 bytes
-    for (int c = threadIdx.x; c < 48; c += blockDim.x) {
-      const int plane = c >> 4, chunk = c & 15;
-      hmmc::cp_async16(dst + 2 * kTileBytes + plane * 256 + chunk * 16,
-                       st + plane * lp + qt * kTileRows + chunk * 4);
+    uint32_t pa[4][4], da[4][4];   // P and dS as bf16 A operands
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hmmc::a_frag(sc, kk, pa[kk]);
+      hmmc::a_frag(dp, kk, da[kk]);
     }
+    hmmc::fence_regs<kAcc>(dq);
+    hmmc::fence_regs<kAcc>(y);
+    hmmc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hmmc::wgmma_rs_tile<D>(dq, da[kk], tk, kk);
+      hmmc::wgmma_rs_tile<D>(y, pa[kk], tk, kk);
+    }
+    hmmc::wgmma_commit();
+    hmmc::wgmma_wait<0>();
+    hmmc::fence_regs<kAcc>(dq);
+    hmmc::fence_regs<kAcc>(y);
+    hmmc::fence_frags(pa);
+    hmmc::fence_frags(da);
+    release(it);
+  }
+  if (!active) return;
+
+  // D of rows i0, i1 for the keys pass (zeros on rows past L), and
+  // dQ = dQ~ - scale (D - D~) Y
+  const float dd0 = hmmc::quad_sum(dsum0), dd1 = hmmc::quad_sum(dsum1);
+  if ((lane & 3) == 0) {
+    float* dh = p.delta + static_cast<long long>(head) * lp;
+    dh[i0] = dd0;
+    dh[i1] = dd1;
+  }
+  const float c0 = kScale * (dd0 - dt0), c1 = kScale * (dd1 - dt1);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    dq[4 * n] -= c0 * y[4 * n];
+    dq[4 * n + 1] -= c0 * y[4 * n + 1];
+    dq[4 * n + 2] -= c1 * y[4 * n + 2];
+    dq[4 * n + 3] -= c1 * y[4 * n + 3];
+  }
+  const int q0 = qt * kTileRows;
+  store_rows<D>(sm.ptr + 2 * wg * kTile, dq, wwarp,
+                p.dq + b * p.sdq.b + hh * p.sdq.h + q0 * p.sdq.l, p.sdq.l,
+                len - q0, lane);
+}
+
+// Rows pass: CTA (kWG consecutive Q tiles, batch * head). Warpgroup w owns
+// Q tile kWG * blockIdx.y + w: its q and g tiles stay in shared memory
+// while thread 0 streams the head's (K, V) tile pairs through the ring
+// (causal: up to the CTA's last diagonal). Per KV tile, in fp32:
+//   S = q . k^T, dP = g . v^T          (wgmma, both operands in smem)
+//   P = 2^(S c - lse)                  (c = scale log2 e; K1's statistics)
+//   D += rowsum(P o dP)                (exact, for the keys pass)
+//   dS~ = P o (dP - D~) scale          (D~ = rowsum(g o o), K1's output)
+//   dQ~ += dS~ . k,  Y += P . k        (wgmma, A from registers, bf16)
+// and at the end dQ = dQ~ - scale (D - D~) Y. D~ is within ~1e-3 of D,
+// so dS~ is as small as dS and one bf16 operand keeps dQ in tolerance;
+// the correction's factor is that small difference.
+template <int D>
+__global__ void __launch_bounds__(kThreadsTiled, 1)
+attention_bwd_rows_kernel(const __grid_constant__ TiledParams p) {
+  constexpr int kTile = TmaTile<D>::kBytes;
+  extern __shared__ uint4 smem_raw[];
+  const SmemBase sm = aligned_smem(smem_raw);
+  const Ring ring(sm.addr + kResident<D> + kStages * kStageRows<D>);
+  const int b = blockIdx.x / p.heads, hh = blockIdx.x - b * p.heads;
+  const int n_q = (p.len + kTileRows - 1) / kTileRows;
+  const int qt0 = kWG * blockIdx.y;
+  const int n_act = min(kWG, n_q - qt0);   // warpgroups with a tile
+  const int n_it = p.causal ? min(n_q, qt0 + kWG) : n_q;
+  // thread 0 issues every copy: the resident tiles and the first stages
+  // here, each later KV tile once both warpgroups have released its stage
+  const bool issuer = threadIdx.x == 0;
+  auto load = [&](int t) {
+    const int s = t % kStages;
+    const uint32_t st = sm.addr + kResident<D> + s * kStageRows<D>;
+    hmmc::mbar_expect_tx(ring.full(s), kStageRows<D>);
+    hmmc::tma_tile<D>(st, p.k, ring.full(s), t * kTileRows, hh, b);
+    hmmc::tma_tile<D>(st + kTile, p.v, ring.full(s), t * kTileRows, hh, b);
   };
-  hmmc::stage_tile<D>(tk, static_cast<const bf16*>(a.k) + b * a.sk.b +
-                              hh * a.sk.h, a.sk.l, k0, len);
-  hmmc::stage_tile<D>(tv, static_cast<const bf16*>(a.v) + b * a.sv.b +
-                              hh * a.sv.h, a.sv.l, k0, len);
-  issue(0);
-  hmmc::cp_async_commit();
+  if (issuer) {
+    ring.init();
+    hmmc::mbar_expect_tx(ring.full_a, 2 * kTile * n_act);
+    for (int w = 0; w < n_act; ++w) {
+      const uint32_t t = sm.addr + 2 * w * kTile;
+      hmmc::tma_tile<D>(t, p.q, ring.full_a, (qt0 + w) * kTileRows, hh, b);
+      hmmc::tma_tile<D>(t + kTile, p.g, ring.full_a, (qt0 + w) * kTileRows,
+                        hh, b);
+    }
+    for (int t = 0; t < min(kStages, n_it); ++t) load(t);
+  }
+  __syncthreads();
+  rows_consumer<D>(p, sm, ring, [&](int t) {
+    hmmc::mbar_arrive(ring.empty(t % kStages));
+    const int r = t - 1;   // the tile before: the other warpgroup has
+    if (issuer && r >= 0 && r + kStages < n_it) {   // most likely left it
+      hmmc::mbar_wait(ring.empty(r % kStages), (r / kStages) & 1);
+      load(r + kStages);
+    }
+  });
+}
 
-  const int j = k0 + 16 * warp + (lane >> 2);   // keys j and j + 8
-  float dv[kNT][4], dk[kNT][4];
+// A warpgroup of the keys pass: warpgroup wg, its warp wwarp owns keys
+// j0 and j0 + 8 of KV tile kWG * blockIdx.y + wg. release(it): the
+// warpgroup is done with the walk's it-th Q tile.
+template <int D, typename Release>
+__device__ __forceinline__ void keys_consumer(const TiledParams& p,
+                                              const SmemBase& sm,
+                                              const Ring& ring,
+                                              Release release) {
+  using T = TmaTile<D>;
+  constexpr int kTile = T::kBytes;
+  constexpr int kAcc = D / 2;
+  constexpr float kScale = Scale<D>::kScale, kLog2 = Scale<D>::kLog2;
+  const int len = p.len, head = blockIdx.x;
+  const int b = head / p.heads, hh = head - b * p.heads;
+  const int n_t = (len + kTileRows - 1) / kTileRows;
+  const int kt0 = kWG * blockIdx.y;
+  const int n_act = min(kWG, n_t - kt0);
+  const int first = p.causal ? kt0 : 0;
+  const int n_it = n_t - first;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = warp / 4, wwarp = warp % 4;
+  const int kt = kt0 + wg;
+  const bool active = wg < n_act;
+  const uint32_t tk = sm.addr + 2 * wg * kTile, tv = tk + kTile;
+  const int j0 = kt * kTileRows + 16 * wwarp + lane / 4, j1 = j0 + 8;
+  float dk[kAcc], dv[kAcc];
 #pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dv[n][e] = dk[n][e] = 0.f;
-
-  const int n_it = n_q - first;
+  for (int i = 0; i < kAcc; ++i) dk[i] = dv[i] = 0.f;
+  hmmc::mbar_wait(ring.full_a, 0);
   for (int it = 0; it < n_it; ++it) {
-    if (it + 1 < n_it) issue(it + 1);
-    hmmc::cp_async_commit();
-    hmmc::cp_async_wait<1>();
-    __syncthreads();
-    const int qt = first + it, q0 = qt * kTileRows;
-    const uint32_t tq = base + stage_off(it), tg = tq + kTileBytes;
-    const float* s_st =
-        reinterpret_cast<const float*>(smem + stage_off(it) + 2 * kTileBytes);
-    const bool diag = a.causal && qt == kt;   // query pairs np < warp all
-                                              // lie before the keys
-    float s[8][4], dp[8][4];   // S^T and dP^T: rows keys, columns queries
-    tile_products<D>(tk, tv, tq, tg, 16 * warp, lane,
-                     [&](int np) { return diag && np < warp; }, s, dp);
-    // the tiles that mask any pair: the causal diagonal, a Q or KV tile
-    // past L (whose statistics are zeros, or unwritten in the scratch)
-    const bool edge = diag || q0 + kTileRows > len || k0 + kTileRows > len;
+    const int s = it % kStages, qt = first + it;
+    hmmc::mbar_wait(ring.full(s), (it / kStages) & 1);
+    if (!active || (p.causal && qt < kt)) {
+      release(it);
+      continue;
+    }
+    const uint32_t tq = sm.addr + kResident<D> + s * kStageKeys<D>;
+    const uint32_t tg = tq + kTile;
+    float sc[32], dp[32];   // S^T, dP^T: rows keys, columns queries
+    hmmc::wgmma_fence();
+    hmmc::wgmma_ss_tiles<D>(sc, tk, tq);
+    hmmc::wgmma_ss_tiles<D>(dp, tv, tg);
+    hmmc::wgmma_commit();
+    hmmc::wgmma_wait<0>();
+    hmmc::fence_regs<32>(sc);
+    hmmc::fence_regs<32>(dp);
+    const float* st = reinterpret_cast<const float*>(
+        sm.ptr + kResident<D> + s * kStageKeys<D> + 2 * kTile);
+    const bool diag = p.causal && qt == kt;
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int il = 8 * n + 2 * (lane & 3) + e, i = q0 + il;
-        const float c = s_st[il] * kScaleLog2,
-                    inv = s_st[kTileRows + il], d = s_st[2 * kTileRows + il];
-        const bool keep0 =
-            !edge || (i < len && j < len && (!a.causal || j <= i));
-        const bool keep1 =
-            !edge || (i < len && j + 8 < len && (!a.causal || j + 8 <= i));
-        const float p0 =
-            keep0 ? hmmc::ex2(fmaf(s[n][e], kScaleLog2, -c)) * inv
-                  : 0.f;
-        const float p1 =
-            keep1 ? hmmc::ex2(fmaf(s[n][2 + e], kScaleLog2, -c)) * inv
-                  : 0.f;
-        s[n][e] = p0;
-        s[n][2 + e] = p1;
-        dp[n][e] = keep0 ? p0 * (dp[n][e] - d) * kScale : 0.f;
-        dp[n][2 + e] = keep1 ? p1 * (dp[n][2 + e] - d) * kScale : 0.f;
+        const int il = 8 * n + 2 * (lane & 3) + e, i = qt * kTileRows + il;
+        // queries past L get lse = +inf (their slots hold no statistics)
+        const float lse = i < len ? st[il] : INFINITY, d = st[64 + il];
+        float p0 = hmmc::ex2(fmaf(sc[4 * n + e], kLog2, -lse));
+        float p1 = hmmc::ex2(fmaf(sc[4 * n + 2 + e], kLog2, -lse));
+        if (diag) {
+          if (j0 > i) p0 = 0.f;
+          if (j1 > i) p1 = 0.f;
+        }
+        dp[4 * n + e] = p0 * (dp[4 * n + e] - d) * kScale;
+        dp[4 * n + 2 + e] = p1 * (dp[4 * n + 2 + e] - d) * kScale;
+        sc[4 * n + e] = p0;
+        sc[4 * n + 2 + e] = p1;
       }
-    frag_product<D>(s, tg, lane, [&](int jj) { return diag && jj < warp; },
-                    dv);
-    frag_product<D>(dp, tq, lane, [&](int jj) { return diag && jj < warp; },
-                    dk);
-    __syncthreads();   // the stage is refilled two tiles on
+    uint32_t pa[4][4], da[4][4];   // P and dS as bf16 A operands
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hmmc::a_frag(sc, kk, pa[kk]);
+      hmmc::a_frag(dp, kk, da[kk]);
+    }
+    hmmc::fence_regs<kAcc>(dv);
+    hmmc::fence_regs<kAcc>(dk);
+    hmmc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hmmc::wgmma_rs_tile<D>(dv, pa[kk], tg, kk);
+      hmmc::wgmma_rs_tile<D>(dk, da[kk], tq, kk);
+    }
+    hmmc::wgmma_commit();
+    hmmc::wgmma_wait<0>();
+    hmmc::fence_regs<kAcc>(dv);
+    hmmc::fence_regs<kAcc>(dk);
+    hmmc::fence_frags(pa);
+    hmmc::fence_frags(da);
+    release(it);
   }
-  // only this warp reads its rows of the K and V tiles: stage dK, dV there
-  const int rows = len - k0;
-  bf16* dkb = static_cast<bf16*>(a.dk) + b * a.sdk.b + hh * a.sdk.h +
-              k0 * a.sdk.l;
-  bf16* dvb = static_cast<bf16*>(a.dv) + b * a.sdv.b + hh * a.sdv.h +
-              k0 * a.sdv.l;
-  hmmc::frags_to_tile<D>(smem, 16 * warp, dk, rows, lane);
-  hmmc::frags_to_tile<D>(smem + kTileBytes, 16 * warp, dv, rows, lane);
-  __syncwarp();
-  hmmc::tile_rows_to_global<D>(smem, 16 * warp, dkb, a.sdk.l, rows, lane);
-  hmmc::tile_rows_to_global<D>(smem + kTileBytes, 16 * warp, dvb, a.sdv.l,
-                               rows, lane);
+  if (!active) return;
+  const int k0 = kt * kTileRows;
+  store_rows<D>(sm.ptr + 2 * wg * kTile, dk, wwarp,
+                p.dk + b * p.sdk.b + hh * p.sdk.h + k0 * p.sdk.l, p.sdk.l,
+                len - k0, lane);
+  store_rows<D>(sm.ptr + 2 * wg * kTile + kTile, dv, wwarp,
+                p.dv + b * p.sdv.b + hh * p.sdv.h + k0 * p.sdv.l, p.sdv.l,
+                len - k0, lane);
 }
 
-template <int D>   // Q, g, then 2 x (K, V)
-constexpr size_t kSmemRows = 6 * hmmc::tile_bytes<D>();
-template <int D>   // K, V, then 2 x (Q, g, statistics)
-constexpr size_t kSmemKeys =
-    2 * hmmc::tile_bytes<D>() +
-    2 * (2 * hmmc::tile_bytes<D>() + 3 * kTileRows * 4);
+// Keys pass: CTA (kWG consecutive KV tiles, batch * head). Warpgroup w
+// owns KV tile kWG * blockIdx.y + w: its k and v tiles stay in shared
+// memory while thread 0 streams the Q tiles (causal: from the CTA's first
+// diagonal) with their rows' lse and D. Per Q tile, in fp32:
+//   S^T = k . q^T, dP^T = v . g^T      (wgmma, both operands in smem)
+//   P^T = 2^(S^T c - lse)  dS^T = P^T o (dP^T - D) scale
+//   dV += P^T g,  dK += dS^T q         (wgmma, A from registers, bf16)
+template <int D>
+__global__ void __launch_bounds__(kThreadsTiled, 1)
+attention_bwd_keys_kernel(const __grid_constant__ TiledParams p) {
+  constexpr int kTile = TmaTile<D>::kBytes;
+  extern __shared__ uint4 smem_raw[];
+  const SmemBase sm = aligned_smem(smem_raw);
+  const Ring ring(sm.addr + kResident<D> + kStages * kStageKeys<D>);
+  const int head = blockIdx.x, b = head / p.heads, hh = head - b * p.heads;
+  const int n_t = (p.len + kTileRows - 1) / kTileRows;   // Q and KV tiles
+  const int kt0 = kWG * blockIdx.y;
+  const int n_act = min(kWG, n_t - kt0);
+  const int first = p.causal ? kt0 : 0;   // no query before the CTA's keys
+  const int n_it = n_t - first;
+  const long long hoff = static_cast<long long>(head) * tiles_len(p.len);
+  // thread 0 issues every copy, as in the rows pass
+  const bool issuer = threadIdx.x == 0;
+  auto load = [&](int it) {   // the walk's it-th Q tile, its lse and D
+    const int s = it % kStages, q0 = (first + it) * kTileRows;
+    const uint32_t st = sm.addr + kResident<D> + s * kStageKeys<D>;
+    hmmc::mbar_expect_tx(ring.full(s), 2 * kTile + 512);
+    hmmc::tma_tile<D>(st, p.q, ring.full(s), q0, hh, b);
+    hmmc::tma_tile<D>(st + kTile, p.g, ring.full(s), q0, hh, b);
+    hmmc::bulk_load(st + 2 * kTile, p.lse + hoff + q0, 256, ring.full(s));
+    hmmc::bulk_load(st + 2 * kTile + 256, p.delta + hoff + q0, 256,
+                    ring.full(s));
+  };
+  if (issuer) {
+    ring.init();
+    hmmc::mbar_expect_tx(ring.full_a, 2 * kTile * n_act);
+    for (int w = 0; w < n_act; ++w) {
+      const uint32_t t = sm.addr + 2 * w * kTile;
+      hmmc::tma_tile<D>(t, p.k, ring.full_a, (kt0 + w) * kTileRows, hh, b);
+      hmmc::tma_tile<D>(t + kTile, p.v, ring.full_a, (kt0 + w) * kTileRows,
+                        hh, b);
+    }
+    for (int it = 0; it < min(kStages, n_it); ++it) load(it);
+  }
+  __syncthreads();
+  keys_consumer<D>(p, sm, ring, [&](int it) {
+    hmmc::mbar_arrive(ring.empty(it % kStages));
+    const int r = it - 1;
+    if (issuer && r >= 0 && r + kStages < n_it) {
+      hmmc::mbar_wait(ring.empty(r % kStages), (r / kStages) & 1);
+      load(r + kStages);
+    }
+  });
+}
+
+// cuTensorMapEncodeTiled, a driver entry point, through the runtime (the
+// library links no libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// byte stride of an axis for a tensor map: a multiple of 16 (the wrapper
+// checks every axis longer than 1; a length-1 axis takes any)
+inline cuuint64_t map_stride(long long elems, int extent) {
+  const long long bytes = 2 * elems;
+  if (extent == 1 && (bytes <= 0 || bytes % 16)) return 16;
+  return static_cast<cuuint64_t>(bytes);
+}
+
+// The two maps of a bf16 [B, H, L, D] view: 64-row boxes of block 0's 64
+// columns (128-byte swizzle) and of block 1's D - 64 (their width's
+// swizzle). Rows past L read as zeros.
+template <int D>
+bool make_maps(hmmc::TileMaps* m, const void* ptr, int batch, int heads,
+               int len, Strides s) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {map_stride(s.l, len), map_stride(s.h, heads),
+                                 map_stride(s.b, batch)};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const cuuint32_t box0[4] = {64, kTileRows, 1, 1};
+  void* base = const_cast<void*>(ptr);
+  if (enc(&m->m0, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides,
+          box0, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if constexpr (D > 64) {
+    const cuuint32_t box1[4] = {static_cast<cuuint32_t>(D - 64), kTileRows,
+                                1, 1};
+    const CUtensorMapSwizzle sw = D == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : D == 96 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+    if (enc(&m->m1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides,
+            box1, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return false;
+  }
+  return true;
+}
 
 template <int D>
-cudaError_t launch_tiled(const Args& a, int batch, float* stats,
-                         cudaStream_t stream) {
+cudaError_t launch_tiled(const Args& a, const TiledIn& in, int batch,
+                         float* delta, cudaStream_t stream) {
   static unsigned allowed_rows = 0, allowed_keys = 0;
+  TiledParams p{};
+  if (!make_maps<D>(&p.q, a.q, batch, a.heads, a.len, a.sq) ||
+      !make_maps<D>(&p.k, a.k, batch, a.heads, a.len, a.sk) ||
+      !make_maps<D>(&p.v, a.v, batch, a.heads, a.len, a.sv) ||
+      !make_maps<D>(&p.g, a.g, batch, a.heads, a.len, a.sg))
+    return cudaErrorInvalidValue;
+  p.o = static_cast<const __nv_bfloat16*>(in.o);
+  p.lse = in.lse;
+  p.delta = delta;
+  p.dq = static_cast<__nv_bfloat16*>(a.dq);
+  p.dk = static_cast<__nv_bfloat16*>(a.dk);
+  p.dv = static_cast<__nv_bfloat16*>(a.dv);
+  p.so = in.so;
+  p.sdq = a.sdq;
+  p.sdk = a.sdk;
+  p.sdv = a.sdv;
+  p.heads = a.heads;
+  p.len = a.len;
+  p.causal = a.causal;
   auto rows = attention_bwd_rows_kernel<D>;
   auto keys = attention_bwd_keys_kernel<D>;
   cudaError_t err = hmmc::allow_smem(rows, kSmemRows<D>, &allowed_rows);
   if (err != cudaSuccess) return err;
   err = hmmc::allow_smem(keys, kSmemKeys<D>, &allowed_keys);
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * a.heads, (a.len + kTileRows - 1) / kTileRows);
-  rows<<<grid, kWarpsBwd * 32, kSmemRows<D>, stream>>>(a, stats);
+  const int n_t = (a.len + kTileRows - 1) / kTileRows;
+  const dim3 grid(batch * a.heads, (n_t + kWG - 1) / kWG);
+  rows<<<grid, kThreadsTiled, kSmemRows<D>, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  keys<<<grid, kWarpsBwd * 32, kSmemKeys<D>, stream>>>(a, stats);
+  keys<<<grid, kThreadsTiled, kSmemKeys<D>, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1404,18 +1663,29 @@ cudaError_t launch_fp32_tiled(const Args& a, int batch, float* stats,
 }
 
 template <int D>
-cudaError_t run(const Args& a, int dtype, int batch, float* stats,
-                cudaStream_t st) {
+cudaError_t run(const Args& a, const TiledIn& in, int dtype, int batch,
+                float* stats, cudaStream_t st) {
   const bool tiled = a.len > short_max_len_bwd<D>(dtype);
   if (tiled && stats == nullptr) return cudaErrorInvalidValue;
   if (dtype == 0)
     return tiled ? launch_fp32_tiled<D>(a, batch, stats, st)
                  : dispatch_fp32<D>(a, batch, st);
-  if (dtype == 1)
-    return tiled ? launch_tiled<D>(a, batch, stats, st)
-                 : dispatch_mma<D>(a, batch, st);
+  if (dtype == 1) {
+    if (!tiled) return dispatch_mma<D>(a, batch, st);
+    // the tiled pair takes K1's output and statistics; it never makes its
+    // own
+    if (in.o == nullptr || in.lse == nullptr) return cudaErrorInvalidValue;
+    return launch_tiled<D>(a, in, batch, stats, st);
+  }
   return cudaErrorInvalidValue;
 }
+
+// the tiled pair takes K1's statistics, which K1 writes from this length
+static_assert(short_max_len_bwd<64>(1) >= hmmc::kStatsMinLen - 1 &&
+                  short_max_len_bwd<80>(1) >= hmmc::kStatsMinLen - 1 &&
+                  short_max_len_bwd<96>(1) >= hmmc::kStatsMinLen - 1 &&
+                  short_max_len_bwd<128>(1) >= hmmc::kStatsMinLen - 1,
+              "K2's bf16 tiled pair would run where K1 writes no statistics");
 
 template <int D>
 long long smem_bytes(int len, int dtype) {
@@ -1446,30 +1716,35 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim 64, 80, 96 or 128. strides:
 // the batch, head and sequence strides (in elements) of q, k, v, g, dq, dk,
-// dv, in that order (21 values). L above the short body's limit
+// dv and o, in that order (24 values). L above the short body's limit
 // (hmmc_fused_attention_bwd_short_max_len) takes the tiled pair of
 // kernels, which needs `stats`: fp32 scratch of
 // hmmc_fused_attention_bwd_stats_floats(len, dtype, head_dim) floats per
-// (batch, head), 16-byte aligned. Returns a cudaError_t as int
-// (cudaErrorInvalidValue for any other head_dim).
+// (batch, head), 16-byte aligned. In bfloat16 the tiled pair also needs K1's
+// output `o` and its statistics `lse` (hmmc_fused_attention_fwd's, rows
+// of tiles_len(L) floats a head); without them it returns
+// cudaErrorInvalidValue, as for any other head_dim.
 int hmmc_fused_attention_bwd(const void* q, const void* k, const void* v,
-                             const void* g, void* dq, void* dk, void* dv,
-                             int dtype, int batch, int heads, int len,
-                             int head_dim, const long long* strides,
-                             float* stats, int causal, void* stream) {
+                             const void* g, const void* o, const float* lse,
+                             void* dq, void* dk, void* dv, int dtype,
+                             int batch, int heads, int len, int head_dim,
+                             const long long* strides, float* stats,
+                             int causal, void* stream) {
   if (len < 1 || batch < 1 || heads < 1 || strides == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  Strides s[7];
-  for (int i = 0; i < 7; ++i)
+  Strides s[8];
+  for (int i = 0; i < 8; ++i)
     s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const Args a{q,    k,    v,    g,    dq,   dk,   dv,  heads, len,
                causal, s[0], s[1], s[2], s[3], s[4], s[5], s[6]};
+  const TiledIn in{o, lse, s[7]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return static_cast<int>(run<64>(a, dtype, batch, stats, st));
-    case 80: return static_cast<int>(run<80>(a, dtype, batch, stats, st));
-    case 96: return static_cast<int>(run<96>(a, dtype, batch, stats, st));
-    case 128: return static_cast<int>(run<128>(a, dtype, batch, stats, st));
+    case 64: return static_cast<int>(run<64>(a, in, dtype, batch, stats, st));
+    case 80: return static_cast<int>(run<80>(a, in, dtype, batch, stats, st));
+    case 96: return static_cast<int>(run<96>(a, in, dtype, batch, stats, st));
+    case 128:
+      return static_cast<int>(run<128>(a, in, dtype, batch, stats, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1481,10 +1756,12 @@ int hmmc_fused_attention_bwd_short_max_len(int dtype, int head_dim) {
   return short_max_len(dtype, head_dim);
 }
 
-// fp32 scratch floats per (batch, head) the tiled pair needs (0: short).
+// fp32 scratch floats per (batch, head) the tiled pair needs (0: short):
+// the fp32 pair's three statistics planes, the bf16 pair's D.
 long long hmmc_fused_attention_bwd_stats_floats(int len, int dtype,
                                                 int head_dim) {
-  return len > short_max_len(dtype, head_dim) ? stats_floats(len) : 0;
+  if (len <= short_max_len(dtype, head_dim)) return 0;
+  return dtype == 1 ? tiles_len(len) : stats_floats(len);
 }
 
 // Dynamic shared memory per CTA; for the tiled pair, the larger of the two

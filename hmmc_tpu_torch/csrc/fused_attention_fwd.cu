@@ -5,9 +5,14 @@
 //   logits = (q . k^T in fp32) * head_dim^-0.5     [causal: keep cols <= rows]
 //   P      = fp32 row softmax (max, exp, divide by the sum)
 //   o      = (P rounded to v's dtype) . v, fp32 accumulation, stored in q's dtype
-// No log-sum-exp is saved and no [L, L] tensor reaches device memory. Two
-// bodies, chosen by L: the short ones (L <= 128, one CTA per head, the
-// whole row of keys on chip) and the tiled ones (L > 128).
+// No [L, L] tensor reaches device memory. Where a gradient will flow to
+// K2's bf16 tiled pair (L past K2's short limit), the bf16 bodies also
+// write each row's log-sum-exp of its scaled logits in log2 units (`lse`,
+// rows of L rounded up to 64 floats a head; write_lse): K2 takes P from it
+// instead of walking the logits again. Inference writes none. Two bodies,
+// chosen by L: the short ones (L <= 128, one CTA per head, the whole row
+// of keys on chip) and the tiled ones (L > 128); the tiled one writes
+// them in an instance of its own, so inference runs its earlier code.
 //
 // Head_dim D is 64, 80, 96 or 128, each a compile-time instance of every
 // body (template parameter D; the entry point picks it by head_dim and
@@ -63,12 +68,12 @@
 // where the plain version divides first: bf16 results are not bitwise the
 // plain version's (within one output ulp: atol 1e-2, rtol 2^-7), and the
 // short bodies stay for L <= 128 (every bitwise check of the earlier
-// paths, and at L = 50 the tiled body is 6% slower: hmmc_tpu_torch/tools/
-// attention_bodies.py). Only the tiles that hold a masked pair (the causal
+// paths, and at L = 50 the tiled body measured 6% slower when it was
+// added, PERF.md). Only the tiles that hold a masked pair (the causal
 // diagonal, the ragged last tile) are masked, the logits stay unscaled
 // and exp((s - m) * scale) is one ex2 of an FMA (masking every tile
-// measured within the run-to-run spread at L = 577 here, 13% in K2:
-// hmmc_tpu_torch/tools/attention_split.py); causal skips the tiles past
+// measured within the run-to-run spread at L = 577 here, 13% in the first
+// tiled K2); causal skips the tiles past
 // the diagonal. Per CTA: 5 x 64 x 2D bytes of shared memory (Q and two
 // (K, V) stages: 40,960 at D = 64), 97 registers at D = 64 (97-137 over
 // the D), no spills.
@@ -118,7 +123,23 @@ struct Args {
   __nv_bfloat16* o;
   int heads, len, causal, heads_total;
   Strides sq, sk, sv, so;
+  float* lse;   // optional: per-row statistics, tiles_len(L) floats a head
 };
+
+constexpr float kLog2e = 0x1.715476p+0f;   // log2(e) rounded to fp32
+
+// Row statistics for K2 (rows below len, one lane of each quad): the
+// log-sum-exp of the row's scaled logits in log2 units, lse = m + log2(sum)
+// for the row's max m (in log2 units) and sum of 2^(logit - m), so that
+// K2 takes P = 2^(unscaled logit x Scale<D>::kLog2 - lse).
+__device__ __forceinline__ void write_lse(float* lse, int head, int len,
+                                          int r, float m0, float m1,
+                                          float sum0, float sum1, int lane) {
+  if (lse == nullptr || (lane & 3) != 0) return;
+  float* row = lse + static_cast<long long>(head) * hmmc::tiles_len(len);
+  if (r < len) row[r] = m0 + __log2f(sum0);
+  if (r + 8 < len) row[r + 8] = m1 + __log2f(sum1);
+}
 
 // NT = Lp / 16 row (and key) tiles of 16.
 template <int D, int NT>
@@ -212,8 +233,12 @@ attention_fwd_mma_kernel(Args a) {
           sum0 += s[n][e];
           sum1 += s[n][2 + e];
         }
-      const float inv0 = 1.f / hmmc::quad_sum(sum0);
-      const float inv1 = 1.f / hmmc::quad_sum(sum1);
+      sum0 = hmmc::quad_sum(sum0);
+      sum1 = hmmc::quad_sum(sum1);
+      const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+      if constexpr (16 * NT >= hmmc::kStatsMinLen)
+        write_lse(a.lse, head, len, r, m0 * kLog2e, m1 * kLog2e, sum0, sum1,
+                  lane);
 
       // o = (P rounded to bf16) . v: the C fragments of key tiles 2j and
       // 2j + 1, divided and packed, are the A fragment of k-step j
@@ -298,7 +323,9 @@ __device__ __forceinline__ void mask_tile(float (&s)[8][4], int k0, int r,
 
 // CTA (blockIdx.y, blockIdx.x) = (Q tile, batch * head): 4 warps, 16 query
 // rows each. Shared memory: the Q tile, then two stages of (K, V) tiles.
-template <int D>
+// kStats: the instance that writes the row statistics (a.lse), so the
+// inference instance keeps its code and registers.
+template <int D, bool kStats>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 attention_fwd_tiled_kernel(Args a) {
   constexpr int kTileBytes = hmmc::tile_bytes<D>();
@@ -414,8 +441,12 @@ attention_fwd_tiled_kernel(Args a) {
     }
     __syncthreads();   // the stage is refilled two tiles on
   }
-  const float inv0 = 1.f / hmmc::quad_sum(l0);
-  const float inv1 = 1.f / hmmc::quad_sum(l1);
+  l0 = hmmc::quad_sum(l0);
+  l1 = hmmc::quad_sum(l1);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if constexpr (kStats)
+    write_lse(a.lse, head, len, r, m0 * kScaleLog2, m1 * kScaleLog2, l0, l1,
+              lane);
 #pragma unroll
   for (int n = 0; n < Row<D>::kNTiles; ++n) {
     o[n][0] *= inv0;
@@ -434,15 +465,21 @@ attention_fwd_tiled_kernel(Args a) {
 template <int D>   // Q, then 2 x (K, V)
 constexpr size_t kSmemTiled = 5 * hmmc::tile_bytes<D>();
 
-template <int D>
-cudaError_t launch_tiled(const Args& a, cudaStream_t stream) {
+template <int D, bool kStats>
+cudaError_t launch_tiled_as(const Args& a, cudaStream_t stream) {
   static unsigned allowed = 0;
-  auto kernel = attention_fwd_tiled_kernel<D>;
+  auto kernel = attention_fwd_tiled_kernel<D, kStats>;
   const cudaError_t err = hmmc::allow_smem(kernel, kSmemTiled<D>, &allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.heads_total, (a.len + kTileRows - 1) / kTileRows);
   kernel<<<grid, kMmaWarps * 32, kSmemTiled<D>, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_tiled(const Args& a, cudaStream_t stream) {
+  return a.lse != nullptr ? launch_tiled_as<D, true>(a, stream)
+                          : launch_tiled_as<D, false>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -863,21 +900,23 @@ static_assert(smem_bytes_mma<128>(kMaxLen) <= hmmc::kMaxSmem &&
 template <int D>
 cudaError_t run(const void* q, const void* k, const void* v, void* o,
                 int dtype, int batch, int heads, int len, Strides sq,
-                Strides sk, Strides sv, Strides so, int causal,
+                Strides sk, Strides sv, Strides so, int causal, float* lse,
                 cudaStream_t s) {
   const bool tiled = len > kMaxLen;
-  if (dtype == 0)
+  if (dtype == 0) {
+    if (lse != nullptr) return cudaErrorInvalidValue;   // bf16 only
     return tiled ? launch_fp32_tiled<D>(q, k, v, o, batch, heads, len, sq, sk,
                                         sv, so, causal, s)
                  : dispatch_fp32<D>(q, k, v, o, batch, heads, len, sq, sk, sv,
                                     so, causal, s);
+  }
   if (dtype == 1) {
     const Args a{static_cast<const __nv_bfloat16*>(q),
                  static_cast<const __nv_bfloat16*>(k),
                  static_cast<const __nv_bfloat16*>(v),
                  static_cast<__nv_bfloat16*>(o),
                  heads, len, causal, batch * heads,
-                 sq, sk, sv, so};
+                 sq, sk, sv, so, lse};
     return tiled ? launch_tiled<D>(a, s) : dispatch_mma<D>(a, s);
   }
   return cudaErrorInvalidValue;
@@ -896,8 +935,12 @@ long long smem_bytes(int len, int dtype) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim 64, 80, 96 or 128. Returns a
-// cudaError_t as int (cudaErrorInvalidValue for any other head_dim).
+// dtype: 0 = float32, 1 = bfloat16; head_dim 64, 80, 96 or 128. `lse`,
+// where not null (bfloat16, L >= hmmc::kStatsMinLen), receives each row's
+// log-sum-exp of its scaled logits in log2 units, tiles_len(L) floats per
+// (batch, head), rows below L written (K2's tiled pair reads them).
+// Returns a cudaError_t as int (cudaErrorInvalidValue for any other
+// head_dim, or `lse` in float32 or below that length).
 int hmmc_fused_attention_fwd(const void* q, const void* k, const void* v,
                              void* o, int dtype, int batch, int heads,
                              int len, int head_dim, long long q_sb,
@@ -905,8 +948,9 @@ int hmmc_fused_attention_fwd(const void* q, const void* k, const void* v,
                              long long k_sh, long long k_sl, long long v_sb,
                              long long v_sh, long long v_sl, long long o_sb,
                              long long o_sh, long long o_sl, int causal,
-                             void* stream) {
-  if (len < 1 || batch < 1 || heads < 1)
+                             void* stream, float* lse) {
+  if (len < 1 || batch < 1 || heads < 1 ||
+      (lse != nullptr && len < hmmc::kStatsMinLen))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides sq{q_sb, q_sh, q_sl}, sk{k_sb, k_sh, k_sl},
       sv{v_sb, v_sh, v_sl}, so{o_sb, o_sh, o_sl};
@@ -914,16 +958,16 @@ int hmmc_fused_attention_fwd(const void* q, const void* k, const void* v,
   switch (head_dim) {
     case 64:
       return static_cast<int>(run<64>(q, k, v, o, dtype, batch, heads, len,
-                                      sq, sk, sv, so, causal, s));
+                                      sq, sk, sv, so, causal, lse, s));
     case 80:
       return static_cast<int>(run<80>(q, k, v, o, dtype, batch, heads, len,
-                                      sq, sk, sv, so, causal, s));
+                                      sq, sk, sv, so, causal, lse, s));
     case 96:
       return static_cast<int>(run<96>(q, k, v, o, dtype, batch, heads, len,
-                                      sq, sk, sv, so, causal, s));
+                                      sq, sk, sv, so, causal, lse, s));
     case 128:
       return static_cast<int>(run<128>(q, k, v, o, dtype, batch, heads, len,
-                                       sq, sk, sv, so, causal, s));
+                                       sq, sk, sv, so, causal, lse, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -13,17 +13,25 @@ instance of every body; the temporal transformer's head_dim is embed_dim /
 the short one (one CTA per head, the whole [L, L] row block on chip) up to
 :data:`SHORT_MAX_LEN` (K2: :func:`short_max_len_backward`, by dtype and
 head_dim), and the tiled one past it (64-row tiles; K1 an online softmax
-over a ring of KV tiles, K2 a rows pass that leaves fp32 row statistics in
-scratch and a keys pass, no atomics). In bfloat16 their products run on
-the tensor cores and heads are staged by 16-byte copies; every pointer and
-batch / head / sequence stride must be 16-byte aligned (float32, the
-reference checks, keeps CUDA-core bodies with 16-byte loads too).
+over a ring of KV tiles, K2 a rows pass and a keys pass on Hopper's
+warpgroup products with TMA staging, no atomics). In bfloat16 their
+products run on the tensor cores; every pointer and batch / head /
+sequence stride must be 16-byte aligned (float32, the reference checks,
+keeps CUDA-core bodies with 16-byte loads too).
+
+K2's bf16 tiled pair takes K1's output and K1's row statistics (the
+log-sum-exp of each row's scaled logits in log2 units, ``lse``) instead of
+walking the logits for them: :func:`saves_statistics` says where, and
+there K1 writes them when asked (``with_stats``) and K2 refuses to run
+without them.
 
 :func:`fused_attention` is the entry point: its forward is K1 and its
 backward K2, and it saves q, k and v for the backward as the JAX
-``custom_vjp`` does. Device rule: a CUDA tensor launches the kernels or
-raises; a CPU tensor takes the plain forward and the plain backward, inside
-the same Function. There is no fallback from one to the other.
+``custom_vjp`` does, and, where K2 will run its bf16 tiled pair, K1's
+output and statistics beside them. Device rule: a CUDA tensor launches the
+kernels or raises; a CPU tensor takes the plain forward and the plain
+backward, inside the same Function. There is no fallback from one to the
+other.
 ``fused_attention.launches`` and ``fused_attention_backward.launches`` count
 the wrappers' launches (a tiled K2 call, two kernels, counts once);
 ``short_launches`` and ``tiled_launches`` on each split them by body, and
@@ -49,6 +57,13 @@ SHORT_MAX_LEN = 128      # K1's short body's longest L at every head_dim;
 SHORT_MAX_LEN_BWD = {torch.bfloat16: {64: 128, 80: 128, 96: 112, 128: 112},
                      torch.float32: {64: 112, 80: 96, 96: 96, 128: 80}}
 ALIGN = 16               # bytes: the bf16 kernels' copies are 16 bytes
+TILE_ROWS = 64           # the tiled bodies' tile; K1's statistics are rows
+                         # of L rounded up to it
+# the shortest L at which K2 runs its bf16 tiled pair at some head_dim
+# (K2's short limits are 112 and 128 in bf16): K1 writes its statistics
+# from here (attention_mma.cuh's kStatsMinLen)
+STATS_MIN_LEN = min(SHORT_MAX_LEN_BWD[torch.bfloat16].values()) + 1
+_LOG2E = 1.4426950408889634
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -60,17 +75,22 @@ def _causal_fill(logits: torch.Tensor) -> torch.Tensor:
 
 
 def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor,
-                              causal: bool = False) -> torch.Tensor:
+                              v: torch.Tensor, causal: bool = False,
+                              with_stats: bool = False):
     """Plain version of K1 with the kernel's casts (``_attention_reference``
     in the JAX package): fp32 logits and softmax, P cast to v's dtype, the
-    product accumulated in fp32 and returned in q's dtype."""
+    product accumulated in fp32 and returned in q's dtype. ``with_stats``:
+    also each row's log-sum-exp of its fp32 logits in log2 units, [B, H,
+    L] fp32, the statistics K1 saves for K2."""
     d = q.shape[-1]
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d ** -0.5
     if causal:
         logits = _causal_fill(logits)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(w.float(), v.float()).to(q.dtype)
+    o = torch.matmul(w.float(), v.float()).to(q.dtype)
+    if not with_stats:
+        return o
+    return o, torch.logsumexp(logits, dim=-1) * _LOG2E
 
 
 def fused_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
@@ -126,6 +146,20 @@ def kernel_body(seq_len: int, dtype: torch.dtype, head_dim: int,
     limit = (short_max_len_backward(dtype, head_dim) if backward
              else SHORT_MAX_LEN)
     return "short" if seq_len <= limit else "tiled"
+
+
+def saves_statistics(seq_len: int, dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether K2 runs its bf16 tiled pair here, which takes K1's output
+    and row statistics (so the forward keeps them for the backward)."""
+    return (dtype == torch.bfloat16 and head_dim in HEAD_DIMS
+            and kernel_body(seq_len, dtype, head_dim, backward=True)
+            == "tiled")
+
+
+def tiles_len(seq_len: int) -> int:
+    """L rounded up to whole 64-row tiles: the row stride of K1's
+    statistics, so K2 reads a tile's 64 values as one aligned block."""
+    return -(-seq_len // TILE_ROWS) * TILE_ROWS
 
 
 def is_aligned(t: torch.Tensor) -> bool:
@@ -191,7 +225,8 @@ def _library() -> ctypes.CDLL:
     lib = _load("fused_attention_fwd")
     lib.hmmc_fused_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-        + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_longlong] * 12
+        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     lib.hmmc_fused_attention_fwd.restype = ctypes.c_int
     lib.hmmc_fused_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.hmmc_fused_attention_smem_bytes.restype = ctypes.c_longlong
@@ -206,7 +241,7 @@ def _library() -> ctypes.CDLL:
 def _library_bwd() -> ctypes.CDLL:
     lib = _load("fused_attention_bwd")
     lib.hmmc_fused_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p, ctypes.c_int,
            ctypes.c_void_p])
     lib.hmmc_fused_attention_bwd.restype = ctypes.c_int
@@ -272,7 +307,7 @@ def _on_device(t: torch.Tensor):
 
 @functools.lru_cache(maxsize=256)
 def _stride_array(strides: Tuple[int, ...]) -> ctypes.Array:
-    """K2's 21 strides as a C array, made once per stride pattern."""
+    """K2's 24 strides as a C array, made once per stride pattern."""
     return (ctypes.c_longlong * len(strides))(*strides)
 
 
@@ -294,17 +329,29 @@ def _count(fn, body: str, head_dim: int) -> None:
 
 
 def fused_attention_forward(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor,
-                            causal: bool = False) -> torch.Tensor:
+                            v: torch.Tensor, causal: bool = False,
+                            with_stats: bool = False):
     """K1's wrapper, without autograd: q, k, v [B, H, L, D] -> [B, H, L, D]
     in q's dtype. CPU tensors take :func:`fused_attention_reference`; on
     CUDA the inputs may be strided views (head splits of a packed qkv
-    projection: no copy is made)."""
+    projection: no copy is made). ``with_stats``: also the rows'
+    log-sum-exp in log2 units, [B, H, L] fp32 (on CUDA a view of rows of
+    :func:`tiles_len` floats, bf16 and L >= :data:`STATS_MIN_LEN` only:
+    K2's fp32 and short bodies take none)."""
     _check_common(q, k, v)
     if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, causal)
+        return fused_attention_reference(q, k, v, causal, with_stats)
     _check_kernel(q, k, v)
     b, h, l, d = q.shape
+    lse = None
+    if with_stats:
+        if q.dtype != torch.bfloat16 or l < STATS_MIN_LEN:
+            raise ValueError(
+                f"K1 writes row statistics in bfloat16 only and from L = "
+                f"{STATS_MIN_LEN} (where K2's tiled pair can run); got "
+                f"{q.dtype} at L = {l}")
+        lse = torch.empty(b, h, tiles_len(l), dtype=torch.float32,
+                          device=q.device)[..., :l]
     o = _head_major(q)
     _check_aligned(o=o)
     lib = _library()
@@ -314,22 +361,53 @@ def fused_attention_forward(q: torch.Tensor, k: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             _DTYPE_CODES[q.dtype], b, h, l, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            int(bool(causal)), stream)
+            int(bool(causal)), stream, None if lse is None else lse.data_ptr())
     _raise_on(err, lib, "fused attention forward", q)
     _count(fused_attention, kernel_body(l, q.dtype, d), d)
-    return o
+    return o if lse is None else (o, lse)
+
+
+def _check_saved(q: torch.Tensor, o, lse) -> None:
+    """K2's bf16 tiled pair reads K1's output ``o`` and statistics ``lse``
+    (as :func:`fused_attention_forward` returns them with ``with_stats``):
+    raise unless both are there in that form."""
+    b, h, l, d = q.shape
+    if o is None or lse is None:
+        raise ValueError(
+            f"K2's bfloat16 tiled body (L = {l} past the short limit "
+            f"{short_max_len_backward(q.dtype, d)} at head_dim {d}) takes "
+            "K1's output and row statistics: pass o and lse from "
+            "fused_attention_forward(..., with_stats=True)")
+    if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device \
+            or o.stride(-1) != 1:
+        raise ValueError(
+            f"o must be K1's output for q: {tuple(o.shape)} {o.dtype} "
+            f"{o.device} strides {o.stride()} vs {tuple(q.shape)} {q.dtype}")
+    _check_aligned(o=o)
+    lp = tiles_len(l)
+    if lse.shape != (b, h, l) or lse.dtype != torch.float32 \
+            or lse.device != q.device or lse.stride() != (h * lp, lp, 1) \
+            or lse.data_ptr() % ALIGN:
+        raise ValueError(
+            f"lse must be K1's row statistics for q: fp32 [B, H, L] rows of "
+            f"{lp} floats; got {tuple(lse.shape)} {lse.dtype} strides "
+            f"{lse.stride()}")
 
 
 def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, g: torch.Tensor,
-                             causal: bool = False) -> Grads:
+                             causal: bool = False, o=None, lse=None) -> Grads:
     """K2's wrapper: (dq, dk, dv) of :func:`fused_attention` at q, k, v for
     the output gradient ``g``, each [B, H, L, D] in q's dtype. CPU tensors
-    take :func:`fused_attention_backward_reference`. On CUDA, q, k, v and g
-    are read through their strides; a ``g`` whose last axis is not unit
-    stride (an expanded gradient) or that is not 16-byte aligned is copied
-    once to a fresh contiguous tensor. The tiled body takes fp32 scratch
-    for its row statistics (3 x L rounded up to 64 floats per head)."""
+    take :func:`fused_attention_backward_reference` (``o`` and ``lse`` are
+    not needed there). On CUDA, q, k, v and g are read through their
+    strides; a ``g`` whose last axis is not unit stride (an expanded
+    gradient) or that is not 16-byte aligned is copied once to a fresh
+    contiguous tensor. Where :func:`saves_statistics` holds, K1's output
+    ``o`` and statistics ``lse`` are required (it raises without them) and
+    the pair takes fp32 scratch for the rows' D (:func:`tiles_len` floats a
+    head); the fp32 tiled pair takes scratch for its own statistics (3 x
+    that)."""
     _check_common(q, k, v)
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(
@@ -338,14 +416,19 @@ def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return fused_attention_backward_reference(q, k, v, g, causal)
     _check_kernel(q, k, v)
+    b, h, l, d = q.shape
+    if saves_statistics(l, q.dtype, d):
+        _check_saved(q, o, lse)
+    else:
+        o = lse = None
     if g.stride(-1) != 1 or not is_aligned(g):
         g = g.clone(memory_format=torch.contiguous_format)
-    b, h, l, d = q.shape
     dq, dk, dv = _head_major(q), _head_major(q), _head_major(q)
     _check_aligned(dq=dq, dk=dk, dv=dv)
     strides = _stride_array(
         q.stride()[:3] + k.stride()[:3] + v.stride()[:3] + g.stride()[:3]
-        + dq.stride()[:3] * 3)
+        + dq.stride()[:3] * 3 + (o.stride()[:3] if o is not None
+                                 else (0, 0, 0)))
     lib = _library_bwd()
     code = _DTYPE_CODES[q.dtype]
     stats = None
@@ -357,6 +440,8 @@ def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.hmmc_fused_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            None if o is None else o.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             code, b, h, l, d, strides,
             None if stats is None else stats.data_ptr(), int(bool(causal)),
@@ -369,18 +454,26 @@ def fused_attention_backward(q: torch.Tensor, k: torch.Tensor,
 
 class _FusedAttention(torch.autograd.Function):
     """Forward K1, backward K2; q, k, v are saved for the backward (the
-    JAX ``custom_vjp``'s residuals)."""
+    JAX ``custom_vjp``'s residuals), and where K2 runs its bf16 tiled pair
+    (:func:`saves_statistics`) K1's output and row statistics too (the
+    output's storage is the one the out-projection keeps anyway)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
         ctx.causal = causal
+        b, h, l, d = q.shape
+        if saves_statistics(l, q.dtype, d):
+            o, lse = fused_attention_forward(q, k, v, causal, with_stats=True)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
         ctx.save_for_backward(q, k, v)
         return fused_attention_forward(q, k, v, causal)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = fused_attention_backward(q, k, v, g, ctx.causal)
+        q, k, v, *saved = ctx.saved_tensors
+        o, lse = saved if saved else (None, None)
+        dq, dk, dv = fused_attention_backward(q, k, v, g, ctx.causal, o, lse)
         return dq, dk, dv, None
 
 

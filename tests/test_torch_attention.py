@@ -13,12 +13,15 @@ card at every head_dim they are built for (64, 80, 96, 128), both bodies
 of each (short up to 128, K2's up to 128, 112, 96 or 80 by dtype and
 head_dim, and tiled past it; the plain versions at the tiled bodies'
 lengths and at the other head_dims are held to JAX in
-tests/test_torch_model.py), and the gradients of an attention block on
-the card against the CPU; they skip without one.
+tests/test_torch_model.py), K1's row statistics against the plain
+version's, and the gradients of an attention block on the card against the
+CPU; they skip without one. K2's bf16 tiled pair is called as the autograd
+Function calls it, with K1's output and statistics (``_k2``).
 """
 
 import functools
 import os
+import re
 import subprocess
 import sys
 
@@ -29,15 +32,21 @@ import torch
 from hmmc_tpu_torch.models.layers import ResidualAttentionBlock
 from hmmc_tpu_torch.ops.attention import causal_mask, multi_head_attention
 from hmmc_tpu_torch.ops import kernel_build
+from hmmc_tpu_torch.ops import fused_attention as fa
 from hmmc_tpu_torch.ops.fused_attention import (
     HEAD_DIMS, SHORT_MAX_LEN, SHORT_MAX_LEN_BWD, check_kernel_inputs,
     fused_attention, fused_attention_backward,
-    fused_attention_backward_reference, fused_attention_reference,
-    kernel_body, kernel_heads_per_cta, kernel_short_max_len,
-    reset_launch_counts, short_max_len_backward)
+    fused_attention_backward_reference, fused_attention_forward,
+    fused_attention_reference, kernel_body, kernel_heads_per_cta,
+    kernel_short_max_len, reset_launch_counts, saves_statistics,
+    short_max_len_backward, tiles_len)
 
 ATOL, RTOL = 2e-5, 1e-4
 GRAD_ATOL, GRAD_RTOL = 5e-5, 1e-3
+# K1's statistics (fp32, log2 units) against the plain version's: the
+# kernel sums exact products in another order and takes ex2 / lg2
+# approximations (about 2^-22 relative each)
+STATS_ATOL, STATS_RTOL = 1e-4, 1e-5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 try:  # the reference; the card's machine has no JAX and runs the gpu tests
@@ -371,9 +380,107 @@ def test_import_needs_neither_nvcc_nor_triton():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
+@pytest.mark.parametrize("l", [113, 129, 197, 577])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_statistics_are_the_log_sum_exp(causal, l):
+    """The plain K1's statistics are each row's log-sum-exp of its fp32
+    scaled logits in log2 units (float64 here), so 2^(logits log2 e - lse)
+    is the softmax: rows summing to 1, masked keys 0."""
+    rng = np.random.default_rng(l + causal)
+    q, k, v = (torch.tensor(_normal(rng, 2, 3, l, 64)) for _ in range(3))
+    o, lse = fused_attention_reference(q, k, v, causal, with_stats=True)
+    assert lse.shape == (2, 3, l) and lse.dtype == torch.float32
+    torch.testing.assert_close(o, fused_attention_reference(q, k, v, causal),
+                               rtol=0, atol=0)
+    logits = (q.double() @ k.double().transpose(-1, -2)) * 64 ** -0.5
+    keep = torch.ones(l, l, dtype=torch.bool)
+    if causal:
+        keep = keep.tril()
+    logits = logits.masked_fill(~keep, -np.inf) * np.log2(np.e)
+    m = logits.amax(-1, keepdim=True)
+    want = m[..., 0] + torch.log2(torch.exp2(logits - m).sum(-1))
+    torch.testing.assert_close(lse.double(), want, atol=STATS_ATOL,
+                               rtol=STATS_RTOL)
+    p = torch.exp2(logits - lse.double()[..., None])
+    torch.testing.assert_close(p.sum(-1), torch.ones(2, 3, l, dtype=p.dtype),
+                               atol=1e-5, rtol=0)
+    assert not p.masked_select(~keep).any()
+
+
+def test_function_saves_statistics_only_when_a_gradient_flows(monkeypatch):
+    """The Function asks K1 for its statistics, and saves them with its
+    output beside q, k, v, only where K2 runs its bf16 tiled pair and a
+    gradient flows; inference takes K1 without them. The CPU results are
+    the plain versions' either way."""
+    asked = []
+    real = fa.fused_attention_forward
+
+    def spy(*args, **kw):
+        asked.append(kw.get("with_stats", False))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(fa, "fused_attention_forward", spy)
+    rng = np.random.default_rng(11)
+    for l, dtype, d, saved in ((129, torch.bfloat16, 64, 5),
+                               (113, torch.bfloat16, 96, 5),
+                               (113, torch.bfloat16, 64, 3),
+                               (50, torch.bfloat16, 64, 3),
+                               (577, torch.float32, 64, 3)):
+        assert saves_statistics(l, dtype, d) == (saved == 5)
+        q, k, v, g = (torch.tensor(_normal(rng, 1, 2, l, d)).to(dtype)
+                      for _ in range(4))
+        asked.clear()
+        with torch.no_grad():
+            plain = fused_attention(q, k, v)
+        assert asked == [False]
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        asked.clear()
+        out = fused_attention(*leaves)
+        assert asked == [saved == 5]
+        tensors = out.grad_fn.saved_tensors
+        assert len(tensors) == saved
+        if saved == 5:
+            assert torch.equal(tensors[3], out)
+            assert tensors[4].shape == (1, 2, l)
+            assert tensors[4].dtype == torch.float32
+        assert torch.equal(out.detach(), plain)
+        assert torch.equal(plain, fused_attention_reference(q, k, v))
+        out.backward(g)
+        for t, want in zip(leaves, fused_attention_backward_reference(
+                q, k, v, g)):
+            assert torch.equal(t.grad, want)
+
+
+def test_tiles_len_is_whole_tiles():
+    """K1's statistics rows (and K2's D scratch) are L rounded up to whole
+    64-row tiles, the row stride K2's tiled pair reads them by; K1 writes
+    them from the shortest L at which K2's bf16 pair runs, the length the
+    CUDA source holds too."""
+    assert [tiles_len(l) for l in (1, 64, 65, 113, 129, 577)] == [
+        64, 64, 128, 128, 192, 640]
+    src = open(os.path.join(REPO, "hmmc_tpu_torch", "csrc",
+                            "attention_mma.cuh")).read()
+    assert int(re.search(r"kStatsMinLen = (\d+);", src).group(1)) \
+        == fa.STATS_MIN_LEN == 113
+    for d in HEAD_DIMS:
+        assert not saves_statistics(fa.STATS_MIN_LEN - 1, torch.bfloat16, d)
+    assert saves_statistics(fa.STATS_MIN_LEN, torch.bfloat16, 96)
+
+
 # ---------------------------------------------------------------------------
 # on the card: the CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
+
+def _k2(q, k, v, go, causal=False):
+    """K2 as the autograd Function calls it: where its bf16 tiled pair
+    runs, with the output and statistics of one K1 launch."""
+    b, h, l, d = q.shape
+    saved = {}
+    if saves_statistics(l, q.dtype, d):
+        o, lse = fused_attention_forward(q, k, v, causal, with_stats=True)
+        saved = dict(o=o, lse=lse)
+    return fused_attention_backward(q, k, v, go, causal, **saved)
+
 
 @pytest.fixture
 def cuda():
@@ -435,7 +542,7 @@ def test_backward_kernel_matches_plain_on_card(cuda, dtype, b, h, l, causal):
     go = torch.randn(b, l, h, 64, device=cuda, generator=g).to(dtype)
     go = go.transpose(1, 2)
     before = fused_attention_backward.launches
-    got = fused_attention_backward(q, k, v, go, causal)
+    got = _k2(q, k, v, go, causal)
     torch.cuda.synchronize()
     assert fused_attention_backward.launches == before + 1
     ref = fused_attention_backward_reference(q, k, v, go, causal)
@@ -581,8 +688,8 @@ def test_backward_kernel_length_sweep_on_card(cuda, dtype, causal, l, d):
     before = (fused_attention_backward.launches,
               getattr(fused_attention_backward, f"{body}_launches"),
               fused_attention_backward.head_dim_launches[d])
-    got = fused_attention_backward(q, k, v, go, causal)
-    again = fused_attention_backward(q, k, v, go, causal)
+    got = _k2(q, k, v, go, causal)
+    again = _k2(q, k, v, go, causal)
     torch.cuda.synchronize()
     assert (fused_attention_backward.launches,
             getattr(fused_attention_backward, f"{body}_launches"),
@@ -632,8 +739,11 @@ def test_kernel_bodies_and_counters_on_card(cuda):
     reset_launch_counts()
     for l, d in ((50, 64), (577, 96)):
         q, k, v, go = _packed_qkv(cuda, torch.bfloat16, 2, 3, l, l, d)
-        fused_attention(q, k, v)
-        fused_attention_backward(q, k, v, go)
+        if saves_statistics(l, torch.bfloat16, d):
+            _k2(q, k, v, go)   # one K1 launch with statistics, one K2
+        else:
+            fused_attention(q, k, v)
+            fused_attention_backward(q, k, v, go)
     torch.cuda.synchronize()
     for fn in (fused_attention, fused_attention_backward):
         assert (fn.launches, fn.short_launches, fn.tiled_launches) == (2, 1, 1)
@@ -667,3 +777,52 @@ def test_other_head_dims_raise_on_card(cuda):
         for a, r in zip(grads, fused_attention_backward_reference(
                 q, k, v, go)):
             _assert_close_on_card(a, r, torch.float32, grad=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [113, 128, 129, 197, 577, 613])
+def test_k1_statistics_match_plain_on_card(cuda, causal, l, d):
+    """K1's statistics from both bf16 bodies (113 and 128 run the short one,
+    which K2's tiled pair follows at head_dim 96 and 128) against the plain
+    version's, laid out in rows of whole 64-row tiles; the output is the
+    one K1 gives without them, bit for bit."""
+    q, k, v, _ = _packed_qkv(cuda, torch.bfloat16, SWEEP_B, SWEEP_H, l,
+                             2000 + l, d)
+    o, lse = fused_attention_forward(q, k, v, causal, with_stats=True)
+    torch.cuda.synchronize()
+    lp = tiles_len(l)
+    assert lse.shape == (SWEEP_B, SWEEP_H, l)
+    assert lse.stride() == (SWEEP_H * lp, lp, 1)
+    assert torch.equal(o, fused_attention_forward(q, k, v, causal))
+    _, want = fused_attention_reference(q, k, v, causal, with_stats=True)
+    torch.testing.assert_close(lse, want, atol=STATS_ATOL, rtol=STATS_RTOL)
+
+
+@pytest.mark.gpu
+def test_tiled_backward_takes_k1_statistics_on_card(cuda):
+    """A bf16 tiled K2 launch without K1's output and statistics, or with
+    statistics of another layout, raises and launches nothing; the short
+    body and float32 need none, and K1 refuses statistics in float32."""
+    q, k, v, go = _packed_qkv(cuda, torch.bfloat16, 2, 3, 577, 9, 64)
+    o, lse = fused_attention_forward(q, k, v, with_stats=True)
+    before = fused_attention_backward.launches
+    with pytest.raises(ValueError, match="K1's output and row statistics"):
+        fused_attention_backward(q, k, v, go)
+    with pytest.raises(ValueError, match="K1's output and row statistics"):
+        fused_attention_backward(q, k, v, go, o=o)
+    with pytest.raises(ValueError, match="lse must be K1's row statistics"):
+        fused_attention_backward(q, k, v, go, o=o, lse=lse.contiguous())
+    assert fused_attention_backward.launches == before
+    fused_attention_backward(q, k, v, go, o=o, lse=lse)
+    for dtype, l in ((torch.bfloat16, 50), (torch.float32, 577)):
+        q, k, v, go = _packed_qkv(cuda, dtype, 2, 3, l, 9, 64)
+        fused_attention_backward(q, k, v, go)
+    torch.cuda.synchronize()
+    assert fused_attention_backward.launches == before + 3
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        fused_attention_forward(q, k, v, with_stats=True)
+    q, k, v, go = _packed_qkv(cuda, torch.bfloat16, 2, 3, 112, 9, 64)
+    with pytest.raises(ValueError, match="from L = 113"):
+        fused_attention_forward(q, k, v, with_stats=True)

@@ -235,8 +235,8 @@ def test_port_imports_nothing_of_jax():
                  os.path.join("parallel", "distributed.py"),
                  os.path.join("train", "state_io.py"),
                  os.path.join("utils", "preemption.py"),
-                 os.path.join("tools", "attention_bodies.py"),
-                 os.path.join("tools", "attention_split.py")):
+                 os.path.join("tools", "attention_ab.py"),
+                 os.path.join("tools", "frames_split.py")):
         assert os.path.join(REPO, "hmmc_tpu_torch", name) in files, name
     for path in files:
         with open(path, encoding="utf-8") as fh:
